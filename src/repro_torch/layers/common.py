@@ -1,0 +1,55 @@
+"""Shared config dataclass and the GEMM application helper.
+
+Counterpart of `repro.layers.common` for the DS2 slice: `ModelConfig`
+(its `dtype` is a `torch.dtype`) and `gemm`, which applies a GEMM leaf
+(`FactoredLinear`, `QuantizedLinear` or a raw weight tensor) and, given
+a `kernels.dispatch.KernelPolicy`, routes it through the CUDA kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.factored import FactoredLinear, matmul_ref
+from repro_torch.quant.leaf import QuantizedLinear
+
+
+def gemm(leaf, x: torch.Tensor, policy=None) -> torch.Tensor:
+  """y[..., n] = x[..., m] @ W(m, n); factored path = (x @ U) @ V.
+
+  With no policy this is the plain path: leaves apply their own math
+  (`FactoredLinear.apply`, the w8a8 oracle of `QuantizedLinear`), raw
+  tensors follow `core.factored.matmul_ref`. A policy hands the call to
+  `kernels.dispatch.gemm`, which picks the regime."""
+  if policy is not None:
+    from repro_torch.kernels import dispatch
+    return dispatch.gemm(leaf, x, policy)
+  if isinstance(leaf, (FactoredLinear, QuantizedLinear)):
+    return leaf.apply(x)
+  return matmul_ref(x, leaf)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+  """The reference's `ModelConfig`, cut to the fields the DS2 family
+  reads (the LM/MoE/SSM fields come with their families)."""
+  name: str
+  family: str                   # deepspeech (the only ported family)
+  num_layers: int
+  d_model: int
+  num_heads: int
+  num_kv_heads: int
+  d_ff: int
+  vocab_size: int
+  dtype: torch.dtype = torch.bfloat16
+  # -- speech (deepspeech2) --
+  feat_dim: int = 80                      # mel bins (paper B.3)
+  gru_dims: tuple = ()                    # growing sizes (paper B.1)
+  fc_dim: int = 0
+  conv_channels: int = 32
+  time_stride: int = 2
+  remat: str = "full"                     # training knob, kept for parity
+
+  def with_(self, **kw) -> "ModelConfig":
+    return dataclasses.replace(self, **kw)

@@ -1,0 +1,165 @@
+"""Deep Speech 2 acoustic model — the paper's baseline architecture.
+
+Counterpart of `repro.models.deepspeech`: two strided 2D convs + ReLU,
+growing forward-only GRUs (paper App. B.1), FC + ReLU, output GEMM and
+log-softmax. Public tensors keep the reference's layouts — features
+(b, t, f), conv weights HWIO — and the convs run as `F.conv2d` on
+NCHW/OIHW views with explicit `F.pad`s, because the reference's time
+padding (`conv_time_pads`) is asymmetric. CTC and `api_decode_window`
+come with later slices.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.factored import dense
+from repro_torch.device import resolve_device
+from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.layers.gru import GRU, gru_decode, gru_forward, init_gru
+
+CONV1_TIME_STRIDE = 2   # conv1 halves time; conv2's time stride is
+                        # cfg.time_stride
+CONV_FREQ_STRIDE = 2    # both convs halve frequency
+
+
+class DeepSpeech2(nn.Module):
+  """The DS2 parameters. Attribute paths match the reference's pytree
+  (`conv1`, `conv2`, `grus.gru{i}.{nonrec,rec,bias}`, `fc`, `out`), so
+  `state_dict()` keys are its checkpoint paths with "." for "/"."""
+
+  def __init__(self, conv1: torch.Tensor, conv2: torch.Tensor,
+               grus: dict[str, GRU], fc: nn.Module, out: nn.Module):
+    super().__init__()
+    self.conv1 = nn.Parameter(conv1, requires_grad=False)   # HWIO
+    self.conv2 = nn.Parameter(conv2, requires_grad=False)   # HWIO
+    self.grus = nn.ModuleDict(grus)
+    self.fc = fc
+    self.out = out
+
+  def forward(self, feats: torch.Tensor, cfg: ModelConfig,
+              policy=None) -> torch.Tensor:
+    return forward(self, feats, cfg, policy)
+
+
+def conv_out_len(t: int, k: int, stride: int) -> int:
+  return (t + stride - 1) // stride  # ceil(t / stride), see conv_time_pads
+
+
+def conv_time_pads(t: int, k: int, stride: int) -> tuple:
+  """(pad_left, pad_right) of the streaming time-padding convention: a
+  fixed left pad of (k - stride) // 2, and a right pad that completes
+  exactly ceil(t / stride) output frames."""
+  out = (t + stride - 1) // stride
+  pad_l = (k - stride) // 2
+  pad_r = (out - 1) * stride + k - t - pad_l
+  return pad_l, max(pad_r, 0)
+
+
+def init_model(cfg: ModelConfig, *, generator: torch.Generator,
+               device=None) -> DeepSpeech2:
+  """Random DS2 weights drawn from `generator` (a CPU generator: the same
+  seed gives the same weights on every device), placed on `device`
+  (default: the GPU)."""
+  device = resolve_device(device)
+  ch = cfg.conv_channels
+
+  def conv(shape):
+    w = torch.randn(shape, generator=generator) * 0.05
+    return w.to(device=device, dtype=cfg.dtype)
+
+  # conv1: (time 11 x freq 41), stride (2, 2); conv2: (11 x 21), stride (t, 2)
+  conv1 = conv((11, 41, 1, ch))
+  conv2 = conv((11, 21, ch, ch))
+  freq_after = ((cfg.feat_dim + 1) // 2 + 1) // 2
+  grus, prev = {}, freq_after * ch
+  for i, h in enumerate(cfg.gru_dims):
+    grus[f"gru{i}"] = init_gru(prev, h, layer_prefix=f"gru{i}",
+                               dtype=cfg.dtype, generator=generator,
+                               device=device)
+    prev = h
+  kw = dict(group="nonrec", dtype=cfg.dtype, generator=generator,
+            device=device)
+  return DeepSpeech2(conv1, conv2, grus,
+                     fc=dense(prev, cfg.fc_dim, name="fc", **kw),
+                     out=dense(cfg.fc_dim, cfg.vocab_size, name="out", **kw))
+
+
+def _freq_pads(f: int, k: int, stride: int) -> tuple:
+  total = (conv_out_len(f, k, stride) - 1) * stride + k - f
+  return total // 2, total - total // 2   # "SAME": centred (freq is static)
+
+
+def conv_relu(x: torch.Tensor, w_hwio: torch.Tensor, stride: tuple,
+              time_pads: tuple, freq_pads: tuple) -> torch.Tensor:
+  """One frontend stage in the reference's layout: x (b, t, f, c_in),
+  w (kt, kf, c_in, c_out) -> relu(conv) (b, t', f', c_out), computed in
+  x.dtype with the ReLU in f32, as the reference does."""
+  y = F.pad(x.permute(0, 3, 1, 2), freq_pads + time_pads)
+  y = F.conv2d(y, w_hwio.permute(3, 2, 0, 1), stride=stride)
+  return torch.relu(y.float()).to(x.dtype).permute(0, 2, 3, 1)
+
+
+def _frontend(params: DeepSpeech2, feats: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+  """feats (b, t, f) -> (b, t', gru_in). Time padding follows
+  `conv_time_pads`, so the streamed frontend reproduces it exactly."""
+  x = feats[..., None].to(cfg.dtype)                     # (b, t, f, 1)
+  k1, f1 = params.conv1.shape[:2]
+  x = conv_relu(x, params.conv1, (CONV1_TIME_STRIDE, CONV_FREQ_STRIDE),
+                conv_time_pads(x.shape[1], k1, CONV1_TIME_STRIDE),
+                _freq_pads(x.shape[2], f1, CONV_FREQ_STRIDE))
+  k2, f2 = params.conv2.shape[:2]
+  x = conv_relu(x, params.conv2, (cfg.time_stride, CONV_FREQ_STRIDE),
+                conv_time_pads(x.shape[1], k2, cfg.time_stride),
+                _freq_pads(x.shape[2], f2, CONV_FREQ_STRIDE))
+  b, t, f, c = x.shape
+  return x.reshape(b, t, f * c)
+
+
+def _head(params: DeepSpeech2, h: torch.Tensor, policy) -> torch.Tensor:
+  h = torch.relu(gemm(params.fc, h, policy).float()).to(h.dtype)
+  logits = gemm(params.out, h, policy)
+  return torch.log_softmax(logits.float(), dim=-1)
+
+
+def forward(params: DeepSpeech2, feats: torch.Tensor, cfg: ModelConfig,
+            policy=None) -> torch.Tensor:
+  """feats (b, t, feat_dim) -> log_probs (b, t', vocab)."""
+  x = _frontend(params, feats, cfg)
+  for i in range(len(cfg.gru_dims)):
+    x = gru_forward(params.grus[f"gru{i}"], x, policy)
+  return _head(params, x, policy)
+
+
+def output_lengths(input_lengths: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+  s1 = CONV1_TIME_STRIDE
+  t1 = (input_lengths + s1 - 1) // s1
+  return (t1 + cfg.time_stride - 1) // cfg.time_stride
+
+
+# -- streaming inference (the paper's embedded deployment mode) --------------
+
+
+def init_decode_state(cfg: ModelConfig, batch: int,
+                      device=None) -> dict[str, torch.Tensor]:
+  """Streaming GRU hidden states, zero, one per layer."""
+  device = resolve_device(device)
+  return {f"gru{i}": torch.zeros((batch, h), dtype=cfg.dtype, device=device)
+          for i, h in enumerate(cfg.gru_dims)}
+
+
+def decode_step(params: DeepSpeech2, state: dict, x_t: torch.Tensor,
+                cfg: ModelConfig, policy=None
+                ) -> tuple[torch.Tensor, dict]:
+  """One post-frontend frame x_t (b, gru_in) -> (log_probs (b, v), new
+  state). The paper's low-batch regime: a decode policy routes the GRU
+  steps and the FC through the kernels."""
+  new_state = {}
+  h = x_t
+  for i in range(len(cfg.gru_dims)):
+    h = gru_decode(params.grus[f"gru{i}"], h, state[f"gru{i}"], policy)
+    new_state[f"gru{i}"] = h
+  return _head(params, h, policy), new_state

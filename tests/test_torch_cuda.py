@@ -1,0 +1,137 @@
+"""The port on the card: its four CUDA kernels against their plain
+versions, and the streaming server through the kernels against the plain
+policy. Every test here is marked `gpu` and skips where no CUDA device is
+present (the kernels have no CPU mode); on a GPU machine run
+
+  python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+The file imports only torch and the port (no JAX), so it runs where JAX
+is not installed. Tolerances: f32 within 1e-4 (summation order), bf16
+within 1e-2 (one output rounding is 2^-8 relative), int8 bit for bit."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ref  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+#: odd shapes (ragged edges in m and n) and a batch above 16 (grid.y)
+GRID = [(1, 128, 128), (3, 300, 700), (16, 384, 136), (37, 300, 700)]
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  return torch.device("cuda")
+
+
+def rnd(seed, shape, scale=1.0):
+  return np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_versions(cuda, dtype):
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  from repro_torch.kernels.gru_cell import gru_cell
+  from repro_torch.kernels.int8_gemm import int8_gemm
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+
+  def dev(a):
+    return torch.from_numpy(a).to(cuda, dt)
+
+  for b, m, n in GRID:
+    x, w = dev(rnd(b, (b, m))), dev(rnd(m, (m, n), 0.05))
+    u, v = dev(rnd(1, (m, 130), 0.08)), dev(rnd(2, (130, n), 0.08))
+    torch.testing.assert_close(decode_matvec(x, w), ref.decode_matvec(x, w),
+                               **tol)
+    torch.testing.assert_close(lowrank_gemm(x, u, v),
+                               ref.lowrank_gemm(x, u, v), **tol)
+    xq, xs = ref.quantize_rowwise(x)
+    wq, ws = ref.quantize_colwise(w)
+    assert torch.equal(int8_gemm(xq, wq, xs, ws),
+                       ref.int8_gemm(xq, wq, xs, ws))
+  for b, h in ((1, 128), (5, 200), (20, 384)):
+    xw, hh = dev(rnd(1, (b, 3 * h))), dev(rnd(2, (b, h)))
+    uh = dev(rnd(3, (h, 3 * h), 0.05))
+    bias = torch.from_numpy(rnd(4, (3 * h,), 0.1)).to(cuda)
+    torch.testing.assert_close(gru_cell(xw, hh, uh, bias),
+                               ref.gru_cell(xw, hh, uh, bias), **tol)
+
+
+def test_launchers_validate_operands(cuda):
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  from repro_torch.kernels.gru_cell import gru_cell
+  x = torch.ones(2, 128, device=cuda)
+  with pytest.raises(TypeError):
+    decode_matvec(x, torch.ones(128, 64, device=cuda, dtype=torch.bfloat16))
+  with pytest.raises(ValueError):
+    decode_matvec(x, torch.ones(127, 64, device=cuda))
+  with pytest.raises(TypeError, match="bias"):
+    gru_cell(torch.ones(2, 384, device=cuda), x,
+             torch.ones(128, 384, device=cuda),
+             torch.ones(384, device=cuda, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("form", ["dense", "factored", "int8"])
+def test_server_through_kernels_matches_plain(cuda, form):
+  """A small f32 DS2 fleet on the card: the "cuda" policy launches the
+  form's kernels, and every label and per-step log-prob equals the plain
+  policy's within 1e-4 (PTQ'd: bit for bit)."""
+  from repro_torch import configs
+  from repro_torch.core.compress import FactorizationPlan
+  from repro_torch.core.factored import factored, map_factored_leaves
+  from repro_torch.kernels import ops
+  from repro_torch.models.deepspeech import init_model
+  from repro_torch.quant import quantize_params
+  from repro_torch.serving import StreamingSpeechServer
+  cfg = configs.get_smoke("deepspeech2-wsj").with_(
+      gru_dims=(128, 128, 256), fc_dim=128, d_model=256, dtype=torch.float32)
+  gen = torch.Generator().manual_seed(0)
+  params = init_model(cfg, generator=gen, device=cuda)
+  if form == "factored":
+    plan = FactorizationPlan()
+    params = map_factored_leaves(
+        lambda leaf: factored(leaf.in_dim, leaf.out_dim, 128, name=leaf.name,
+                              group=leaf.group, generator=gen, device=cuda)
+        if plan.matches(leaf) else leaf, params)
+  elif form == "int8":
+    params = quantize_params(params)
+  utts = [rnd(t, (t, 80)) for t in (17, 23, 31)]
+
+  def serve(policy):
+    srv = StreamingSpeechServer(cfg, params, batch_size=2,
+                                kernel_policy=policy, device=cuda)
+    steps, step = [], srv._frame_step
+
+    def recording(x, active):
+      lp = step(x, active)
+      steps.append(lp[active])
+      return lp
+    srv._frame_step = recording
+    for u in utts:
+      srv.submit(u)
+    ops.reset_launches()
+    labels = {r.uid: r.labels for r in srv.run(chunk_frames=7)}
+    return labels, steps, dict(ops.LAUNCHES)
+
+  got, got_steps, launches = serve("cuda")
+  want, want_steps, plain_launches = serve("plain")
+  expected = {"dense": {"gru_cell", "decode_matvec"},
+              "factored": {"lowrank_gemm"}, "int8": {"int8_gemm"}}[form]
+  assert {k for k, n in launches.items() if n} == expected
+  assert not any(plain_launches.values())
+  assert len(got_steps) == len(want_steps)
+  for g, w in zip(got_steps, want_steps):
+    if form == "int8":
+      assert torch.equal(g, w)
+    else:
+      torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+  assert got == want

@@ -1,0 +1,52 @@
+"""The port stands alone: no module of `src/repro_torch/` imports JAX or
+anything of the reference package `repro`, and its entry points run on
+the GPU unless the caller asks for the CPU — with no GPU they raise
+instead of falling back."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+def _imported_modules(path: Path):
+  for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    if isinstance(node, ast.Import):
+      for alias in node.names:
+        yield alias.name
+    elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+      yield node.module
+
+
+def test_port_imports_neither_jax_nor_reference():
+  files = sorted(PORT.rglob("*.py"))
+  assert len(files) > 20
+  bad = [(f.relative_to(PORT), mod) for f in files
+         for mod in _imported_modules(f)
+         if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+  assert bad == []
+
+
+def test_entry_points_default_to_the_gpu(monkeypatch):
+  """With no GPU, a call that does not ask for the CPU raises."""
+  from repro_torch import configs
+  from repro_torch.device import resolve_device
+  from repro_torch.models.deepspeech import init_decode_state, init_model
+  from repro_torch.serving import StreamingSpeechServer
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  cfg = configs.get_smoke("deepspeech2-wsj")
+  gen = torch.Generator().manual_seed(0)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    resolve_device()
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_model(cfg, generator=gen)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_decode_state(cfg, 2)
+  params = init_model(cfg, generator=gen, device="cpu")
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    StreamingSpeechServer(cfg, params, batch_size=2)
+  srv = StreamingSpeechServer(cfg, params, batch_size=2, device="cpu")
+  assert srv.device.type == "cpu"

@@ -1,0 +1,118 @@
+"""The port's kernel plain versions (`repro_torch.kernels.ref`) against
+the reference's oracles (`repro.kernels.ref`) and Pallas kernels
+(`repro.kernels.ops`, interpret mode on the CPU), on a subset of
+tests/test_kernels.py's shape grid, and the `ops` wrappers on CPU
+tensors. (The CUDA kernels are held against the plain versions on the
+card by tests/test_torch_cuda.py and chip_smoke.py.)
+
+Tolerances: f32 rtol = atol = 1e-5 (summation order differs between the
+frameworks; the inputs are O(1) and m <= 1024). int8 tensors, scales and
+GEMM outputs are compared bit for bit."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+#: (b, m, n) from tests/test_kernels.py's PARITY_GRID, odd shapes included
+GRID = [(1, 128, 128), (3, 300, 700), (16, 384, 136)]
+
+
+def rnd(seed, shape, scale=1.0):
+  return np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
+
+
+def both(*arrays):
+  return ([jnp.asarray(a) for a in arrays],
+          [torch.from_numpy(a) for a in arrays])
+
+
+def close(got_t, want_j, **tol):
+  np.testing.assert_allclose(got_t.numpy(), np.asarray(want_j),
+                             **(tol or TOL))
+
+
+@pytest.mark.parametrize("b,m,n", GRID)
+def test_decode_matvec_matches_reference(b, m, n):
+  (xj, wj), (xt, wt) = both(rnd(b, (b, m)), rnd(m, (m, n), 0.05))
+  got = ref.decode_matvec(xt, wt)
+  close(got, jref.decode_matvec(xj, wj))
+  close(got, jops.decode_matvec(xj, wj))
+
+
+@pytest.mark.parametrize("b,m,n", GRID)
+def test_lowrank_gemm_matches_reference(b, m, n):
+  r = max(128, min(m, n) // 2)
+  (xj, uj, vj), (xt, ut, vt) = both(rnd(b, (b, m)), rnd(m, (m, r), 0.05),
+                                    rnd(n, (r, n), 0.05))
+  got = ref.lowrank_gemm(xt, ut, vt)
+  close(got, jref.lowrank_gemm(xj, uj, vj))
+  close(got, jops.lowrank_gemm(xj, uj, vj))
+
+
+@pytest.mark.parametrize("b,h", [(1, 128), (3, 256), (5, 384)])
+def test_gru_cell_matches_reference(b, h):
+  (xwj, hj, uj, bj), (xwt, ht, ut, bt) = both(
+      rnd(1, (b, 3 * h)), rnd(2, (b, h)), rnd(3, (h, 3 * h), 0.05),
+      rnd(4, (3 * h,), 0.1))
+  got = ref.gru_cell(xwt, ht, ut, bt)
+  close(got, jref.gru_cell(xwj, hj, uj, bj))
+  close(got, jops.gru_cell(xwj, hj, uj, bj))
+
+
+@pytest.mark.parametrize("b,m,n", GRID)
+def test_quantize_and_int8_gemm_bitwise(b, m, n):
+  (xj, wj), (xt, wt) = both(rnd(b, (b, m)), rnd(m, (m, n), 0.05))
+  xq, xs = ref.quantize_rowwise(xt)
+  wq, ws = ref.quantize_colwise(wt)
+  jxq, jxs = jref.quantize_rowwise(xj)
+  jwq, jws = jref.quantize_colwise(wj)
+  for got, want in ((xq, jxq), (xs, jxs), (wq, jwq), (ws, jws)):
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+  y = ref.int8_gemm(xq, wq, xs, ws)
+  np.testing.assert_array_equal(y.numpy(),
+                                np.asarray(jref.int8_gemm(jxq, jwq, jxs, jws)))
+  np.testing.assert_array_equal(y.numpy(),
+                                np.asarray(jops.int8_gemm(jxq, jwq, jxs, jws)))
+
+
+def test_quantize_static_bitwise():
+  (xj,), (xt,) = both(rnd(7, (4, 200), 2.0))
+  for amax in (0.5, 3.0):                       # saturating and not
+    scale = np.float32(amax / 127.0)
+    q, s = ref.quantize_static(xt, torch.tensor(scale))
+    jq, js = jref.quantize_static(xj, jnp.float32(scale))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+def test_ops_take_plain_version_on_cpu_without_launching():
+  """On CPU tensors each wrapper is its plain version, bit for bit, and
+  counts no launch (a launch happens only on a CUDA tensor)."""
+  ops.reset_launches()
+  x, w = torch.from_numpy(rnd(0, (4, 192))), torch.from_numpy(rnd(1, (192, 256)))
+  u, v = torch.from_numpy(rnd(2, (192, 128))), torch.from_numpy(rnd(3, (128, 256)))
+  assert torch.equal(ops.decode_matvec(x, w), ref.decode_matvec(x, w))
+  assert torch.equal(ops.lowrank_gemm(x, u, v), ref.lowrank_gemm(x, u, v))
+  xw, h = torch.from_numpy(rnd(4, (4, 384))), torch.from_numpy(rnd(5, (4, 128)))
+  uh, bias = torch.from_numpy(rnd(6, (128, 384), 0.05)), torch.zeros(384)
+  assert torch.equal(ops.gru_cell(xw, h, uh, bias),
+                     ref.gru_cell(xw, h, uh, bias))
+  xq, xs = ref.quantize_rowwise(x)
+  wq, ws = ref.quantize_colwise(w)
+  assert torch.equal(ops.int8_gemm(xq, wq, xs, ws),
+                     ref.int8_gemm(xq, wq, xs, ws))
+  assert set(ops.LAUNCHES.values()) == {0}
+
+
+def test_launchers_refuse_cpu_tensors():
+  """A launcher never computes on the CPU: it wants CUDA tensors."""
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  with pytest.raises(ValueError, match="CUDA"):
+    decode_matvec(torch.ones(2, 128), torch.ones(128, 128))
