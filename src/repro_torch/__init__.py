@@ -6,11 +6,14 @@ PyTorch; every Pallas kernel of the reference becomes a hand-written
 CUDA kernel for Hopper (`kernels/csrc/`), built with `nvcc` at first use.
 
 Ported so far: the DS2 streaming-serving path — `deepspeech2-wsj`
-config, factored/quantized GEMM leaves, the kernel dispatcher and its
-four kernels (gru_cell, decode_matvec, lowrank_gemm, int8_gemm), the GRU
+config, factored/quantized GEMM leaves, the kernel dispatcher, the GRU
 layer, the DS2 model, the synthetic speech data, `StreamingSpeechServer`
-and the `deepspeech` branch of `launch.serve`. `bridge` carries weights
-over from the reference's checkpoint path strings.
+— and the dense-transformer LM — `llama3-8b` config, RMSNorm, RoPE,
+SwiGLU, GQA attention, `models.transformer`, `models.api`, a vanilla
+`LMEngine` — with both branches of `launch.serve`. All five kernels of
+the reference have a CUDA counterpart (gru_cell, decode_matvec,
+lowrank_gemm, int8_gemm, flash_attention). `bridge` carries weights over
+from the reference's checkpoint path strings.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no GPU and no explicit CPU request they raise.

@@ -1,12 +1,18 @@
 """Weights carried across from the JAX reference.
 
-`from_reference` turns a `{path: np.ndarray}` dict into the port's DS2
-params. Keys are the reference's checkpoint path strings
-(`repro.checkpoint.manager`): "conv1", "grus/gru0/nonrec/w",
-"grus/gru0/bias", "fc/u", "out/w_q", ... The leaf type comes from the
-field names (w -> dense, u/v -> factored, w_q/u_q/... -> quantized);
-`name` and `group` are rebuilt from the path as `init_model` sets them.
-Conv weights stay HWIO, the reference's layout.
+`from_reference` turns a `{path: np.ndarray}` dict into the port's
+params, of the family `cfg.family` names. Keys are the reference's
+checkpoint path strings (`repro.checkpoint.manager`):
+  deepspeech:  "conv1", "grus/gru0/nonrec/w", "grus/gru0/bias", "fc/u",
+               "out/w_q", ...
+  transformer: "embedding/table", "embedding/head/w", "final_norm",
+               "dense_layers/ln1", "dense_layers/attn/wq/w",
+               "dense_layers/ffn/w_gate/w", ... (layer-stacked, as the
+               reference stores them)
+The leaf type comes from the field names (w -> dense, u/v -> factored,
+w_q/u_q/... -> quantized); `name` and `group` are rebuilt from the path
+as the model's init sets them. Conv weights stay HWIO, the reference's
+layout.
 
 bf16 arrives either as an `ml_dtypes.bfloat16` array or as its `uint16`
 view plus the dtype string "bfloat16" (the checkpoint layout); both are
@@ -20,11 +26,17 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from torch import nn
+
 from repro_torch.core.factored import FactoredLinear
 from repro_torch.device import resolve_device
+from repro_torch.layers.attention import Attention
 from repro_torch.layers.common import ModelConfig
+from repro_torch.layers.embedding import Embedding
+from repro_torch.layers.ffn import SwiGLU
 from repro_torch.layers.gru import GRU
 from repro_torch.models.deepspeech import DeepSpeech2
+from repro_torch.models.transformer import LayerStack, TransformerLM
 from repro_torch.quant.leaf import QuantizedLinear
 
 _FLOAT_FIELDS = {"w", "u", "v"}
@@ -55,43 +67,78 @@ def _leaf(fields: dict, *, name: str, group: str, cfg: ModelConfig):
   raise ValueError(f"GEMM leaf {name!r}: unknown field set {sorted(keys)}")
 
 
-def from_reference(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, *,
-                   dtypes: Optional[Mapping[str, str]] = None,
-                   device=None) -> DeepSpeech2:
-  """Build a `DeepSpeech2` on `device` (default: the GPU) from the
-  reference's path-keyed arrays. `dtypes` maps paths to dtype strings
-  where an array is a raw view (bf16 as uint16). Every key must be used:
-  an unknown or missing one raises."""
-  device = resolve_device(device)
-  dtypes = dtypes or {}
-  rest = {k: to_tensor(v, dtypes.get(k)).to(device)
-          for k, v in arrays.items()}
+class _Arrays:
+  """The path-keyed arrays as tensors on one device; every key must be
+  used exactly once."""
 
-  def take(prefix: str) -> dict:
-    out = {k[len(prefix) + 1:]: rest.pop(k) for k in list(rest)
+  def __init__(self, arrays, dtypes, device):
+    dtypes = dtypes or {}
+    self.rest = {k: to_tensor(v, dtypes.get(k)).to(device)
+                 for k, v in arrays.items()}
+
+  def take(self, prefix: str) -> dict:
+    out = {k[len(prefix) + 1:]: self.rest.pop(k) for k in list(self.rest)
            if k.startswith(prefix + "/")}
     if not out:
       raise KeyError(f"no arrays under {prefix!r}")
     return out
 
-  def pop(key: str) -> torch.Tensor:
-    if key not in rest:
+  def pop(self, key: str) -> torch.Tensor:
+    if key not in self.rest:
       raise KeyError(f"missing array {key!r}")
-    return rest.pop(key)
+    return self.rest.pop(key)
 
+  def done(self) -> None:
+    if self.rest:
+      raise KeyError(f"unused arrays: {sorted(self.rest)}")
+
+
+def _deepspeech(a: _Arrays, cfg: ModelConfig) -> DeepSpeech2:
   grus = {}
   for i in range(len(cfg.gru_dims)):
     p = f"grus/gru{i}"
     grus[f"gru{i}"] = GRU(
-        nonrec=_leaf(take(f"{p}/nonrec"), name=f"gru{i}/nonrec",
+        nonrec=_leaf(a.take(f"{p}/nonrec"), name=f"gru{i}/nonrec",
                      group="nonrec", cfg=cfg),
-        rec=_leaf(take(f"{p}/rec"), name=f"gru{i}/rec", group="rec",
+        rec=_leaf(a.take(f"{p}/rec"), name=f"gru{i}/rec", group="rec",
                   cfg=cfg),
-        bias=pop(f"{p}/bias"))
-  model = DeepSpeech2(
-      pop("conv1"), pop("conv2"), grus,
-      fc=_leaf(take("fc"), name="fc", group="nonrec", cfg=cfg),
-      out=_leaf(take("out"), name="out", group="nonrec", cfg=cfg))
-  if rest:
-    raise KeyError(f"unused arrays: {sorted(rest)}")
+        bias=a.pop(f"{p}/bias"))
+  return DeepSpeech2(
+      a.pop("conv1"), a.pop("conv2"), grus,
+      fc=_leaf(a.take("fc"), name="fc", group="nonrec", cfg=cfg),
+      out=_leaf(a.take("out"), name="out", group="nonrec", cfg=cfg))
+
+
+def _transformer(a: _Arrays, cfg: ModelConfig) -> TransformerLM:
+  def gemm_leaf(path: str, name: str):
+    return _leaf(a.take(path), name=name, group="nonrec", cfg=cfg)
+
+  table = a.pop("embedding/table")
+  head = None if cfg.tie_embeddings else gemm_leaf("embedding/head",
+                                                   "lm_head")
+  p = "dense_layers"
+  attn = Attention(*(gemm_leaf(f"{p}/attn/w{x}", f"layers/attn_{x}")
+                     for x in "qkvo"))
+  ffn = SwiGLU(*(gemm_leaf(f"{p}/ffn/w_{x}", f"layers/ffn_{x}")
+                 for x in ("gate", "up", "down")))
+  layers = LayerStack(a.pop(f"{p}/ln1"), a.pop(f"{p}/ln2"), attn, ffn)
+  return TransformerLM(Embedding(table, head), a.pop("final_norm"), layers)
+
+
+_FAMILIES = {"deepspeech": _deepspeech, "transformer": _transformer}
+
+
+def from_reference(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, *,
+                   dtypes: Optional[Mapping[str, str]] = None,
+                   device=None) -> nn.Module:
+  """Build the `cfg.family` model (a `DeepSpeech2` or a `TransformerLM`)
+  on `device` (default: the GPU) from the reference's path-keyed arrays.
+  `dtypes` maps paths to dtype strings where an array is a raw view
+  (bf16 as uint16). Every key must be used: an unknown or missing one
+  raises."""
+  if cfg.family not in _FAMILIES:
+    raise ValueError(f"no bridge for model family {cfg.family!r}")
+  a = _Arrays(arrays, dtypes, resolve_device(device))
+  model = _FAMILIES[cfg.family](a, cfg)
+  a.done()
   return model

@@ -1,15 +1,16 @@
-"""Architecture registry of the port (the DS2 slice: one architecture).
+"""Architecture registry of the port (deepspeech2-wsj and llama3-8b).
 
   get_config(name)  — full config
   get_smoke(name)   — reduced same-family config (CPU-runnable)
 """
 from __future__ import annotations
 
-from repro_torch.configs import deepspeech2_wsj
+from repro_torch.configs import deepspeech2_wsj, llama3_8b
 from repro_torch.layers.common import ModelConfig
 
 _MODULES = {
     "deepspeech2-wsj": deepspeech2_wsj,
+    "llama3-8b": llama3_8b,
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -7,8 +7,13 @@ the static logical `name` ("gru0/rec", "fc", ...) and `group`
 so `state_dict()` keys are the reference checkpoint paths with "." for
 "/" (e.g. `grus.gru0.nonrec.w`).
 
-Weights are `nn.Parameter`s with `requires_grad=False`: this slice
+Weights are `nn.Parameter`s with `requires_grad=False`: the port
 serves; training turns gradients on when it is ported.
+
+Layer-stacked leaves keep the reference's layout — `w` (L, m, n), as
+`dense(..., stack=(L,))` makes it — so their `state_dict()` keys stay the
+checkpoint paths. The reference scans over the stack; the port loops
+over layers and takes layer i's 2-D leaf from `leaf.layer(i)`.
 """
 from __future__ import annotations
 
@@ -93,26 +98,41 @@ class FactoredLinear(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return self.apply(x)
 
+  def layer(self, i: int) -> "FactoredLinear":
+    """Layer i of a layer-stacked leaf, as a 2-D leaf sharing storage."""
+    if self.is_factored:
+      return FactoredLinear(u=self.u[i], v=self.v[i], name=self.name,
+                            group=self.group)
+    return FactoredLinear(w=self.w[i], name=self.name, group=self.group)
+
 
 # ----------------------------------------------------------------------------
 # Constructors.
 # ----------------------------------------------------------------------------
 
-def _normal(shape: tuple, std: float, generator: torch.Generator,
-            dtype: torch.dtype, device) -> torch.Tensor:
-  """N(0, std^2) drawn on the CPU from `generator`, then moved: the
-  same generator gives the same weights on every device."""
-  w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
-  return w.to(device=device, dtype=dtype)
+def normal(shape: tuple, std: float, generator: torch.Generator,
+           dtype: torch.dtype, device) -> torch.Tensor:
+  """N(0, std^2) from `generator`. A CPU generator draws f32 on the CPU,
+  then the values move: the same seed gives the same weights on every
+  device. A CUDA generator draws on its device, straight in `dtype` (a
+  full-width LM would need ~32 GB of f32 host draws otherwise)."""
+  if generator.device.type == "cpu":
+    w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    return w.to(device=device, dtype=dtype)
+  w = torch.randn(shape, generator=generator, dtype=dtype,
+                  device=generator.device)
+  return w.mul_(std).to(device)
 
 
 def dense(m: int, n: int, *, name: str, group: str = "nonrec",
           dtype: torch.dtype = torch.float32, scale: Optional[float] = None,
-          generator: torch.Generator, device) -> FactoredLinear:
-  """Unfactored GEMM with LeCun-normal init (stddev 1/sqrt(m))."""
+          generator: torch.Generator, device,
+          stack: tuple = ()) -> FactoredLinear:
+  """Unfactored GEMM with LeCun-normal init (stddev 1/sqrt(m)); `stack`
+  prepends layer axes, as the reference's `dense(..., stack=)`."""
   scale = (1.0 / m) ** 0.5 if scale is None else scale
-  return FactoredLinear(w=_normal((m, n), scale, generator, dtype, device),
-                        name=name, group=group)
+  w = normal(tuple(stack) + (m, n), scale, generator, dtype, device)
+  return FactoredLinear(w=w, name=name, group=group)
 
 
 def factored(m: int, n: int, r: Optional[int] = None, *, name: str,
@@ -124,8 +144,8 @@ def factored(m: int, n: int, r: Optional[int] = None, *, name: str,
   r = min(m, n) if r is None else r
   scale = (1.0 / m) ** 0.5 if scale is None else scale
   s = (scale / (r ** 0.5)) ** 0.5
-  u = _normal((m, r), s, generator, dtype, device)
-  v = _normal((r, n), s, generator, dtype, device)
+  u = normal((m, r), s, generator, dtype, device)
+  v = normal((r, n), s, generator, dtype, device)
   return FactoredLinear(u=u, v=v, name=name, group=group)
 
 

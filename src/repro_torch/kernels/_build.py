@@ -33,6 +33,7 @@ SIGNATURES = {
     "rk_lowrank_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rk_gru_cell": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rk_int8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rk_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -9,9 +9,20 @@ regime names, so the two packages' routing logs compare by equality:
                   (stored int8 weights and scales consumed directly); an
                   override on a float leaf re-quantizes per call
   gru_cell      — the fused recurrent step, routed by `maybe_gru_cell`
+  flash_attention — the prefill's causal attention, routed by
+                  `maybe_flash_attention`
   jnp           — everything else and degenerate shapes: the plain
                   PyTorch path (`torch.matmul`), named after the
                   reference's plain regime
+
+`maybe_flash_attention` has no counterpart in the reference's
+dispatcher: the reference's models run the jnp twin of its Pallas
+flash_attention (`repro.layers.attention.flash_attention`, documented
+as that kernel's oracle) and record no attention decision. The port
+wires in the kernel the reference ships, on the path whose jnp form is
+its oracle; the outputs agree within tolerance, so it adds no
+behaviour. A routing log compared with the reference's therefore drops
+the ("layers/attn", "flash_attention") entry.
 
 Classification keeps the reference's 128-lane gate (no dimension below
 128 goes to a kernel) even though the CUDA kernels take any shape: the
@@ -36,7 +47,8 @@ from repro_torch.kernels import ops
 from repro_torch.quant.leaf import QuantizedLinear, kernel_apply
 
 #: every regime a policy (or override) may name
-REGIMES = ("jnp", "decode_matvec", "lowrank_gemm", "int8_gemm", "gru_cell")
+REGIMES = ("jnp", "decode_matvec", "lowrank_gemm", "int8_gemm", "gru_cell",
+           "flash_attention")
 
 #: smallest dimension classify() routes to a kernel (the reference's
 #: MXU-lane gate, kept so routing stays identical)
@@ -156,8 +168,8 @@ def classify(leaf, x: torch.Tensor, policy: Optional[KernelPolicy],
     return "jnp" if policy.override_for(name) == "jnp" else "int8_gemm"
   factored = isinstance(leaf, FactoredLinear) and leaf.is_factored
   regime = policy.override_for(name)
-  if regime == "gru_cell":
-    # the gru_cell regime exists only at the recurrent-step call site
+  if regime in ("gru_cell", "flash_attention"):
+    # these regimes exist only at their own call sites, not at a GEMM
     regime = "jnp"
   if regime is None:
     if factored:
@@ -237,3 +249,22 @@ def maybe_gru_cell(xw: torch.Tensor, h: torch.Tensor, rec,
     return None
   _record(name, "gru_cell")
   return ops.gru_cell(xw, h, rec.w, bias)
+
+
+# ---------------------------------------------------------------------------
+# The attention entry point (layers/attention).
+# ---------------------------------------------------------------------------
+
+def maybe_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          policy: Optional[KernelPolicy],
+                          name: str) -> Optional[torch.Tensor]:
+  """Route one causal attention (q, k, v: (b, s, h, d), kv heads
+  repeated) to the flash_attention kernel, or return None to decline
+  (the caller then runs the plain blockwise body)."""
+  if policy is None or policy.mode == "jnp_only":
+    return None
+  override = policy.override_for(name)
+  if override is not None and override != "flash_attention":
+    return None
+  _record(name, "flash_attention")
+  return ops.flash_attention(q, k, v, causal=True)

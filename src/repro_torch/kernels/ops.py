@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_matvec import decode_matvec as _decode_matvec
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_attention
 from repro_torch.kernels.gru_cell import gru_cell as _gru_cell
 from repro_torch.kernels.int8_gemm import int8_gemm as _int8_gemm
 from repro_torch.kernels.lowrank_gemm import lowrank_gemm as _lowrank_gemm
@@ -30,7 +32,8 @@ DECODE_BATCH_MAX = 16
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
-    "gru_cell": 0, "decode_matvec": 0, "lowrank_gemm": 0, "int8_gemm": 0}
+    "gru_cell": 0, "decode_matvec": 0, "lowrank_gemm": 0, "int8_gemm": 0,
+    "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -94,4 +97,15 @@ def gru_cell(xw: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     return ref.gru_cell(xw, h, u, bias)
   y = _gru_cell(xw, h, u, bias)
   LAUNCHES["gru_cell"] += 1
+  return y
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+  """Online-softmax attention; q, k, v: (b, s, h, d) with kv heads
+  already repeated (GQA callers repeat first)."""
+  if _on_cpu(q, k, v):
+    return ref.flash_attention(q, k, v, causal=causal)
+  y = _flash_attention(q, k, v, causal=causal)
+  LAUNCHES["flash_attention"] += 1
   return y

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels, plus the int8
+"""Plain PyTorch versions of the five CUDA kernels, plus the int8
 quantizers — the counterparts of `repro.kernels.ref`.
 
 Each function is the kernel's mathematical definition with no tiling.
@@ -53,6 +53,20 @@ def gru_cell(xw: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
   hcand = torch.tanh(gh - hu_h + r * hu_h)
   h1 = (1.0 - z) * h.to(f32) + z * hcand
   return h1.to(h.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+  """Reference attention. q, k, v: (b, s, h, d), kv heads already
+  repeated -> (b, s, h, d) in q.dtype. f32 scores over the whole S x S
+  matrix, so only for the shapes a test or a check compares at."""
+  s, d = q.shape[1], q.shape[-1]
+  sc = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) / (d ** 0.5)
+  if causal:
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    sc = torch.where(mask, sc, float("-inf"))
+  p = torch.softmax(sc, dim=-1)
+  return torch.einsum("bhqk,bkhd->bqhd", p, v.to(f32)).to(q.dtype)
 
 
 def quantize_rowwise(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

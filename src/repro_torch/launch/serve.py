@@ -1,8 +1,12 @@
-"""Serving entry point of the port: streams DS2 speech through the
-continuous-batching `StreamingSpeechServer` (the `deepspeech` branch of
-`repro.launch.serve`).
+"""Serving entry point of the port: drives a queue of mixed-length
+requests through the continuous-batching `LMEngine`, or streams DS2
+speech through the `StreamingSpeechServer` — the counterpart of
+`repro.launch.serve` without speculation, the prefix cache or the rank
+controller.
 
-Example (on a machine with a GPU; `--device cpu` runs the plain path):
+Examples (on a machine with a GPU; `--device cpu` runs the plain path):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --full --kernels cuda --batch 4 --num-requests 8 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepspeech2-wsj \
       --full --kernels cuda --batch 4
 """
@@ -17,23 +21,35 @@ import torch
 from repro_torch import configs
 from repro_torch.data.speech import SpeechDataConfig, batch_at
 from repro_torch.device import resolve_device
-from repro_torch.models.deepspeech import init_model
-from repro_torch.serving.engine import StreamingSpeechServer
+from repro_torch.models.api import get_model
+from repro_torch.serving.engine import LMEngine, StreamingSpeechServer
 
 
 def main() -> None:
   ap = argparse.ArgumentParser()
   ap.add_argument("--arch", required=True, choices=configs.ARCH_NAMES)
   ap.add_argument("--batch", type=int, default=4,
-                  help="server slots (concurrent streams)")
+                  help="engine / server slots (concurrent streams)")
   ap.add_argument("--num-requests", type=int, default=None,
-                  help="utterances to queue (default: 2 x --batch)")
+                  help="requests or utterances to queue (default: --batch "
+                       "for an LM, 2 x --batch for speech); extras refill "
+                       "slots as earlier ones retire")
+  ap.add_argument("--steps", type=int, default=16,
+                  help="LM: per-request new-token budget (requests draw "
+                       "varying budgets up to this)")
+  ap.add_argument("--prompt-len", type=int, default=8,
+                  help="LM: mean prompt length; requests draw varying "
+                       "lengths around this")
+  ap.add_argument("--max-len", type=int, default=128)
+  ap.add_argument("--temperature", type=float, default=0.8)
+  ap.add_argument("--eos-id", type=int, default=None,
+                  help="LM: token id retiring a request early")
   ap.add_argument("--full", action="store_true",
                   help="the full config (default: the smoke config)")
   ap.add_argument("--kernels", choices=["plain", "cuda"], default="plain",
-                  help="'cuda' routes the frame step through the CUDA "
-                       "kernels (kernels.dispatch); 'plain' is plain "
-                       "PyTorch")
+                  help="'cuda' routes the decode step (and the frame "
+                       "step) through the CUDA kernels (kernels.dispatch);"
+                       " 'plain' is plain PyTorch")
   ap.add_argument("--quantize", action="store_true",
                   help="one-shot PTQ before serving: every GEMM leaf "
                        "becomes int8 + per-column scales")
@@ -44,8 +60,13 @@ def main() -> None:
   device = resolve_device(args.device)
   cfg = (configs.get_config(args.arch) if args.full
          else configs.get_smoke(args.arch))
-  params = init_model(cfg, generator=torch.Generator().manual_seed(args.seed),
-                      device=device)
+  # a full-width LM is drawn on the card (a CPU draw of 8B values takes
+  # minutes); DS2 and the smoke configs draw on the CPU
+  on_card = (args.full and device.type == "cuda"
+             and cfg.family == "transformer")
+  gen_device = device if on_card else "cpu"
+  gen = torch.Generator(device=gen_device).manual_seed(args.seed)
+  params = get_model(cfg).init(cfg, generator=gen, device=device)
   if args.quantize:
     from repro_torch.core.factored import iter_gemm_leaves
     from repro_torch.quant import QuantizedLinear, quantize_params
@@ -53,7 +74,48 @@ def main() -> None:
     n_int8 = sum(leaf.num_params for leaf in iter_gemm_leaves(params)
                  if isinstance(leaf, QuantizedLinear))
     print(f"PTQ'd {n_int8} GEMM params to int8")
+  where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+           else "cpu")
+  if cfg.family == "deepspeech":
+    serve_speech(args, cfg, params, device, where)
+  else:
+    serve_lm(args, cfg, params, device, where)
 
+
+def _timed(device, fn):
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+  t0 = time.perf_counter()
+  out = fn()
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+  return out, time.perf_counter() - t0
+
+
+def serve_lm(args, cfg, params, device, where) -> None:
+  engine = LMEngine(cfg, params, batch_size=args.batch,
+                    max_len=args.max_len, kernel_policy=args.kernels,
+                    eos_id=args.eos_id, device=device)
+  rng = np.random.RandomState(args.seed)
+  lo, hi = max(1, args.prompt_len // 2), 2 * args.prompt_len
+  for _ in range(args.num_requests or args.batch):
+    prompt = rng.randint(1, cfg.vocab_size, size=(rng.randint(lo, hi + 1),))
+    engine.submit(prompt, max_new_tokens=int(rng.randint(1, args.steps + 1)))
+  finished, dt = _timed(device, lambda: engine.run(
+      temperature=args.temperature))
+  tokens = sum(len(f.tokens) for f in finished)
+  ttfts = sorted(f.ttft_s for f in finished if f.ttft_s is not None)
+  ttft_p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else float("nan")
+  print(f"served {len(finished)} requests ({tokens} tokens) through "
+        f"{args.batch} slots in {dt:.3f}s on {where} ({tokens / dt:.1f} "
+        f"tok/s, TTFT p50 {ttft_p50:.1f} ms, occupancy "
+        f"{engine.occupancy:.2f}, kernels {args.kernels})")
+  for f in finished[:4]:
+    print(f"  req {f.uid}: prompt {len(f.prompt)} -> {len(f.tokens)} "
+          f"tokens ({f.finish_reason}); sample {f.tokens[:6].tolist()}")
+
+
+def serve_speech(args, cfg, params, device, where) -> None:
   server = StreamingSpeechServer(cfg, params, batch_size=args.batch,
                                  kernel_policy=args.kernels, device=device)
   n_utts = args.num_requests or 2 * args.batch
@@ -64,16 +126,8 @@ def main() -> None:
     row = batch_at(dc, i)["feats"][i % dc.global_batch]
     t = int(rng.randint(17, min(64, row.shape[0]) + 1))
     server.submit(row[:t])                  # arbitrary lengths by design
-  if device.type == "cuda":
-    torch.cuda.synchronize(device)
-  t0 = time.perf_counter()
-  results = server.run(chunk_frames=16)
-  if device.type == "cuda":
-    torch.cuda.synchronize(device)
-  dt = time.perf_counter() - t0
+  results, dt = _timed(device, lambda: server.run(chunk_frames=16))
   frames = sum(r.frames for r in results)
-  where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-           else "cpu")
   print(f"fleet served {len(results)} utterances ({frames} frames) "
         f"through {args.batch} slots in {dt:.3f}s on {where} "
         f"({len(results) / dt:.1f} streams/s, {frames / dt:.0f} frames/s, "
@@ -81,7 +135,6 @@ def main() -> None:
   for r in results[:4]:
     print(f"  utt {r.uid}: {r.frames} frames -> {len(r.labels)} labels; "
           f"sample {r.labels[:6]}")
-
 
 if __name__ == "__main__":
   main()

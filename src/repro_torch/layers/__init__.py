@@ -1,1 +1,2 @@
-"""Layers of the ported families (the DS2 slice: GEMM helper and GRU)."""
+"""Layers of the ported families: the GEMM helper, GRU, RMSNorm, RoPE,
+embedding, SwiGLU and GQA attention."""

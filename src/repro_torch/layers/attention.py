@@ -1,0 +1,170 @@
+"""GQA attention: blockwise causal prefill and cached decode.
+
+Counterpart of `repro.layers.attention` for the dense transformer.
+`flash_attention` keeps the reference's contract (causal; GQA kv heads
+repeated first, head j reading kv head j // rep). Under a kernel policy
+it launches the hand-written CUDA kernel (`kernels/csrc/
+flash_attention.cu`, through `kernels.dispatch.maybe_flash_attention`);
+otherwise it runs the plain blockwise online softmax over
+`cfg.attn_block_q` x `cfg.attn_block_kv` tiles, which never builds the
+S x S score matrix. `decode_window` comes with speculation.
+
+`attention_decode` writes the new K/V rows into the cache in place (the
+reference returns a new cache; a copy per step would double the cache
+traffic) and returns the same dict.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core.factored import dense
+from repro_torch.kernels import dispatch
+from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.layers.rope import apply_rope
+
+NEG_INF = -2.0 ** 30  # large-negative in f32: exp never sees inf - inf
+
+
+class Attention(nn.Module):
+  """wq (d, h*hd), wk/wv (d, kv*hd), wo (h*hd, d); layer-stacked in a
+  model."""
+
+  def __init__(self, wq: nn.Module, wk: nn.Module, wv: nn.Module,
+               wo: nn.Module):
+    super().__init__()
+    self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def init_attention(cfg: ModelConfig, *, layer_prefix: str, stack: tuple = (),
+                   generator: torch.Generator, device) -> Attention:
+  d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+  hd = cfg.resolved_head_dim
+  kw = dict(dtype=cfg.dtype, stack=stack, generator=generator, device=device)
+  return Attention(dense(d, h * hd, name=f"{layer_prefix}/attn_q", **kw),
+                   dense(d, kv * hd, name=f"{layer_prefix}/attn_k", **kw),
+                   dense(d, kv * hd, name=f"{layer_prefix}/attn_v", **kw),
+                   dense(h * hd, d, name=f"{layer_prefix}/attn_o", **kw))
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, policy=None):
+  b, s, _ = x.shape
+  h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+  q = gemm(p["wq"], x, policy).reshape(b, s, h, hd)
+  k = gemm(p["wk"], x, policy).reshape(b, s, kv, hd)
+  v = gemm(p["wv"], x, policy).reshape(b, s, kv, hd)
+  q = apply_rope(q, positions, cfg.rope_theta)
+  k = apply_rope(k, positions, cfg.rope_theta)
+  return q, k, v
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        block_q: int, block_kv: int) -> torch.Tensor:
+  """Plain causal online-softmax attention over (block_q x block_kv)
+  tiles. q, k, v: (b, s, h, hd), kv heads already repeated.
+
+  Scores, running max, sum and accumulator are f32; output in q.dtype.
+  Tiles wholly above the diagonal are skipped: in the reference they
+  add exp(NEG_INF - m) = 0 to the sums and scale them by exp(0) = 1, so
+  the result is the same. A ragged last tile is sliced, not padded."""
+  b, s, h, hd = q.shape
+  bq, bkv = min(block_q, s), min(block_kv, s)
+  scale = 1.0 / (hd ** 0.5)
+  f32 = torch.float32
+  out = torch.empty_like(q)
+  for q0 in range(0, s, bq):
+    q_blk = q[:, q0:q0 + bq].to(f32)
+    n = q_blk.shape[1]
+    qpos = torch.arange(q0, q0 + n, device=q.device)[:, None]
+    m = torch.full((b, h, n), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, h, n), dtype=f32, device=q.device)
+    o = torch.zeros((b, n, h, hd), dtype=f32, device=q.device)
+    for k0 in range(0, min(s, q0 + n), bkv):
+      kj = k[:, k0:k0 + bkv].to(f32)
+      vj = v[:, k0:k0 + bkv].to(f32)
+      sc = torch.einsum("bqhd,bkhd->bhqk", q_blk, kj) * scale
+      kpos = torch.arange(k0, k0 + kj.shape[1], device=q.device)[None, :]
+      sc = torch.where(kpos <= qpos, sc, NEG_INF)
+      m_new = torch.maximum(m, sc.amax(dim=-1))
+      p = torch.exp(sc - m_new[..., None])
+      alpha = torch.exp(m - m_new)
+      l = l * alpha + p.sum(dim=-1)
+      o = o * alpha.transpose(1, 2)[..., None] + torch.einsum(
+          "bhqk,bkhd->bqhd", p, vj)
+      m = m_new
+    o = o / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
+    out[:, q0:q0 + n] = o.to(q.dtype)
+  return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: ModelConfig, policy=None) -> torch.Tensor:
+  """Causal attention. q: (b, s, h, hd); k, v: (b, s, kv, hd)."""
+  h, kvh = q.shape[2], k.shape[2]
+  if h != kvh:
+    rep = h // kvh
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+  out = dispatch.maybe_flash_attention(q, k, v, policy, name="layers/attn")
+  if out is not None:
+    return out
+  return blockwise_attention(q, k, v, cfg.attn_block_q, cfg.attn_block_kv)
+
+
+def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                      policy=None) -> torch.Tensor:
+  """Full-sequence causal self-attention (prefill). `p` maps "wq", "wk",
+  "wv", "wo" to 2-D leaves."""
+  b, s, _ = x.shape
+  positions = torch.arange(s, device=x.device)[None].expand(b, s)
+  q, k, v = _project_qkv(p, x, cfg, positions, policy)
+  out = flash_attention(q, k, v, cfg, policy)
+  h, hd = cfg.num_heads, cfg.resolved_head_dim
+  return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
+
+
+# ----------------------------------------------------------------------------
+# Decode path (one new token against a KV cache).
+# ----------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                  stack: tuple = (), dtype=None, device=None) -> dict:
+  kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+  shape = tuple(stack) + (batch, max_len, kv, hd)
+  dtype = dtype or cfg.dtype
+  return {"k": torch.zeros(shape, dtype=dtype, device=device),
+          "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(p, x: torch.Tensor, cache: dict,
+                     positions: torch.Tensor, cfg: ModelConfig,
+                     policy=None) -> tuple[torch.Tensor, dict]:
+  """One decode step. x: (b, 1, d); positions: (b,) write offsets;
+  cache {"k", "v"}: (b, max_len, kv, hd), updated in place."""
+  b = x.shape[0]
+  h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+  q, k_new, v_new = _project_qkv(p, x, cfg, positions[:, None], policy)
+  bidx = torch.arange(b, device=x.device)
+  k, v = cache["k"], cache["v"]
+  k[bidx, positions] = k_new[:, 0].to(k.dtype)
+  v[bidx, positions] = v_new[:, 0].to(v.dtype)
+  f32 = torch.float32
+  mask = torch.arange(k.shape[1], device=x.device)[None, :] <= \
+      positions[:, None]                                   # (b, S)
+  if h != kvh:
+    # kv heads grouped into the score einsum instead of repeated
+    group = h // kvh
+    qg = q[:, 0].reshape(b, kvh, group, hd)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg.to(f32), k.to(f32)) / (hd ** 0.5)
+    sc = torch.where(mask[:, None, None, :], sc, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", pr, v.to(f32))
+  else:
+    sc = torch.einsum("bhd,bshd->bhs", q[:, 0].to(f32), k.to(f32)) / \
+        (hd ** 0.5)
+    sc = torch.where(mask[:, None, :], sc, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", pr, v.to(f32))
+  out = out.reshape(b, 1, h * hd).to(x.dtype)
+  return gemm(p["wo"], out, policy), cache

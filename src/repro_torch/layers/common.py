@@ -1,13 +1,15 @@
 """Shared config dataclass and the GEMM application helper.
 
-Counterpart of `repro.layers.common` for the DS2 slice: `ModelConfig`
-(its `dtype` is a `torch.dtype`) and `gemm`, which applies a GEMM leaf
-(`FactoredLinear`, `QuantizedLinear` or a raw weight tensor) and, given
-a `kernels.dispatch.KernelPolicy`, routes it through the CUDA kernels.
+Counterpart of `repro.layers.common` for the ported families:
+`ModelConfig` (its `dtype` is a `torch.dtype`) and `gemm`, which applies
+a GEMM leaf (`FactoredLinear`, `QuantizedLinear` or a raw weight tensor)
+and, given a `kernels.dispatch.KernelPolicy`, routes it through the CUDA
+kernels.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -32,16 +34,21 @@ def gemm(leaf, x: torch.Tensor, policy=None) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-  """The reference's `ModelConfig`, cut to the fields the DS2 family
-  reads (the LM/MoE/SSM fields come with their families)."""
+  """The reference's `ModelConfig`, cut to the fields the ported
+  families read: the dense GQA transformer and DS2 (the MoE, MLA, SSM
+  and encoder fields come with their families)."""
   name: str
-  family: str                   # deepspeech (the only ported family)
+  family: str                   # transformer | deepspeech
   num_layers: int
   d_model: int
   num_heads: int
   num_kv_heads: int
   d_ff: int
   vocab_size: int
+  head_dim: Optional[int] = None          # default d_model // num_heads
+  rope_theta: float = 10000.0
+  tie_embeddings: bool = False
+  norm_eps: float = 1e-5
   dtype: torch.dtype = torch.bfloat16
   # -- speech (deepspeech2) --
   feat_dim: int = 80                      # mel bins (paper B.3)
@@ -49,7 +56,14 @@ class ModelConfig:
   fc_dim: int = 0
   conv_channels: int = 32
   time_stride: int = 2
+  # -- attention blocking (the plain blockwise attention's tiles) --
+  attn_block_q: int = 512
+  attn_block_kv: int = 512
   remat: str = "full"                     # training knob, kept for parity
+
+  @property
+  def resolved_head_dim(self) -> int:
+    return self.head_dim if self.head_dim else self.d_model // self.num_heads
 
   def with_(self, **kw) -> "ModelConfig":
     return dataclasses.replace(self, **kw)

@@ -1,1 +1,2 @@
-"""Ported model families (the DS2 slice: `deepspeech`)."""
+"""Ported model families (`deepspeech`, the dense `transformer`) and the
+`ModelApi` surface over them."""

@@ -163,3 +163,20 @@ def decode_step(params: DeepSpeech2, state: dict, x_t: torch.Tensor,
     h = gru_decode(params.grus[f"gru{i}"], h, state[f"gru{i}"], policy)
     new_state[f"gru{i}"] = h
   return _head(params, h, policy), new_state
+
+
+def decode_state_batch_axes(cfg: ModelConfig) -> dict:
+  """Batch axis of every decode-state leaf: the GRU hidden states carry
+  batch leading."""
+  return {f"gru{i}": 0 for i in range(len(cfg.gru_dims))}
+
+
+def api_decode_step(params: DeepSpeech2, state: dict, feat: torch.Tensor,
+                    positions: torch.Tensor, cfg: ModelConfig, policy=None
+                    ) -> tuple[torch.Tensor, dict]:
+  """The `ModelApi` form of the frame step: feat (b, 1, gru_in) ->
+  (log-probs (b, 1, v), new state). `positions` is ignored: the state is
+  purely recurrent."""
+  del positions
+  log_probs, new_state = decode_step(params, state, feat[:, 0], cfg, policy)
+  return log_probs[:, None], new_state

@@ -1,0 +1,180 @@
+"""Decoder-only transformer LM — the dense GQA part of
+`repro.models.transformer` (llama3 and its kin).
+
+Params keep the reference's layer-stacked layout: one `LayerStack`
+whose leaves carry a leading layer axis (`ln1` (L, d), `attn.wq.w`
+(L, d, h*hd), ...), so `state_dict()` keys are the checkpoint paths
+(`dense_layers.attn.wq.w` for `dense_layers/attn/wq/w`). The reference
+scans over that axis; here a Python loop walks the layers and takes
+layer i's 2-D leaves from `LayerStack.layers()`. Training
+(`loss_fn`, remat) and the MoE/MLA/MTP variants come with later slices.
+
+`decode_step` updates the decode state in place and returns it.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers.common import ModelConfig
+from repro_torch.layers.embedding import (Embedding, embed, init_embedding,
+                                          logits as lm_logits)
+from repro_torch.layers.ffn import SwiGLU, init_swiglu, swiglu_forward
+from repro_torch.layers.norms import init_rms, rms_norm
+
+#: reference config features this slice does not port, and where they go
+_LATER = {"moe": "the MoE slice", "mla": "the MLA (DeepSeek) slice",
+          "mtp": "the DeepSeek MTP slice", "qk_norm": "the qwen3 slice"}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+  if cfg.family != "transformer":
+    raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                     "transformer")
+  for field, later in _LATER.items():
+    if getattr(cfg, field, None):
+      raise NotImplementedError(
+          f"{cfg.name}: {field} is not ported yet; it comes with {later}")
+
+
+class LayerStack(nn.Module):
+  """The L layers' params, stacked on a leading axis."""
+
+  _ATTN = ("wq", "wk", "wv", "wo")
+  _FFN = ("w_gate", "w_up", "w_down")
+
+  def __init__(self, ln1: torch.Tensor, ln2: torch.Tensor,
+               attn: attn_lib.Attention, ffn: SwiGLU):
+    super().__init__()
+    self.ln1 = nn.Parameter(ln1, requires_grad=False)
+    self.ln2 = nn.Parameter(ln2, requires_grad=False)
+    self.attn = attn
+    self.ffn = ffn
+    self._views = None        # (stacked leaves, per-layer dicts)
+
+  def _leaves(self) -> tuple:
+    return (self.ln1, self.ln2, *(getattr(self.attn, k) for k in self._ATTN),
+            *(getattr(self.ffn, k) for k in self._FFN))
+
+  def _apply(self, fn, *args, **kwargs):
+    self._views = None        # a move or cast gives the params new storage
+    return super()._apply(fn, *args, **kwargs)
+
+  def __getstate__(self):
+    # copies and pickles rebuild the views on their own storage
+    return {**self.__dict__, "_views": None}
+
+  def layers(self) -> list[dict]:
+    """Per-layer views, in the reference's dict shape: [{"ln1", "ln2",
+    "attn": {"wq", ...}, "ffn": {"w_gate", ...}}] for each layer, each
+    leaf sharing storage with layer i of its stack. Built once and kept
+    until a leaf is replaced or `_apply` (`.to()`, ...) moves the params:
+    a step would otherwise build 7 L leaf modules."""
+    leaves = self._leaves()
+    if self._views is None or any(
+        a is not b for a, b in zip(self._views[0], leaves)):
+      n = self.ln1.shape[0]
+      self._views = (leaves, [
+          {"ln1": self.ln1[i], "ln2": self.ln2[i],
+           "attn": {k: getattr(self.attn, k).layer(i) for k in self._ATTN},
+           "ffn": {k: getattr(self.ffn, k).layer(i) for k in self._FFN}}
+          for i in range(n)])
+    return self._views[1]
+
+
+class TransformerLM(nn.Module):
+  """`embedding`, `final_norm`, `dense_layers`: the reference's tree."""
+
+  def __init__(self, embedding: Embedding, final_norm: torch.Tensor,
+               dense_layers: LayerStack):
+    super().__init__()
+    self.embedding = embedding
+    self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+    self.dense_layers = dense_layers
+
+
+def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
+            device=None) -> TransformerLM:
+  """Random weights from `generator`, on `device` (default: the GPU). A
+  CPU generator gives the same weights on every device; a CUDA
+  generator draws on the card in cfg.dtype (full width)."""
+  check_supported(cfg)
+  device = resolve_device(device)
+  stack = (cfg.num_layers,)
+  d = cfg.d_model
+  emb = init_embedding(cfg.vocab_size, d, dtype=cfg.dtype,
+                       tie=cfg.tie_embeddings, generator=generator,
+                       device=device)
+  layers = LayerStack(
+      init_rms(d, stack=stack, device=device),
+      init_rms(d, stack=stack, device=device),
+      attn_lib.init_attention(cfg, layer_prefix="layers", stack=stack,
+                              generator=generator, device=device),
+      init_swiglu(d, cfg.d_ff, layer_prefix="layers", dtype=cfg.dtype,
+                  stack=stack, generator=generator, device=device))
+  return TransformerLM(emb, init_rms(d, device=device), layers)
+
+
+def _layer_fwd(x: torch.Tensor, lp: dict, cfg: ModelConfig,
+               policy=None) -> torch.Tensor:
+  h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+  x = x + attn_lib.attention_forward(lp["attn"], h, cfg, policy)
+  h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+  return x + swiglu_forward(lp["ffn"], h, policy)
+
+
+def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ModelConfig,
+            *, last_only: bool = False, policy=None) -> torch.Tensor:
+  """tokens (b, s) -> logits (b, s, v). The reference also returns the
+  MoE aux loss, which a dense model does not have.
+
+  last_only=True (serving prefill) narrows to the final position before
+  the vocab projection, so the (b, s, v) logits never exist."""
+  x = embed(params.embedding, tokens)
+  for lp in params.dense_layers.layers():
+    x = _layer_fwd(x, lp, cfg, policy)
+  x = rms_norm(x, params.final_norm, cfg.norm_eps)
+  if last_only:
+    x = x[:, -1:]
+  return lm_logits(params.embedding, x, policy)
+
+
+# ----------------------------------------------------------------------------
+# Decode.
+# ----------------------------------------------------------------------------
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      cache_dtype=None, device=None) -> dict:
+  """{"dense": {"k", "v"}}, each (L, batch, max_len, kv, hd), zeros, on
+  `device` (default: the GPU)."""
+  check_supported(cfg)
+  device = resolve_device(device)
+  return {"dense": attn_lib.init_kv_cache(
+      cfg, batch, max_len, stack=(cfg.num_layers,), dtype=cache_dtype,
+      device=device)}
+
+
+def decode_state_batch_axes(cfg: ModelConfig) -> dict:
+  """Batch axis of every decode-state leaf (after the layer axis)."""
+  return {"dense": {"k": 1, "v": 1}}
+
+
+def decode_step(params: TransformerLM, state: dict, token: torch.Tensor,
+                positions: torch.Tensor, cfg: ModelConfig,
+                policy=None) -> tuple[torch.Tensor, dict]:
+  """token (b, 1), positions (b,) -> (logits (b, 1, v), state), the KV
+  rows at `positions` written into `state` in place."""
+  x = embed(params.embedding, token)
+  cache = state["dense"]
+  for i, lp in enumerate(params.dense_layers.layers()):
+    a = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, _ = attn_lib.attention_decode(
+        lp["attn"], a, {"k": cache["k"][i], "v": cache["v"][i]}, positions,
+        cfg, policy)
+    x = x + a
+    f = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + swiglu_forward(lp["ffn"], f, policy)
+  x = rms_norm(x, params.final_norm, cfg.norm_eps)
+  return lm_logits(params.embedding, x, policy), state

@@ -95,6 +95,14 @@ class QuantizedLinear(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return self.apply(x)
 
+  def layer(self, i: int) -> "QuantizedLinear":
+    """Layer i of a layer-stacked leaf (w_q (L, m, n), scales (L, n)),
+    sharing storage; a scalar act_scale is shared by every layer."""
+    fields = {k: (None if t is None else t if t.ndim == 0 else t[i])
+              for k, t in ((k, getattr(self, k)) for k in _FIELDS)}
+    return QuantizedLinear(**fields, name=self.name, group=self.group,
+                           orig_dtype=self.orig_dtype)
+
 
 def _apply(leaf: QuantizedLinear, x2: torch.Tensor, int8_gemm
            ) -> torch.Tensor:

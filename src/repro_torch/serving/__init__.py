@@ -1,4 +1,8 @@
-"""Serving engines (the DS2 slice: the streaming speech fleet)."""
-from repro_torch.serving.engine import SpeechResult, StreamingSpeechServer
+"""Serving engines: the continuous-batching LM engine and the streaming
+speech fleet."""
+from repro_torch.serving.engine import (FinishedRequest, GenerationResult,
+                                        LMEngine, Request, SpeechResult,
+                                        StreamingSpeechServer)
 
-__all__ = ["SpeechResult", "StreamingSpeechServer"]
+__all__ = ["FinishedRequest", "GenerationResult", "LMEngine", "Request",
+           "SpeechResult", "StreamingSpeechServer"]

@@ -1,4 +1,20 @@
-"""Streaming DS2 speech serving — the speech half of `repro.serving.engine`.
+"""Serving: the continuous-batching LM engine and the streaming DS2
+speech server — counterpart of `repro.serving.engine`.
+
+`LMEngine` — vanilla continuous batching over a persistent KV cache.
+The engine owns `batch_size` slots, each with its own request lifecycle
+
+    admit -> prefill -> decode -> retire (EOS / token budget / max_len)
+
+and a host-side request queue. Admission prefills the prompt into a
+fresh batch-1 state, one `decode_step` per prompt token, and splices it
+into its slot (`ModelApi.insert_slot`). Decoding is one masked step for
+the whole batch: retired slots keep stepping at position 0 with token 0
+(their rows are overwritten at the next admit). `max_len` is a hard
+boundary: `submit` rejects prompts that do not fit, and a slot whose
+cache is full retires with reason "max_len". Speculation, the prefix
+cache, the rank controller and meshes come with later slices and raise
+if asked for; `compile_stats` has no counterpart (nothing is compiled).
 
 `StreamingSpeechServer` keeps the reference's two surfaces (a
 continuous-batching fleet, and the lockstep chunk API) over one masked
@@ -12,7 +28,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Optional
+import time
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -21,6 +38,321 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import resolve_policy
 from repro_torch.layers.common import ModelConfig
 from repro_torch.models import deepspeech
+from repro_torch.models.api import cast_kv_cache, get_model
+
+_INHERIT = object()   # submit(eos_id=...) sentinel: use the engine's eos_id
+
+
+@dataclasses.dataclass
+class GenerationResult:
+  tokens: np.ndarray            # (b, steps); rows past their length are 0
+  steps: int
+  lengths: Optional[np.ndarray] = None   # (b,) generated tokens per row
+
+
+@dataclasses.dataclass
+class Request:
+  uid: int
+  prompt: np.ndarray            # (p,) int32
+  max_new_tokens: Optional[int]  # None = until EOS or max_len
+  eos_id: Optional[int]
+
+
+@dataclasses.dataclass
+class FinishedRequest:
+  uid: int
+  prompt: np.ndarray
+  tokens: np.ndarray            # generated tokens, prompt excluded
+  finish_reason: str            # "eos" | "length" | "max_len"
+  # admission-to-first-token wall seconds (prefill latency; queue wait
+  # excluded)
+  ttft_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _SlotState:
+  """Host-side record of one decode slot: request lifecycle, emitted
+  tokens, and the next token to feed (inactive slots hold a blank one)."""
+  req: Optional[Request] = None
+  tokens: list = dataclasses.field(default_factory=list)
+  remaining: Optional[int] = None
+  active: bool = False
+  next_tok: int = 0
+  ttft_s: Optional[float] = None
+
+
+#: LMEngine options of the reference that later slices port
+_LATER = {"speculate": "speculation", "draft_params": "speculation",
+          "draft_rank": "speculation", "rank_controller": "speculation",
+          "prefix_cache": "the prefix cache",
+          "publish_on_retire": "the prefix cache", "mesh": "distribution"}
+
+
+class LMEngine:
+  """Continuous-batching LM decode engine (vanilla decoding).
+
+  `params` is moved to `device` (default: the GPU). `kernel_policy`
+  "cuda" routes every decode-regime GEMM through the CUDA kernels;
+  "plain" (or None) runs plain PyTorch. Sampling at temperature > 0
+  draws from `rng`, a `torch.Generator` on the engine's device (other
+  bits than the reference's `jax.random`); greedy is `torch.argmax`,
+  which takes the first maximum as `jnp.argmax` does."""
+
+  def __init__(self, model_cfg: ModelConfig, params: Any, *,
+               batch_size: int, max_len: int, cache_dtype=None,
+               rng: Optional[torch.Generator] = None, kernel_policy=None,
+               eos_id: Optional[int] = None, device=None, **later):
+    for key, val in later.items():
+      if key not in _LATER:
+        raise TypeError(f"LMEngine got an unexpected argument {key!r}")
+      if val:
+        raise NotImplementedError(
+            f"LMEngine({key}=...) is not ported yet; it comes with "
+            f"{_LATER[key]}")
+    self.device = resolve_device(device)
+    self.cfg = model_cfg
+    self.params = params.to(self.device)
+    self.api = get_model(model_cfg)
+    if not self.api.decodable:
+      raise ValueError(f"{model_cfg.name} has no decode path")
+    self.batch = batch_size
+    self.max_len = max_len
+    self.cache_dtype = cache_dtype
+    self.eos_id = eos_id
+    self.kernel_policy = resolve_policy(kernel_policy, batch_size)
+    if rng is None:
+      rng = torch.Generator(device=self.device).manual_seed(0)
+    self.rng = rng
+    self._rng0 = rng.get_state()
+    self.state = self._init_state(batch_size)
+    self.positions = np.zeros((batch_size,), np.int64)   # host-side
+    self._queue: collections.deque = collections.deque()
+    self._slots: list = [_SlotState() for _ in range(batch_size)]
+    self._finished: dict = {}
+    self._next_uid = 0
+    # occupancy accounting: busy slot-steps / slot-steps
+    self.decode_steps = 0
+    self.busy_slot_steps = 0
+
+  def _init_state(self, batch: int) -> dict:
+    state = self.api.init_decode_state(self.cfg, batch, self.max_len,
+                                       device=self.device)
+    # KV-cache leaves only: recurrent carries keep their precision
+    return cast_kv_cache(state, self.cache_dtype)
+
+  def _step(self, state: dict, tokens: torch.Tensor,
+            positions: torch.Tensor):
+    return self.api.decode_step(self.params, state, tokens, positions,
+                                self.cfg, self.kernel_policy)
+
+  def reset(self) -> None:
+    self.state = self._init_state(self.batch)
+    self.positions = np.zeros((self.batch,), np.int64)
+    self.rng.set_state(self._rng0)   # seeded sampling restarts with reset
+    self._queue.clear()
+    self._slots = [_SlotState() for _ in range(self.batch)]
+    self._finished = {}
+    self.decode_steps = 0
+    self.busy_slot_steps = 0
+
+  # -- request lifecycle ----------------------------------------------------
+
+  def _active_mask(self) -> np.ndarray:
+    return np.array([s.active for s in self._slots], bool)
+
+  def _next_tokens(self) -> np.ndarray:
+    return np.array([[s.next_tok] for s in self._slots], np.int64)
+
+  @property
+  def num_active(self) -> int:
+    return sum(s.active for s in self._slots)
+
+  @property
+  def occupancy(self) -> float:
+    """Mean fraction of slots doing useful work per decode step, since
+    init or reset(); admission prefill is excluded. 0.0 before any
+    decoding."""
+    total = self.decode_steps * self.batch
+    return self.busy_slot_steps / total if total else 0.0
+
+  def submit(self, prompt, *, max_new_tokens: Optional[int] = None,
+             eos_id=_INHERIT) -> int:
+    """Queue one request; returns its uid. `eos_id=None` disables EOS
+    retirement for this request (the engine default applies otherwise)."""
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    if prompt.size == 0:
+      raise ValueError("empty prompt")
+    if prompt.size > self.max_len:
+      raise ValueError(
+          f"prompt length {prompt.size} exceeds max_len {self.max_len}")
+    if max_new_tokens is not None and max_new_tokens < 1:
+      raise ValueError("max_new_tokens must be >= 1")
+    uid = self._next_uid
+    self._next_uid += 1
+    eos = self.eos_id if eos_id is _INHERIT else eos_id
+    self._queue.append(Request(uid=uid, prompt=prompt,
+                               max_new_tokens=max_new_tokens, eos_id=eos))
+    return uid
+
+  def _retire(self, slot: int, reason: str) -> None:
+    s = self._slots[slot]
+    self._finished[s.req.uid] = FinishedRequest(
+        uid=s.req.uid, prompt=s.req.prompt,
+        tokens=np.asarray(s.tokens, np.int32), finish_reason=reason,
+        ttft_s=s.ttft_s)
+    # no state scrub: the slot keeps stepping masked (position 0) and the
+    # next admit writes a whole fresh prefilled state over its rows
+    self._slots[slot] = _SlotState()
+
+  def _record_token(self, slot: int, tok: int, pos: int) -> bool:
+    """Append a sampled token; retire the slot if the request is done.
+    `pos` is the slot's cache write count. Returns True while the slot
+    stays active."""
+    s = self._slots[slot]
+    s.tokens.append(tok)
+    if s.remaining is not None:
+      s.remaining -= 1
+    if s.req.eos_id is not None and tok == s.req.eos_id:
+      self._retire(slot, "eos")
+      return False
+    if s.remaining == 0:
+      self._retire(slot, "length")
+      return False
+    if pos >= self.max_len:
+      # cache full: one more step would write past max_len — retire
+      self._retire(slot, "max_len")
+      return False
+    return True
+
+  def _prefill_slot(self, prompt: np.ndarray) -> tuple[torch.Tensor, dict]:
+    """Feed `prompt` into a fresh batch-1 state, one decode step per
+    token; returns (last logits (1, 1, v) f32, state). The reference pads
+    the prompt to a pow2 bucket (one jit program per bucket) and masks
+    the steps past its length back to the old state; eager PyTorch feeds
+    exactly the prompt's tokens, which leaves the same state."""
+    state = self._init_state(1)
+    toks = torch.as_tensor(prompt, dtype=torch.int64,
+                           device=self.device).view(1, -1)
+    pos = torch.arange(prompt.size, device=self.device)
+    logits = None
+    for t in range(prompt.size):
+      logits, state = self._step(state, toks[:, t:t + 1], pos[t:t + 1])
+    return logits.to(torch.float32), state
+
+  def _admit(self, req: Request, slot: int, temperature: float) -> None:
+    """Prefill `req` into a fresh batch-1 state, splice it into `slot`,
+    and sample its first token from the prefill's last logits."""
+    t_admit = time.perf_counter()
+    plen = req.prompt.size
+    last, slot_state = self._prefill_slot(req.prompt)
+    self.state = self.api.insert_slot(self.cfg, self.state, slot_state, slot)
+    self.positions[slot] = plen
+    self._slots[slot] = _SlotState(req=req, remaining=req.max_new_tokens,
+                                   active=True)
+    tok = int(self._sample(last, temperature)[0, 0])
+    self._slots[slot].ttft_s = time.perf_counter() - t_admit
+    if self._record_token(slot, tok, plen):
+      self._slots[slot].next_tok = tok
+
+  def _admit_from_queue(self, temperature: float) -> None:
+    slot = 0
+    while self._queue and slot < self.batch:
+      if self._slots[slot].active:
+        slot += 1
+        continue
+      # a request may finish during admission (EOS in the prefill logits,
+      # budget 1, or a full cache) — then the slot is still free
+      self._admit(self._queue.popleft(), slot, temperature)
+
+  def _decode_all(self, temperature: float) -> None:
+    """One masked decode step for every slot. Inactive slots step at
+    position 0 with token 0; their rows are garbage until the next admit
+    overwrites them."""
+    active = self._active_mask()
+    safe_pos = np.where(active, self.positions, 0)
+    logits, self.state = self._step(
+        self.state, torch.as_tensor(self._next_tokens(), device=self.device),
+        torch.as_tensor(safe_pos, device=self.device))
+    self.positions = np.where(active, self.positions + 1, self.positions)
+    self.decode_steps += 1
+    self.busy_slot_steps += int(active.sum())
+    toks = self._sample(logits, temperature)        # one host sync per step
+    for i in range(self.batch):
+      if self._slots[i].active and self._record_token(
+          i, int(toks[i, 0]), int(self.positions[i])):
+        self._slots[i].next_tok = int(toks[i, 0])
+
+  def run(self, *, temperature: float = 0.0,
+          rng: Optional[torch.Generator] = None) -> list:
+    """Drain the queue: admit, decode, retire, refill until idle. Returns
+    the requests finished since the last call, in submission order. `rng`
+    replaces the sampling generator (temperature > 0)."""
+    if rng is not None:
+      self.rng = rng
+    while self._queue or self.num_active:
+      self._admit_from_queue(temperature)
+      if self.num_active:
+        self._decode_all(temperature)
+    out = [self._finished[uid] for uid in sorted(self._finished)]
+    self._finished = {}
+    return out
+
+  # -- static-batch surface -------------------------------------------------
+
+  def prefill(self, prompts) -> torch.Tensor:
+    """Feed prompts (b, p) at the slots' current positions; returns the
+    last logits (b, 1, v) f32. b must equal batch_size."""
+    prompts = np.asarray(prompts)
+    b, p = prompts.shape
+    if b != self.batch:
+      raise ValueError(f"prefill batch {b} != engine batch {self.batch}")
+    if p == 0:
+      raise ValueError("empty prompts")
+    start = int(self.positions.max())
+    if start + p > self.max_len:
+      raise ValueError(
+          f"prefill would pass max_len={self.max_len} "
+          f"(start {start} + prompt {p})")
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
+    pos = torch.as_tensor(self.positions, device=self.device)
+    logits = None
+    for t in range(p):
+      logits, self.state = self._step(self.state, toks[:, t:t + 1], pos + t)
+    self.positions = self.positions + p
+    return logits.to(torch.float32)
+
+  def generate(self, prompts, *, steps: int, temperature: float = 0.0,
+               rng: Optional[torch.Generator] = None) -> GenerationResult:
+    """Static-batch wrapper over the continuous engine: every row becomes
+    a request with a `steps` token budget and no EOS exit. Rows retired
+    early at the max_len boundary come back shorter; see `lengths`.
+    Accepts more rows than slots — extras queue."""
+    prompts = np.asarray(prompts)
+    uids = [self.submit(row, max_new_tokens=steps, eos_id=None)
+            for row in prompts]
+    by_uid = {f.uid: f for f in self.run(temperature=temperature, rng=rng)}
+    tokens = np.zeros((len(uids), steps), np.int32)
+    lengths = np.zeros((len(uids),), np.int32)
+    for r, uid in enumerate(uids):
+      t = by_uid[uid].tokens
+      tokens[r, :t.size] = t
+      lengths[r] = t.size
+    return GenerationResult(tokens=tokens, steps=steps, lengths=lengths)
+
+  def _sample(self, logits: torch.Tensor, temperature: float) -> np.ndarray:
+    """(b, 1) int tokens on the host from the last position's logits."""
+    lg = logits[:, -1].to(torch.float32)
+    if temperature <= 0.0:
+      tok = torch.argmax(lg, dim=-1)
+    else:
+      probs = torch.softmax(lg / temperature, dim=-1)
+      tok = torch.multinomial(probs, 1, generator=self.rng)[:, 0]
+    return tok.cpu().numpy().astype(np.int32)[:, None]
+
+
+# ----------------------------------------------------------------------------
+# Streaming speech.
+# ----------------------------------------------------------------------------
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:

@@ -1,6 +1,6 @@
-"""The port on the card: its four CUDA kernels against their plain
-versions, and the streaming server through the kernels against the plain
-policy. Every test here is marked `gpu` and skips where no CUDA device is
+"""The port on the card: its five CUDA kernels against their plain
+versions, and the streaming server and the LM prefill through the
+kernels against the plain policy. Every test here is marked `gpu` and skips where no CUDA device is
 present (the kernels have no CPU mode); on a GPU machine run
 
   python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -135,3 +135,52 @@ def test_server_through_kernels_matches_plain(cuda, form):
     else:
       torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
   assert got == want
+
+
+#: (b, s, h, d, causal): ragged lengths (s not a multiple of the 64-row
+#: tiles), both head widths, both modes
+FLASH_GRID = [(1, 256, 4, 128, True), (2, 200, 3, 128, True),
+              (1, 130, 2, 64, False), (1, 1, 2, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_plain_version(cuda, dtype):
+  from repro_torch.kernels import ops
+  from repro_torch.kernels.flash_attention import flash_attention
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  for b, s, h, d, causal in FLASH_GRID:
+    q, k, v = (torch.from_numpy(rnd(i, (b, s, h, d))).to(cuda, dt)
+               for i in (1, 2, 3))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v,
+                                                        causal=causal), **tol)
+  ops.reset_launches()
+  ops.flash_attention(q, k, v)
+  assert ops.LAUNCHES["flash_attention"] == 1
+  with pytest.raises(ValueError, match="head width"):
+    flash_attention(*(torch.ones(1, 8, 2, 96, device=cuda) for _ in "qkv"))
+
+
+def test_prefill_through_flash_matches_plain(cuda):
+  """A small f32 LM forward on the card: the "cuda" policy launches the
+  flash kernel once per layer, and its logits equal the plain policy's
+  blockwise attention within 1e-4."""
+  from repro_torch import configs
+  from repro_torch.kernels import ops
+  from repro_torch.kernels.dispatch import resolve_policy
+  from repro_torch.models import transformer
+  cfg = configs.get_smoke("llama3-8b").with_(
+      dtype=torch.float32, head_dim=64, attn_block_q=64, attn_block_kv=64)
+  params = transformer.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                               device=cuda)
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(2, 150))).to(cuda)
+  ops.reset_launches()
+  got = transformer.forward(params, toks, cfg, policy=resolve_policy("cuda"))
+  assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+  want = transformer.forward(params, toks, cfg,
+                             policy=resolve_policy("plain"))
+  torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

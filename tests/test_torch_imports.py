@@ -50,3 +50,23 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     StreamingSpeechServer(cfg, params, batch_size=2)
   srv = StreamingSpeechServer(cfg, params, batch_size=2, device="cpu")
   assert srv.device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_the_gpu(monkeypatch):
+  """The LM entry points too: with no GPU, not asking for the CPU
+  raises."""
+  from repro_torch import configs
+  from repro_torch.models.transformer import init_decode_state, init_lm
+  from repro_torch.serving import LMEngine
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  cfg = configs.get_smoke("llama3-8b")
+  gen = torch.Generator().manual_seed(0)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_lm(cfg, generator=gen)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_decode_state(cfg, 2, 16)
+  params = init_lm(cfg, generator=gen, device="cpu")
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    LMEngine(cfg, params, batch_size=2, max_len=16)
+  eng = LMEngine(cfg, params, batch_size=2, max_len=16, device="cpu")
+  assert eng.device.type == "cpu"

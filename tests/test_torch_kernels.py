@@ -6,8 +6,9 @@ tensors. (The CUDA kernels are held against the plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.)
 
 Tolerances: f32 rtol = atol = 1e-5 (summation order differs between the
-frameworks; the inputs are O(1) and m <= 1024). int8 tensors, scales and
-GEMM outputs are compared bit for bit."""
+frameworks; the inputs are O(1) and m <= 1024), attention 2e-5 (the
+blockwise softmax sums in another order than the whole-row one). int8
+tensors, scales and GEMM outputs are compared bit for bit."""
 import numpy as np
 import pytest
 
@@ -92,6 +93,45 @@ def test_quantize_static_bitwise():
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
+#: attention at (b, s, h, d) = (1, 128, 2, 128), blocks of 64
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_reference(causal):
+  """The plain version against the reference's oracle and its Pallas
+  kernel (interpret mode, blocks of 64)."""
+  (qj, kj, vj), (qt, kt, vt) = both(*(rnd(i, (1, 128, 2, 128))
+                                      for i in (1, 2, 3)))
+  got = ref.flash_attention(qt, kt, vt, causal=causal)
+  close(got, jref.flash_attention(qj, kj, vj, causal=causal), **ATTN_TOL)
+  close(got, jops.flash_attention(qj, kj, vj, causal=causal, block_q=64,
+                                  block_k=64), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_blockwise_attention_matches_reference(kv_heads):
+  """The model's plain blockwise attention (the kernel's causal path
+  under the plain policy) against the reference's jnp twin and its
+  Pallas kernel; kv_heads=1 repeats the kv head for both q heads."""
+  from repro.layers.attention import flash_attention as jflash
+  from repro.layers.common import ModelConfig as JConfig
+  from repro_torch.layers.attention import flash_attention
+  from repro_torch.layers.common import ModelConfig
+  dims = dict(name="t", family="transformer", num_layers=1, d_model=256,
+              num_heads=2, num_kv_heads=kv_heads, d_ff=512, vocab_size=64,
+              attn_block_q=64, attn_block_kv=64)
+  (qj, kj, vj), (qt, kt, vt) = both(rnd(1, (1, 128, 2, 128)),
+                                    rnd(2, (1, 128, kv_heads, 128)),
+                                    rnd(3, (1, 128, kv_heads, 128)))
+  got = flash_attention(qt, kt, vt, ModelConfig(**dims))
+  close(got, jflash(qj, kj, vj, JConfig(**dims)), **ATTN_TOL)
+  rep = 2 // kv_heads
+  close(got, jops.flash_attention(qj, jnp.repeat(kj, rep, axis=2),
+                                  jnp.repeat(vj, rep, axis=2), block_q=64,
+                                  block_k=64), **ATTN_TOL)
+
+
 def test_ops_take_plain_version_on_cpu_without_launching():
   """On CPU tensors each wrapper is its plain version, bit for bit, and
   counts no launch (a launch happens only on a CUDA tensor)."""
@@ -108,11 +148,18 @@ def test_ops_take_plain_version_on_cpu_without_launching():
   wq, ws = ref.quantize_colwise(w)
   assert torch.equal(ops.int8_gemm(xq, wq, xs, ws),
                      ref.int8_gemm(xq, wq, xs, ws))
+  q, k, v = (torch.from_numpy(rnd(i, (1, 40, 2, 64))) for i in (7, 8, 9))
+  for causal in (True, False):
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal),
+                       ref.flash_attention(q, k, v, causal=causal))
   assert set(ops.LAUNCHES.values()) == {0}
 
 
 def test_launchers_refuse_cpu_tensors():
   """A launcher never computes on the CPU: it wants CUDA tensors."""
   from repro_torch.kernels.decode_matvec import decode_matvec
+  from repro_torch.kernels.flash_attention import flash_attention
   with pytest.raises(ValueError, match="CUDA"):
     decode_matvec(torch.ones(2, 128), torch.ones(128, 128))
+  with pytest.raises(ValueError, match="CUDA"):
+    flash_attention(*(torch.ones(1, 8, 2, 64) for _ in range(3)))

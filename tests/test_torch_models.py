@@ -172,3 +172,23 @@ def test_bridge_rejects_unknown_and_missing_keys(jparams):
   arrays.pop("grus/gru2/bias")
   with pytest.raises(KeyError, match="missing"):
     from_reference(arrays, torch_cfg(), device="cpu")
+
+
+def test_model_api_decode_step_and_slot_surgery(forms):
+  """`get_model` for DS2: the ModelApi frame step is `decode_step` with a
+  (b, 1, ...) time axis, and `insert_slot` writes batch row `slot`."""
+  from repro_torch.models.api import get_model
+  cfg = torch_cfg()
+  api = get_model(cfg)
+  params = forms["dense"][1]
+  state = api.init_decode_state(cfg, 2, device="cpu")
+  x = torch.from_numpy(np.random.RandomState(0).randn(
+      2, 1, params.grus["gru0"].nonrec.in_dim).astype(np.float32))
+  lp, new = api.decode_step(params, state, x, torch.zeros(2), cfg)
+  want, want_state = tds.decode_step(params, state, x[:, 0], cfg)
+  assert lp.shape == (2, 1, cfg.vocab_size)
+  assert torch.equal(lp[:, 0], want)
+  one = {k: v[1:] for k, v in want_state.items()}
+  assert api.insert_slot(cfg, state, one, 0) is state
+  for k, v in state.items():
+    assert torch.equal(v[0], want_state[k][1]) and not v[1].any()
