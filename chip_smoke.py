@@ -9,19 +9,27 @@
 2. Holds each kernel against its plain PyTorch version (`kernels/ref.py`)
    on the card at every full-width `deepspeech2-wsj` shape the serving
    path launches it with, at batch 1, 4 and 16 in bf16 (and once in f32);
-   `decode_matvec` also at the full-width `llama3-8b` decode shapes at
-   batch 4, and `flash_attention` at the prefill's (1, 4096, 32, 128), at
-   (1, 32768, 32, 128) (its plain version by query-row chunks) and at
-   (1, 1024, 32, 128) causal bf16, once causal in f32 and once non-causal
-   at a ragged (1, 1500, 12, 64) in bf16: bf16 within atol = rtol = 1e-2
-   (one bf16 rounding of the output is 2^-8 relative), f32 within 1e-4
-   (summation order), int8 bit for bit; `flash_attention` also row by row
-   against each row's own scale (`FLASH_ROW_RTOL`). Times the kernel, the
-   plain version and the PyTorch library call (`torch.matmul`,
-   `scaled_dot_product_attention` on the (b, h, s, d) transpose, ...)
-   with CUDA events (median of 20-50 launches, queued behind a device
-   sleep so the host does not starve the card; weights that fit stay warm
-   in the 50 MB L2) and prints one JSON line per kernel and shape.
+   `decode_matvec` and `lowrank_gemm` also at ragged shapes (m and n off
+   every tile and vector width) at batch 1, 4, 5, 16 and 17 in bf16 and
+   f32; `decode_matvec` at the full-width `llama3-8b` decode shapes at
+   batch 4, and `flash_attention` at the prefill's grouped-kv
+   (1, 4096, 32 q / 8 kv heads, 128) (k and v not repeated; the plain
+   version repeats them), at (1, 4096, 32, 128), at (1, 32768, 32, 128)
+   (its plain version by query-row chunks) and at (1, 1024, 32, 128)
+   causal bf16, once causal in f32 and once non-causal at a ragged
+   (1, 1500, 12, 64) in bf16: bf16 within atol = rtol = 1e-2 (one bf16
+   rounding of the output is 2^-8 relative), f32 within 1e-4 (summation
+   order), int8 bit for bit; `flash_attention` also row by row against
+   each row's own scale (`FLASH_ROW_RTOL`). Times the kernel, the plain
+   version and the PyTorch library call (`torch.matmul`,
+   `scaled_dot_product_attention` on the (b, h, s, d) transpose, with
+   `enable_gqa` for grouped kv heads, ...) with CUDA events (median of
+   20-50 launches, queued behind a device sleep so the host does not
+   starve the card) and prints one JSON line per kernel and shape. Weights
+   that fit stay warm in the 50 MB L2 across those launches; at the
+   `llama3-8b` decode shapes `decode_matvec` and `torch.matmul` are also
+   timed cold, with the L2 evicted before every timed call by reading a
+   256 MB buffer (outside the events), as a real decode step finds them.
 3. Serves the full-width config (bf16, random weights from seed 0) with
    4 slots and 8 utterances of 17..64 frames, through
    `StreamingSpeechServer`, three times: dense, factored (rank 256 on
@@ -53,12 +61,13 @@
    smoke readings of a tiny mix, not serving metrics. Last, it times a
    batch-4 decode step with `LayerStack.layers()`'s per-layer views kept
    and with them rebuilt, and `layers()` alone.
-6. Prints `{"kernels": [...]}` with each kernel's numbers, then, as the
-   last line, `{"ok": true, "device": {...}}`. Any failure raises: the
-   script exits non-zero and prints no result line.
+6. Prints `{"kernels": [...]}` with each kernel's numbers, all measured
+   in this run but the computed bounds, then, as the last line,
+   `{"ok": true, "device": {...}}`. Any failure raises: the script exits
+   non-zero and prints no result line.
 
-On an H100 the build takes ~7 s and phases 2-5 about a minute; the
-whole command under two minutes.
+On an H100 the build takes about 40 s (nvcc, the five sources in
+parallel) and phases 2-5 under a minute.
 """
 from __future__ import annotations
 
@@ -113,13 +122,22 @@ PREFILL_ATOL = 0.25
 #: another order than cuBLAS, and each step's KV rows carry the difference
 #: forward (measured: 0.117 on an H100 at full width over all 100 calls)
 LM_SERVE_ATOL = 0.25
-#: (b, s, h, d, causal, dtype, timed): the prefill's shapes first, then
-#: the reference's prefill_32k length (its plain version by row chunks)
-FLASH_CASES = [(1, PREFILL_LEN, 32, 128, True, torch.bfloat16, True),
-               (1, 32768, 32, 128, True, torch.bfloat16, True),
-               (1, 1024, 32, 128, True, torch.bfloat16, True),
-               (1, 1500, 12, 64, False, torch.bfloat16, True),
-               (1, 512, 8, 128, True, torch.float32, False)]
+#: (b, s, h, h_kv, d, causal, dtype, timed): the prefill's shape first
+#: (llama3-8b's 8 kv heads, read in place), the same with repeated heads
+#: (the shape of the kernel's first version), then the reference's
+#: prefill_32k length (its plain version by row chunks)
+FLASH_CASES = [(1, PREFILL_LEN, 32, 8, 128, True, torch.bfloat16, True),
+               (1, PREFILL_LEN, 32, 32, 128, True, torch.bfloat16, True),
+               (1, 32768, 32, 32, 128, True, torch.bfloat16, True),
+               (1, 1024, 32, 32, 128, True, torch.bfloat16, True),
+               (1, 1500, 12, 12, 64, False, torch.bfloat16, True),
+               (1, 512, 8, 8, 128, True, torch.float32, False)]
+#: (m, n) and (m, r, n) off every tile and vector width, at RAGGED_BATCHES
+RAGGED_MATVEC = [(1000, 700), (4100, 1030), (333, 130)]
+RAGGED_LOWRANK = [(1000, 130, 700), (333, 72, 1030)]
+RAGGED_BATCHES = (1, 4, 5, 16, 17)
+#: the L2 is evicted before each cold timed call by reading this many bytes
+L2_FLUSH_BYTES = 256 << 20
 LM_GEMMS = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
             "ffn_down")
 KERNELS = {
@@ -148,16 +166,31 @@ def card_line() -> str:
   return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 50) -> float:
+_FLUSH = []
+
+
+def flush_l2() -> None:
+  """Evict the L2 (50 MB on an H100) by reading a larger buffer: what
+  stays is clean lines of that buffer, so the next kernel's reads come
+  from device memory and cause no write-backs."""
+  if not _FLUSH:
+    _FLUSH.append(torch.ones(L2_FLUSH_BYTES // 4, device="cuda"))
+  torch.amax(_FLUSH[0])
+
+
+def time_ms(fn, reps: int = 50, cold: bool = False) -> float:
   """Median device time of one call of `fn`, by CUDA events around each
   of `reps` calls. The calls are queued behind a device sleep, so the
-  card runs them back to back instead of waiting on the host."""
+  card runs them back to back instead of waiting on the host. cold:
+  evict the L2 before each call (outside the events)."""
   fn()
   torch.cuda.synchronize()
   ev = [(torch.cuda.Event(enable_timing=True),
          torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
   torch.cuda._sleep(100_000_000)
   for start, end in ev:
+    if cold:
+      flush_l2()
     start.record()
     fn()
     end.record()
@@ -180,20 +213,22 @@ def randn(shape, gen, dtype, scale=1.0):
 # ---------------------------------------------------------------------------
 
 def case(kernel, label, b, dtype, fn, plain, lib=None, nbytes=0, ops=0,
-         exact=False, path=None, weight=1, reps=50):
+         exact=False, path=None, weight=1, reps=50, cold=False):
   """One comparison. `path` names the main path whose per-step sums the
   case feeds ("ds2" frame step, "lm_decode" step, "lm_prefill" call);
   `weight` is its launches in one step; nbytes/ops give the bound; `reps`
-  the timed calls of each version."""
+  the timed calls of each version; `cold` also times the kernel and the
+  library call with the L2 evicted before each call."""
   return dict(kernel=kernel, label=label, batch=b, dtype=dtype, fn=fn,
               plain=plain, lib=lib, nbytes=nbytes, ops=ops, exact=exact,
-              path=path, weight=weight, reps=reps)
+              path=path, weight=weight, reps=reps, cold=cold)
 
 
 def chunked_attention(q, k, v, rows: int = 2048):
   """`ref.flash_attention` (causal) by query-row chunks: row block
   [r0, r1) against keys [0, r1), each block's f32 scores whole. At
-  s = 32768 the unchunked score matrix would take 137 GB."""
+  s = 32768 the unchunked score matrix would take 137 GB. k and v have
+  as many heads as q."""
   s, d = q.shape[1], q.shape[-1]
   out = torch.empty_like(q)
   pos = torch.arange(s, device=q.device)
@@ -292,24 +327,41 @@ def kernel_cases(dense, fact, quant, lm, gen):
                       lambda x=x, w=w: ref.decode_matvec(x, w),
                       lambda x=x, w=w: torch.matmul(x, w),
                       2 * (b * m + m * n + b * n), 2 * b * m * n,
-                      path="lm_decode", weight=weight))
-  for b, s, h, d, causal, dtype, timed in FLASH_CASES:
-    q, k, v = (randn((b, s, h, d), gen, dtype) for _ in range(3))
+                      path="lm_decode", weight=weight, cold=True))
+  # ragged shapes (not timed): every lane width, tile edge and batch tile
+  for dtype in (bf16, torch.float32):
+    for b in RAGGED_BATCHES:
+      for m, n in RAGGED_MATVEC:
+        x, w = randn((b, m), gen, dtype), randn((m, n), gen, dtype, 0.05)
+        cases.append(case("decode_matvec", f"ragged {m}x{n}", b, dtype,
+                          lambda x=x, w=w: decode_matvec(x, w),
+                          lambda x=x, w=w: ref.decode_matvec(x, w)))
+      for m, r, n in RAGGED_LOWRANK:
+        x = randn((b, m), gen, dtype)
+        u, v = randn((m, r), gen, dtype, 0.05), randn((r, n), gen, dtype, 0.1)
+        cases.append(case("lowrank_gemm", f"ragged {m}x{r}x{n}", b, dtype,
+                          lambda a=(x, u, v): lowrank_gemm(*a),
+                          lambda a=(x, u, v): ref.lowrank_gemm(*a)))
+  for b, s, h, h_kv, d, causal, dtype, timed in FLASH_CASES:
+    q = randn((b, s, h, d), gen, dtype)
+    k, v = (randn((b, s, h_kv, d), gen, dtype) for _ in range(2))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     pairs = s * (s + 1) // 2 if causal else s * s
     size = torch.finfo(dtype).bits // 8
     long = s > PREFILL_LEN
+    heads = f"{h}" if h == h_kv else f"{h}/{h_kv}"
     cases.append(case(
         "flash_attention",
-        f"{'causal' if causal else 'non-causal'} ({b}, {s}, {h}, {d})", b,
-        dtype, lambda a=(q, k, v), c=causal: flash_attention(*a, causal=c),
+        f"{'causal' if causal else 'non-causal'} ({b}, {s}, {heads}, {d})",
+        b, dtype, lambda a=(q, k, v), c=causal: flash_attention(*a, causal=c),
         (lambda a=(q, k, v): chunked_attention(*a)) if long else
         (lambda a=(q, k, v), c=causal: ref.flash_attention(*a, causal=c)),
-        lambda a=(qt, kt, vt), c=causal: F.scaled_dot_product_attention(
-            *a, is_causal=c),
-        4 * b * s * h * d * size if timed else 0, 4 * b * h * d * pairs,
-        path="lm_prefill" if s == PREFILL_LEN else None, weight=n_layers,
-        reps=5 if long else 20))
+        lambda a=(qt, kt, vt), c=causal, g=h != h_kv:
+        F.scaled_dot_product_attention(*a, is_causal=c, enable_gqa=g),
+        2 * b * s * (h + h_kv) * d * size if timed else 0,
+        4 * b * h * d * pairs,
+        path="lm_prefill" if s == PREFILL_LEN and h_kv < h else None,
+        weight=n_layers, reps=5 if long else 20))
   # f32 once per GEMM kernel: the kernels take f32 as well as bf16
   f32 = torch.float32
   x, w = randn((4, 640), gen, f32), randn((640, 2304), gen, f32, 0.04)
@@ -365,6 +417,9 @@ def check_kernels(dense, fact, quant, lm) -> list[dict]:
                  library_ms=(time_ms(c["lib"], reps) if c["lib"] is not None
                              else None),
                  bound_ms=bnd, bound_by=by)
+      if c["cold"]:
+        row.update(kernel_cold_ms=time_ms(c["fn"], reps, cold=True),
+                   library_cold_ms=time_ms(c["lib"], reps, cold=True))
     print(json.dumps(row), flush=True)
     rows.append(row)
   return rows
@@ -742,9 +797,10 @@ def check_lm_serving(lm, cfg, card) -> dict:
 
 
 def _sums(rows: list[dict]) -> dict:
-  """Per-step sums of timed rows, each row counted `weight` times."""
+  """Per-step sums of timed rows, each row counted `weight` times (and
+  the cold times' sums where every row has them)."""
   libs = [r["library_ms"] for r in rows]
-  return dict(
+  out = dict(
       ms=sum(r["kernel_ms"] * r["weight"] for r in rows),
       plain_ms=sum(r["plain_ms"] * r["weight"] for r in rows),
       bound_ms=sum(r["bound_ms"] * r["weight"] for r in rows),
@@ -752,20 +808,27 @@ def _sums(rows: list[dict]) -> dict:
       else "operations",
       library_ms=(sum(x * r["weight"] for x, r in zip(libs, rows))
                   if libs and None not in libs else None))
+  if rows and all("kernel_cold_ms" in r for r in rows):
+    out.update(cold_ms=sum(r["kernel_cold_ms"] * r["weight"] for r in rows),
+               library_cold_ms=sum(r["library_cold_ms"] * r["weight"]
+                                   for r in rows))
+  return out
 
 
 def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
   """One entry per kernel, its largest error over every compared shape
   and its launches on the main paths. Times: the DS2 kernels' per frame
   step at the server's batch (summed over the step's launches);
-  flash_attention's per call at the prefill's (1, 4096, 32, 128);
-  decode_matvec adds the llama3-8b decode step at batch 4."""
+  flash_attention's per call at the prefill's (1, 4096, 32/8, 128), with
+  the repeated-heads (1, 4096, 32, 128) beside it; decode_matvec adds the
+  llama3-8b decode step at batch 4, warm and cold."""
   out = []
   for name, (source, replaces) in KERNELS.items():
     mine = [r for r in rows if r["kernel"] == name]
     if name == "flash_attention":
       main = [dict(r, weight=1) for r in mine if r["path"] == "lm_prefill"]
-      per = "one call, causal bf16 (1, 4096, 32, 128); 32 a prefill"
+      per = ("one call, causal bf16 (1, 4096, 32 q / 8 kv heads, 128); 32 "
+             "a prefill")
     else:
       main = [r for r in mine if r["path"] == "ds2"]
       per = "one deepspeech2-wsj frame step at batch 4"
@@ -774,6 +837,10 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
                  max_abs_err=max(r["max_abs_err"] for r in mine),
                  **_sums(main), per=per, shapes=len(main),
                  launches_by_path={p: n[name] for p, n in by_path.items()})
+    if name == "flash_attention":
+      mha = [r for r in mine if r["shape"] == f"causal (1, {PREFILL_LEN}, "
+             "32, 128)"]
+      entry["repeated_heads_ms"] = mha[0]["kernel_ms"]
     lm_step = [r for r in mine if r["path"] == "lm_decode"]
     if lm_step:
       entry["llama3_8b_decode_step"] = _sums(lm_step)

@@ -2,7 +2,9 @@
 
 Every `csrc/*.cu` is compiled by its own `nvcc` process, all started
 together, for `sm_90a`; the objects are linked into one shared library
-with a plain C interface, loaded with `ctypes`. The library lands in
+with a plain C interface, loaded with `ctypes`. The library links
+`libcuda` (`-lcuda`, the CUDA driver API): `flash_attention` encodes its TMA
+tensor maps on the host with `cuTensorMapEncodeTiled`. The library lands in
 `build/kernels/` at the repository root (listed in `.gitignore`), named
 by a digest of the sources and flags, so an unchanged tree reuses it and
 an edited one rebuilds. Nothing here runs at import time: the CPU tests
@@ -25,15 +27,16 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_LIBS = ("-lcuda",)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "rk_decode_matvec": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "rk_lowrank_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rk_decode_matvec": (_P, _P, _P, _P, _P, *(_I,) * 7, _P),
+    "rk_lowrank_gemm": (_P, _P, _P, _P, _P, _P, _P, *(_I,) * 11, _P),
     "rk_gru_cell": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rk_int8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "rk_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rk_flash_attention": (_P, _P, _P, _P, *(_I,) * 7, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,8 +53,17 @@ def _nvcc() -> str:
   return path
 
 
+def _link_dirs(nvcc: str) -> tuple[str, ...]:
+  """-L for the toolkit's libcuda stub (the NVIDIA driver's own libcuda.so.1 is
+  what loads at run time), where the toolkit has one."""
+  root = Path(nvcc).resolve().parents[1]
+  return tuple(f"-L{d}" for d in (root / "lib64" / "stubs",
+                                  root / "targets" / "x86_64-linux" / "lib"
+                                  / "stubs") if d.is_dir())
+
+
 def _digest() -> str:
-  h = hashlib.sha256(" ".join(ARCH + NVCC_FLAGS).encode())
+  h = hashlib.sha256(" ".join(ARCH + NVCC_FLAGS + LINK_LIBS).encode())
   for p in sorted(CSRC.iterdir()):
     h.update(p.name.encode())
     h.update(p.read_bytes())
@@ -85,7 +97,8 @@ def build() -> Path:
       raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
     part = Path(tmp) / lib.name
     link = subprocess.run(
-        [nvcc, *ARCH, "-shared", "-o", str(part), *(str(o) for _, o, _ in jobs)],
+        [nvcc, *ARCH, "-shared", "-o", str(part), *(str(o) for _, o, _ in jobs),
+         *_link_dirs(nvcc), *LINK_LIBS],
         capture_output=True, text=True)
     if link.returncode:
       raise RuntimeError(f"linking the kernels failed:\n{link.stdout}"

@@ -1,8 +1,11 @@
-// Shared pieces of the skinny-GEMM kernels (sm_90a).
+// Shared pieces of the skinny-GEMM kernels (sm_90a): the dtype codes and
+// conversions every kernel uses, and the first skeleton, which gru_cell
+// and int8_gemm still run (decode_matvec and lowrank_gemm run the
+// split-K template of matvec.cuh).
 //
-// Every kernel here multiplies a few activation rows (the serving batch,
-// b <= 16 per block) by a weight matrix W (m, n) stored row-major, and
-// is bound by the bytes of W it streams. One skeleton serves them all:
+// Each of those kernels multiplies a few activation rows (the serving
+// batch, b <= 16 per block) by a weight matrix W (m, n) stored row-major,
+// and is bound by the bytes of W it streams. The skeleton:
 //
 //   * a block owns kCols = 32 neighbouring output columns, one per lane,
 //     so a warp reads 32 neighbouring elements of one row of W: coalesced;
@@ -44,6 +47,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
+namespace {
+
+// Stage x[row0 : row0 + rows, k0 : k0 + kc] into xs[k][r] as f32, zeros
+// past the ragged edges. Neighbouring threads read neighbouring k of one
+// row (coalesced); the +1 pad of xs spreads the transposed writes over
+// the banks.
+template <typename TX, int R>
+__device__ __forceinline__ void stage_rows(float (*xs)[R + 1], const TX* __restrict__ x,
+                                           int m, int row0, int rows, int k0, int kc) {
+  for (int i = threadIdx.y * kCols + threadIdx.x; i < R * kChunk; i += kThreads) {
+    const int r = i / kChunk, k = i % kChunk;
+    xs[k][r] = (r < rows && k < kc) ? to_f(x[(size_t)(row0 + r) * m + k0 + k]) : 0.f;
+  }
+}
+
+}  // namespace
 }  // namespace rk
 
 // Instantiate the statement with a compile-time R: the batch rows a block holds,

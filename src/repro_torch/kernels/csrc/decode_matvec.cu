@@ -4,26 +4,35 @@
 // Replaces: src/repro/kernels/decode_matvec.py:38 decode_matvec, the
 // Pallas kernel that keeps x resident in VMEM and streams W tile by tile.
 //
-// What bounds it on the H100: the bytes of W. At b <= 16 the kernel does
-// 2*b operations per weight element read (<= 16 per bf16 byte), far below
-// the ~295 operations per byte where the tensor cores would become the
-// limit, so its least time is m*n*sizeof(T) / 3.35 TB/s (a DS2 frame step
-// touches ~39 MB of bf16 weights, which also fits the 50 MB L2).
+// What bounds it on the H100: the bytes of W, m*n*sizeof(T) over
+// 3.35 TB/s (a llama3-8b decode step streams 15 GB of bf16 weights through
+// 225 of these launches; a DS2 frame step ~19 MB, which fits the 50 MB L2,
+// so there launch latency dominates).
 //
-// What the design does about it: W is read exactly once, coalesced (a
-// warp reads 32 neighbouring columns of a row); x is staged in shared
-// memory and read as broadcasts; the 8 warps of a block split m so more
-// loads are in flight per column. What it does not do yet: with 32
-// columns per block, n = 1536..3840 gives 48..120 blocks for 132 SMs, and
-// the loads are 2-byte scalars; vector loads, split-K across blocks and
-// TMA are for a later version.
+// The design (the template of matvec.cuh, whose note has the details):
+// 16-byte no-L1-allocate loads, 4 in flight a lane, 8 warps a block
+// owning 64-256 bf16 columns; split-K across blocks, chosen by `plan()` in
+// kernels/decode_matvec.py so the grid fills the SMs' resident blocks once
+// (up to 48 KB of loads in flight an SM); f32 partial sums in a
+// wrapper-allocated workspace, summed in a fixed order by the last block
+// of each column tile (an int counter a tile, which that block resets).
+// The plan's `lanes`, `split` and `kper` (rows of one k range) are passed
+// in, with `part` (split * b * n floats) and `count` (one zeroed int a
+// column tile and batch tile).
+// Not done: TMA-staged W, hiding the one wave's prologue and epilogue.
 #include "matvec.cuh"
 
-extern "C" int rk_decode_matvec(const void* x, const void* w, void* y, int b, int m, int n,
-                                int dtype, void* stream) {
+extern "C" int rk_decode_matvec(const void* x, const void* w, void* y, void* part,
+                                void* count, int b, int m, int n, int lanes, int split,
+                                int kper, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rk::kF32) return rk::launch_matvec<float, float, float>(x, w, y, b, m, n, s);
+  float* p = static_cast<float*>(part);
+  int* c = static_cast<int*>(count);
+  if (dtype == rk::kF32)
+    return rk::launch_matvec<float, float, float>(x, w, y, p, c, b, m, n, lanes, split, kper,
+                                                  s);
   if (dtype == rk::kBF16)
-    return rk::launch_matvec<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(x, w, y, b, m, n, s);
+    return rk::launch_matvec<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
+        x, w, y, p, c, b, m, n, lanes, split, kper, s);
   return cudaErrorInvalidValue;
 }

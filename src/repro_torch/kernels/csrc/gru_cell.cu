@@ -22,7 +22,7 @@
 // are reduced across the block's warps one gate at a time through one
 // shared buffer, then the epilogue applies the gates. U is read once; the
 // recurrent product never leaves the chip.
-#include "matvec.cuh"
+#include "common.cuh"
 
 namespace {
 

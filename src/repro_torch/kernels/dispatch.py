@@ -258,9 +258,10 @@ def maybe_gru_cell(xw: torch.Tensor, h: torch.Tensor, rec,
 def maybe_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           policy: Optional[KernelPolicy],
                           name: str) -> Optional[torch.Tensor]:
-  """Route one causal attention (q, k, v: (b, s, h, d), kv heads
-  repeated) to the flash_attention kernel, or return None to decline
-  (the caller then runs the plain blockwise body)."""
+  """Route one causal attention (q: (b, s, h, d); k, v: (b, s, h_kv, d),
+  kv heads not repeated) to the flash_attention kernel, or return None to
+  decline (the caller then repeats the kv heads and runs the plain
+  blockwise body)."""
   if policy is None or policy.mode == "jnp_only":
     return None
   override = policy.override_for(name)

@@ -4,8 +4,12 @@ input dtype).
 
 Replaces the Pallas kernel `repro/kernels/flash_attention.py:62`. The
 (b, s, h, d) layout is read in place (the TPU wrapper's transpose to
-(b*h, s, d) is a full copy) and ragged sequence lengths are masked in
-the kernel, so no length needs to divide a block. The design note heads
+(b*h, s, d) is a full copy), GQA kv heads are read in place (q head j
+reads kv head j // (h // h_kv); nothing is repeated), and ragged
+sequence lengths are masked in the kernel, so no length needs to divide a
+block. The bf16 kernel loads through TMA, which wants 16-byte aligned
+bases: a bf16 operand that is not is refused, not copied. The f32 kernel
+reads scalars and takes any contiguous operand. The design note heads
 the CUDA source.
 """
 from __future__ import annotations
@@ -20,24 +24,27 @@ HEAD_DIMS = (64, 128)
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-  """q, k, v: (b, s, h, d) of one float type (f32 or bf16) on one CUDA
-  device, kv heads already repeated; d in HEAD_DIMS."""
+  """q: (b, s, h, d); k, v: (b, s, h_kv, d) with h % h_kv == 0 (GQA: q
+  head j reads kv head j // (h // h_kv)); one float type (f32 or bf16),
+  one CUDA device; d in HEAD_DIMS. Returns (b, s, h, d) in q's type."""
   _build.require("flash_attention", q, k, v)
   code = _build.dtype_code("flash_attention", q, k, v)
-  if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+  if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or \
+      k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] or \
+      q.shape[2] % k.shape[2]:
     raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                      f"{tuple(k.shape)}, v {tuple(v.shape)}")
   b, s, h, d = q.shape
   if d not in HEAD_DIMS:
     raise ValueError(f"flash_attention: head width {d} not in {HEAD_DIMS}")
-  # the kernel reads 16-byte vectors: a view off a 16-byte boundary is
-  # copied to a fresh (aligned) buffer
-  q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-             else t.contiguous().clone() for t in (q, k, v))
+  q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+  if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+    raise ValueError("flash_attention: bf16 q, k and v must start on a "
+                     "16-byte boundary (TMA)")
   out = torch.empty_like(q)
   with torch.cuda.device(q.device):
     err = _build.library().rk_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        int(causal), code, _build.stream(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+        k.shape[2], d, int(causal), code, _build.stream(q))
   _build.check(err, "flash_attention")
   return out

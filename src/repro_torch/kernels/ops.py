@@ -102,8 +102,9 @@ def gru_cell(xw: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-  """Online-softmax attention; q, k, v: (b, s, h, d) with kv heads
-  already repeated (GQA callers repeat first)."""
+  """Online-softmax attention; q: (b, s, h, d), k, v: (b, s, h_kv, d)
+  with h % h_kv == 0 (GQA: the kernel reads kv head j // (h // h_kv) for
+  q head j in place; the plain version repeats)."""
   if _on_cpu(q, k, v):
     return ref.flash_attention(q, k, v, causal=causal)
   y = _flash_attention(q, k, v, causal=causal)

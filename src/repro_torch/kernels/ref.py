@@ -57,10 +57,14 @@ def gru_cell(xw: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-  """Reference attention. q, k, v: (b, s, h, d), kv heads already
-  repeated -> (b, s, h, d) in q.dtype. f32 scores over the whole S x S
-  matrix, so only for the shapes a test or a check compares at."""
-  s, d = q.shape[1], q.shape[-1]
+  """Reference attention. q: (b, s, h, d); k, v: (b, s, h_kv, d) with
+  h % h_kv == 0, repeated here so that q head j reads kv head
+  j // (h // h_kv) -> (b, s, h, d) in q.dtype. f32 scores over the whole
+  S x S matrix, so only for the shapes a test or a check compares at."""
+  s, h, d = q.shape[1], q.shape[2], q.shape[-1]
+  if k.shape[2] != h:
+    k = torch.repeat_interleave(k, h // k.shape[2], dim=2)
+    v = torch.repeat_interleave(v, h // v.shape[2], dim=2)
   sc = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) / (d ** 0.5)
   if causal:
     mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))

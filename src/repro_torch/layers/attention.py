@@ -1,11 +1,12 @@
 """GQA attention: blockwise causal prefill and cached decode.
 
 Counterpart of `repro.layers.attention` for the dense transformer.
-`flash_attention` keeps the reference's contract (causal; GQA kv heads
-repeated first, head j reading kv head j // rep). Under a kernel policy
-it launches the hand-written CUDA kernel (`kernels/csrc/
-flash_attention.cu`, through `kernels.dispatch.maybe_flash_attention`);
-otherwise it runs the plain blockwise online softmax over
+`flash_attention` keeps the reference's contract (causal; head j reads
+kv head j // rep). Under a kernel policy it launches the hand-written
+CUDA kernel (`kernels/csrc/flash_attention.cu`, through
+`kernels.dispatch.maybe_flash_attention`) on the un-repeated kv heads,
+which the kernel reads in place; otherwise it repeats the kv heads, as
+the reference does, and runs the plain blockwise online softmax over
 `cfg.attn_block_q` x `cfg.attn_block_kv` tiles, which never builds the
 S x S score matrix. `decode_window` comes with speculation.
 
@@ -101,14 +102,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cfg: ModelConfig, policy=None) -> torch.Tensor:
   """Causal attention. q: (b, s, h, hd); k, v: (b, s, kv, hd)."""
+  out = dispatch.maybe_flash_attention(q, k, v, policy, name="layers/attn")
+  if out is not None:
+    return out
   h, kvh = q.shape[2], k.shape[2]
   if h != kvh:
     rep = h // kvh
     k = torch.repeat_interleave(k, rep, dim=2)
     v = torch.repeat_interleave(v, rep, dim=2)
-  out = dispatch.maybe_flash_attention(q, k, v, policy, name="layers/attn")
-  if out is not None:
-    return out
   return blockwise_attention(q, k, v, cfg.attn_block_q, cfg.attn_block_kv)
 
 

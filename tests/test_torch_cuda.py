@@ -138,7 +138,7 @@ def test_server_through_kernels_matches_plain(cuda, form):
 
 
 #: (b, s, h, d, causal): ragged lengths (s not a multiple of the 64-row
-#: tiles), both head widths, both modes
+#: f32 or 128-row bf16 tiles), both head widths, both modes
 FLASH_GRID = [(1, 256, 4, 128, True), (2, 200, 3, 128, True),
               (1, 130, 2, 64, False), (1, 1, 2, 64, True)]
 
@@ -184,3 +184,70 @@ def test_prefill_through_flash_matches_plain(cuda):
   want = transformer.forward(params, toks, cfg,
                              policy=resolve_policy("plain"))
   torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+#: (b, s, h, h_kv, d, causal): grouped kv heads (4 and 8 q heads a kv
+#: head, as llama3-8b's 32/8), ragged lengths, both head widths and modes
+GQA_GRID = [(1, 300, 8, 2, 128, True), (2, 129, 8, 1, 64, False),
+            (1, 1, 4, 2, 64, True), (2, 520, 4, 4, 128, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_reads_gqa_heads_in_place(cuda, dtype):
+  """k and v at h_kv heads, not repeated: q head j reads kv head
+  j // (h // h_kv), as the plain version on repeated heads."""
+  from repro_torch.kernels.flash_attention import flash_attention
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  for b, s, h, h_kv, d, causal in GQA_GRID:
+    q = torch.from_numpy(rnd(1, (b, s, h, d))).to(cuda, dt)
+    k, v = (torch.from_numpy(rnd(i, (b, s, h_kv, d))).to(cuda, dt)
+            for i in (2, 3))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    rep = h // h_kv
+    want = ref.flash_attention(q, torch.repeat_interleave(k, rep, dim=2),
+                               torch.repeat_interleave(v, rep, dim=2),
+                               causal=causal)
+    torch.testing.assert_close(got, want, **tol)
+  with pytest.raises(ValueError, match="shapes"):
+    flash_attention(q, k[:, :, :1].expand(-1, -1, 3, -1), v)
+  # operands off a 16-byte boundary: TMA (bf16) refuses them, the f32
+  # kernel reads them as they are
+  q, k, v = (torch.from_numpy(rnd(i, (1 * 8 * 2 * 64 + 1,))).to(cuda, dt)[1:]
+             .view(1, 8, 2, 64) for i in (1, 2, 3))
+  if dt == torch.bfloat16:
+    with pytest.raises(ValueError, match="16-byte"):
+      flash_attention(q, k, v)
+  else:
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               ref.flash_attention(q, k, v), **tol)
+
+
+#: ragged m and n (n not a multiple of the 8 bf16 / 4 f32 columns of a
+#: lane's 16-byte load, or of a block's 256 / 128), shapes whose plan
+#: splits k and shapes whose plan does not
+RAGGED = [(1000, 700), (333, 130), (4100, 1030), (24, 8), (4096, 4096)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 4, 5, 16, 17])
+def test_matvec_kernels_on_ragged_shapes(cuda, dtype, b):
+  from repro_torch.kernels.decode_matvec import decode_matvec, plan
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  splits = set()
+  for m, n in RAGGED:
+    x = torch.from_numpy(rnd(b, (b, m))).to(cuda, dt)
+    w = torch.from_numpy(rnd(m, (m, n), 0.05)).to(cuda, dt)
+    u = torch.from_numpy(rnd(1, (m, 130), 0.05)).to(cuda, dt)
+    v = torch.from_numpy(rnd(2, (130, n), 0.08)).to(cuda, dt)
+    torch.testing.assert_close(decode_matvec(x, w), ref.decode_matvec(x, w),
+                               **tol)
+    torch.testing.assert_close(lowrank_gemm(x, u, v),
+                               ref.lowrank_gemm(x, u, v), **tol)
+    splits.add(plan(b, m, n, w_bytes=w.element_size()).split > 1)
+  assert splits == {True, False}

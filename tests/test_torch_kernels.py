@@ -163,3 +163,147 @@ def test_launchers_refuse_cpu_tensors():
     decode_matvec(torch.ones(2, 128), torch.ones(128, 128))
   with pytest.raises(ValueError, match="CUDA"):
     flash_attention(*(torch.ones(1, 8, 2, 64) for _ in range(3)))
+
+
+#: attention at (b, s, h, d) = (1, 96, 4, 64) with grouped kv heads
+@pytest.mark.parametrize("policy", ["plain", "cuda"])
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_gqa_attention_with_unrepeated_kv_matches_reference(policy,
+                                                            kv_heads):
+  """k and v at kv_heads, not repeated: the port's plain version, its
+  attention layer under both policies (the "cuda" policy hands the
+  un-repeated heads to the kernel's wrapper, which on CPU tensors runs
+  the plain version) and the reference's jnp twin on repeated heads
+  agree within ATTN_TOL."""
+  from repro.layers.attention import flash_attention as jflash
+  from repro.layers.common import ModelConfig as JConfig
+  from repro_torch.kernels.dispatch import resolve_policy
+  from repro_torch.layers.attention import flash_attention
+  from repro_torch.layers.common import ModelConfig
+  dims = dict(name="t", family="transformer", num_layers=1, d_model=256,
+              num_heads=4, num_kv_heads=4, d_ff=512, vocab_size=64,
+              attn_block_q=32, attn_block_kv=32)
+  (qj, kj, vj), (qt, kt, vt) = both(rnd(1, (1, 96, 4, 64)),
+                                    rnd(2, (1, 96, kv_heads, 64)),
+                                    rnd(3, (1, 96, kv_heads, 64)))
+  rep = 4 // kv_heads
+  want = jflash(qj, jnp.repeat(kj, rep, axis=2), jnp.repeat(vj, rep, axis=2),
+                JConfig(**dims))
+  close(ref.flash_attention(qt, kt, vt), want, **ATTN_TOL)
+  got = flash_attention(qt, kt, vt, ModelConfig(**dims),
+                        resolve_policy(policy))
+  close(got, want, **ATTN_TOL)
+
+
+def test_attention_layer_hands_unrepeated_kv_to_the_kernel(monkeypatch):
+  """Under a kernel policy the layer passes k and v at their own kv heads
+  to the kernel's wrapper (which reads kv head j // rep in place); only
+  the plain route repeats them."""
+  from repro_torch.kernels.dispatch import resolve_policy
+  from repro_torch.layers.attention import flash_attention
+  from repro_torch.layers.common import ModelConfig
+  seen = []
+
+  def spy(q, k, v, *, causal=True):
+    seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    return ref.flash_attention(q, k, v, causal=causal)
+  monkeypatch.setattr(ops, "flash_attention", spy)
+  cfg = ModelConfig(name="t", family="transformer", num_layers=1,
+                    d_model=256, num_heads=4, num_kv_heads=1, d_ff=512,
+                    vocab_size=64)
+  q = torch.from_numpy(rnd(1, (1, 40, 4, 64)))
+  k, v = (torch.from_numpy(rnd(i, (1, 40, 1, 64))) for i in (2, 3))
+  flash_attention(q, k, v, cfg, resolve_policy("cuda"))
+  assert seen == [((1, 40, 4, 64), (1, 40, 1, 64), (1, 40, 1, 64))]
+  flash_attention(q, k, v, cfg, resolve_policy("plain"))
+  assert len(seen) == 1
+
+
+#: (m, n) of every GEMM decode_matvec and lowrank_gemm's two phases run on
+#: the main paths: deepspeech2-wsj's unfactored nonrec/fc leaves, its
+#: rank-256 factors, and llama3-8b's q/o, k/v, gate/up, down and head
+PLAN_SHAPES = {
+    "ds2 gru0/nonrec": (640, 2304), "ds2 gru1/nonrec": (768, 3072),
+    "ds2 gru2/nonrec": (1024, 3840), "ds2 fc": (1280, 1536),
+    "ds2 rank-256 U": (1280, 256), "ds2 rank-256 V": (256, 3840),
+    "llama3 q/o": (4096, 4096), "llama3 k/v": (4096, 1024),
+    "llama3 gate/up": (4096, 14336), "llama3 down": (14336, 4096),
+    "llama3 head": (4096, 128256),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_decode_matvec_plan_covers_k_once_and_its_workspace(shape):
+  """For b 1..17 and bf16/f32 weights: the plan's k ranges cover every k
+  of m exactly once; the grid is one wave of the SMs' resident blocks
+  (or two k ranges when the column tiles alone overflow it); and the
+  blocks' writes (block (x, y, z) -> workspace[y, 16 z + r, x * cols + c],
+  as the kernel indexes it) cover the (split, b, n) workspace exactly
+  once, with one counter a (column tile, batch tile)."""
+  from repro_torch.kernels import decode_matvec as dm
+  m, n = PLAN_SHAPES[shape]
+  for w_bytes in (2, 4):
+    for b in range(1, 18):
+      p = dm.plan(b, m, n, w_bytes=w_bytes)
+      covered = np.zeros(m, dtype=np.int64)
+      for k0, k1 in p.k_ranges():
+        assert k0 < k1
+        covered[k0:k1] += 1
+      assert (covered == 1).all()
+      assert p.k_per_split % 8 == 0 or p.k_per_split == m
+      assert p.k_per_split >= min(m, dm.k_min(p.lanes))
+      assert p.rows >= min(b, dm.BATCH_TILE) and p.cols == p.lanes * p.vec
+      gx, gy, gz = p.grid
+      slots = dm.RESIDENT[p.rows] * dm.H100_SMS
+      assert p.blocks <= slots or gy <= 2
+      if p.split == 1:
+        assert p.workspace_shape == (0,) and p.counters == 0
+        continue
+      written = np.zeros(p.workspace_shape, dtype=np.int8)
+      for z in range(gz):
+        rows = slice(dm.BATCH_TILE * z, min(b, dm.BATCH_TILE * z + p.rows))
+        for x in range(gx):
+          written[:, rows, x * p.cols:(x + 1) * p.cols] += 1
+      assert gy == p.split and (written == 1).all()
+      assert p.counters == gx * gz
+
+
+def _kernel_constants() -> dict:
+  """The tiling constants of `csrc/matvec.cuh` (and the batch-row tiers
+  of `common.cuh`'s RK_DISPATCH_ROWS), read from the sources."""
+  import pathlib
+  import re
+  csrc = pathlib.Path(ops.__file__).parent / "csrc"
+  mv = (csrc / "matvec.cuh").read_text()
+  common = (csrc / "common.cuh").read_text()
+
+  def const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", mv).group(1))
+
+  resident = re.search(r"kBlocks = ([^;]+);", mv).group(1)
+  tiers = [(int(r), int(k)) for r, k in
+           re.findall(r"R <= (\d+) \? (\d+) :", resident)]
+  default = int(resident.rsplit(":", 1)[1])
+  rows = [int(r) for r in re.findall(r"constexpr int R = (\d+);", common)]
+  return dict(
+      threads=const("kWarps") * 32, unroll=const("kUnroll"),
+      batch_tile=const("kBatchTile"),
+      resident={r: next((k for t, k in tiers if r <= t), default)
+                for r in rows},
+      lanes=sorted(int(g) for g in re.findall(r"lanes != (\d+)", mv)),
+      batch_rows=rows)
+
+
+@pytest.mark.parametrize("name", ["threads", "unroll", "batch_tile",
+                                  "resident", "lanes", "batch_rows"])
+def test_decode_matvec_plan_constants_match_the_kernel(name):
+  """`plan` sizes its wave from copies of the kernel's constants; each
+  copy equals the value in the CUDA source, so the two cannot drift
+  apart unnoticed."""
+  from repro_torch.kernels import decode_matvec as dm
+  mine = dict(threads=dm.THREADS, unroll=dm.UNROLL,
+              batch_tile=dm.BATCH_TILE, resident=dm.RESIDENT,
+              lanes=sorted(dm.LANES),
+              batch_rows=sorted({dm.plan(b, 64, 64).rows
+                                 for b in range(1, 2 * dm.BATCH_TILE + 1)}))
+  assert mine[name] == _kernel_constants()[name]
