@@ -11,7 +11,11 @@
    path launches it with, at batch 1, 4 and 16 in bf16 (and once in f32);
    `decode_matvec` and `lowrank_gemm` also at ragged shapes (m and n off
    every tile and vector width) at batch 1, 4, 5, 16 and 17 in bf16 and
-   f32; `decode_matvec` at the full-width `llama3-8b` decode shapes at
+   f32, `lowrank_gemm` there also with a plan forced to several waves of
+   blocks, alone and beside a long product on a second stream (its ticket
+   order cannot deadlock), `int8_gemm` at ragged and unaligned shapes (m
+   off every quad, n off every lane's columns, w_q rows off a 16-byte
+   boundary); `decode_matvec` at the full-width `llama3-8b` decode shapes at
    batch 4, and `flash_attention` at the prefill's grouped-kv
    (1, 4096, 32 q / 8 kv heads, 128) (k and v not repeated; the plain
    version repeats them), at (1, 4096, 32, 128), at (1, 32768, 32, 128)
@@ -25,7 +29,12 @@
    `scaled_dot_product_attention` on the (b, h, s, d) transpose, with
    `enable_gqa` for grouped kv heads, ...) with CUDA events (median of
    20-50 launches, queued behind a device sleep so the host does not
-   starve the card) and prints one JSON line per kernel and shape. Weights
+   starve the card) and prints one JSON line per kernel and shape;
+   `int8_gemm` has no one-call library equivalent at b <= 16 and gets a
+   yardstick instead, `torch._int_mm` on x_q zero-padded to 32 rows, no
+   dequant (`int_mm_padded_ms`). Then it traces one `lowrank_gemm` call
+   at the largest factored leaf with `torch.profiler` and requires exactly
+   one device kernel (the fused launch). Weights
    that fit stay warm in the 50 MB L2 across those launches; at the
    `llama3-8b` decode shapes `decode_matvec` and `torch.matmul` are also
    timed cold, with the L2 evicted before every timed call by reading a
@@ -66,11 +75,12 @@
    `{"ok": true, "device": {...}}`. Any failure raises: the script exits
    non-zero and prints no result line.
 
-On an H100 the build takes about 40 s (nvcc, the five sources in
+On an H100 the build takes about 30 s (nvcc, the five sources in
 parallel) and phases 2-5 under a minute.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -135,7 +145,11 @@ FLASH_CASES = [(1, PREFILL_LEN, 32, 8, 128, True, torch.bfloat16, True),
 #: (m, n) and (m, r, n) off every tile and vector width, at RAGGED_BATCHES
 RAGGED_MATVEC = [(1000, 700), (4100, 1030), (333, 130)]
 RAGGED_LOWRANK = [(1000, 130, 700), (333, 72, 1030)]
+RAGGED_INT8 = [(37, 13), (640, 2304), (1536, 32), (37, 2304), (1536, 13)]
 RAGGED_BATCHES = (1, 4, 5, 16, 17)
+#: rows x_q is zero-padded to for int8_gemm's torch._int_mm yardstick
+#: (it refuses 16 rows or fewer)
+INT_MM_ROWS = 32
 #: the L2 is evicted before each cold timed call by reading this many bytes
 L2_FLUSH_BYTES = 256 << 20
 LM_GEMMS = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
@@ -213,15 +227,36 @@ def randn(shape, gen, dtype, scale=1.0):
 # ---------------------------------------------------------------------------
 
 def case(kernel, label, b, dtype, fn, plain, lib=None, nbytes=0, ops=0,
-         exact=False, path=None, weight=1, reps=50, cold=False):
+         exact=False, path=None, weight=1, reps=50, cold=False,
+         yardstick=None):
   """One comparison. `path` names the main path whose per-step sums the
   case feeds ("ds2" frame step, "lm_decode" step, "lm_prefill" call);
   `weight` is its launches in one step; nbytes/ops give the bound; `reps`
   the timed calls of each version; `cold` also times the kernel and the
-  library call with the L2 evicted before each call."""
+  library call with the L2 evicted before each call; `yardstick` is a
+  PyTorch call timed beside the kernel that does not compute the same
+  function (int8_gemm's `torch._int_mm` at 32 rows, no dequant)."""
   return dict(kernel=kernel, label=label, batch=b, dtype=dtype, fn=fn,
               plain=plain, lib=lib, nbytes=nbytes, ops=ops, exact=exact,
-              path=path, weight=weight, reps=reps, cold=cold)
+              path=path, weight=weight, reps=reps, cold=cold,
+              yardstick=yardstick)
+
+
+_BUSY: list = []
+
+
+def beside_busy_stream(fn):
+  """fn() on the current stream while a second stream runs eight f32
+  4096 x 4096 products (tens of ms on every SM) that it does not wait
+  for."""
+  if not _BUSY:
+    _BUSY.append((torch.cuda.Stream(), torch.ones(4096, 4096, device="cuda")))
+  side, a = _BUSY[0]
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(8):
+      a @ a
+  return fn()
 
 
 def chunked_attention(q, k, v, rows: int = 2048):
@@ -250,7 +285,8 @@ def kernel_cases(dense, fact, quant, lm, gen):
   from repro_torch.kernels.flash_attention import flash_attention
   from repro_torch.kernels.gru_cell import gru_cell
   from repro_torch.kernels.int8_gemm import int8_gemm
-  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  from repro_torch.kernels.lowrank_gemm import _launch as lowrank_launch
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm, lowrank_plan
 
   bf16 = torch.bfloat16
   leaves = {leaf.name: leaf for leaf in iter_factored_leaves(dense)}
@@ -297,18 +333,16 @@ def kernel_cases(dense, fact, quant, lm, gen):
       wq, ws = leaf.w_q, leaf.w_scale
       m, n = wq.shape
       xq, xs = ref.quantize_rowwise(randn((b, m), gen, bf16))
-
-      def int_mm(xq=xq, wq=wq):
-        return torch._int_mm(xq, wq)
-      try:
-        int_mm()
-      except RuntimeError:             # _int_mm refuses batch <= 16
-        int_mm = None
+      # torch._int_mm refuses batch <= 16: its yardstick pads x_q to 32
+      # zero rows (outside the timed call) and leaves out the dequant
+      xq32 = torch.zeros((INT_MM_ROWS, m), dtype=torch.int8, device="cuda")
+      xq32[:b] = xq
       cases.append(case("int8_gemm", f"{leaf.name} {m}x{n}", b, torch.int8,
                         lambda a=(xq, wq, xs, ws): int8_gemm(*a),
-                        lambda a=(xq, wq, xs, ws): ref.int8_gemm(*a), int_mm,
+                        lambda a=(xq, wq, xs, ws): ref.int8_gemm(*a), None,
                         b * m + m * n + 4 * (b + n + b * n), 2 * b * m * n,
-                        exact=True, path=path))
+                        exact=True, path=path,
+                        yardstick=lambda a=xq32, w=wq: torch._int_mm(a, w)))
   # decode_matvec at the LM's decode shapes: layer 0's GEMMs (the other 31
   # layers have the same shapes) and the head, at the engine's batch
   b = SERVE_BATCH
@@ -342,6 +376,35 @@ def kernel_cases(dense, fact, quant, lm, gen):
         cases.append(case("lowrank_gemm", f"ragged {m}x{r}x{n}", b, dtype,
                           lambda a=(x, u, v): lowrank_gemm(*a),
                           lambda a=(x, u, v): ref.lowrank_gemm(*a)))
+        # several waves of blocks (k ranges of 8 rows), alone and while a
+        # long product holds SMs on a second stream: the ticket order
+        # keeps the fused launch from deadlocking
+        p = dataclasses.replace(
+            lowrank_plan(b, m, r, n, w_bytes=x.element_size()),
+            split1=math.ceil(m / 8), kper1=8, split2=math.ceil(r / 8),
+            kper2=8)
+        cases.append(case("lowrank_gemm", f"oversubscribed {m}x{r}x{n}", b,
+                          dtype, lambda a=(x, u, v), p=p: lowrank_launch(*a,
+                                                                        p),
+                          lambda a=(x, u, v): ref.lowrank_gemm(*a)))
+        cases.append(case("lowrank_gemm", f"beside a busy stream {m}x{r}x{n}",
+                          b, dtype,
+                          lambda a=(x, u, v), p=p: beside_busy_stream(
+                              lambda: lowrank_launch(*a, p)),
+                          lambda a=(x, u, v): ref.lowrank_gemm(*a)))
+    # int8_gemm at ragged shapes: m off every quad, n off every lane's
+    # columns, rows of w_q off a 16-byte boundary (a view one byte in)
+    for b in RAGGED_BATCHES:
+      for m, n in RAGGED_INT8:
+        xq, xs = ref.quantize_rowwise(randn((b, m), gen, torch.float32))
+        wq, ws = ref.quantize_colwise(randn((m, n), gen, torch.float32))
+        flat = torch.zeros(m * n + 1, dtype=torch.int8, device="cuda")
+        flat[1:] = wq.flatten()
+        for label, w in (("ragged", wq), ("unaligned", flat[1:].view(m, n))):
+          cases.append(case("int8_gemm", f"{label} {m}x{n}", b, torch.int8,
+                            lambda a=(xq, w, xs, ws): int8_gemm(*a),
+                            lambda a=(xq, wq, xs, ws): ref.int8_gemm(*a),
+                            exact=True))
   for b, s, h, h_kv, d, causal, dtype, timed in FLASH_CASES:
     q = randn((b, s, h, d), gen, dtype)
     k, v = (randn((b, s, h_kv, d), gen, dtype) for _ in range(2))
@@ -420,9 +483,46 @@ def check_kernels(dense, fact, quant, lm) -> list[dict]:
       if c["cold"]:
         row.update(kernel_cold_ms=time_ms(c["fn"], reps, cold=True),
                    library_cold_ms=time_ms(c["lib"], reps, cold=True))
+      if c["yardstick"] is not None:
+        row["int_mm_padded_ms"] = time_ms(c["yardstick"], reps)
     print(json.dumps(row), flush=True)
     rows.append(row)
   return rows
+
+
+def check_one_lowrank_launch(fact) -> dict:
+  """One lowrank_gemm call at the largest factored DS2 leaf, batch 4,
+  bf16, traced with torch.profiler: the fused kernel must be the call's
+  only device activity (kernel, memset or memcpy)."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from repro_torch.core.factored import iter_factored_leaves
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  leaf = max((lf for lf in iter_factored_leaves(fact) if lf.is_factored),
+             key=lambda lf: lf.u.numel() + lf.v.numel())
+  gen = torch.Generator().manual_seed(2)
+  x = randn((SERVE_BATCH, leaf.u.shape[0]), gen, torch.bfloat16)
+  lowrank_gemm(x, leaf.u, leaf.v)     # its counters exist before the trace
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    lowrank_gemm(x, leaf.u, leaf.v)
+    torch.cuda.synchronize()
+  trace = ROOT / "build" / "lowrank_gemm_trace.json"
+  trace.parent.mkdir(parents=True, exist_ok=True)
+  prof.export_chrome_trace(str(trace))
+  device = [(e.get("cat"), e.get("name")) for e in
+            json.loads(trace.read_text())["traceEvents"]
+            if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+  if len(device) != 1 or device[0][0] != "kernel" or \
+      "lowrank" not in device[0][1]:
+    fail(f"lowrank_gemm {leaf.name}: {len(device)} device activities in one "
+         f"call, not one fused kernel: {device}")
+  out = dict(lowrank_gemm_one_call=leaf.name,
+             shape=[SERVE_BATCH, *leaf.u.shape, leaf.v.shape[1]],
+             device_activities=len(device), kernel=device[0][1])
+  print(json.dumps(out), flush=True)
+  return out
 
 
 # ---------------------------------------------------------------------------
@@ -808,10 +908,27 @@ def _sums(rows: list[dict]) -> dict:
       else "operations",
       library_ms=(sum(x * r["weight"] for x, r in zip(libs, rows))
                   if libs and None not in libs else None))
+  if rows and all("int_mm_padded_ms" in r for r in rows):
+    out["int_mm_padded_ms"] = sum(r["int_mm_padded_ms"] * r["weight"]
+                                  for r in rows)
   if rows and all("kernel_cold_ms" in r for r in rows):
     out.update(cold_ms=sum(r["kernel_cold_ms"] * r["weight"] for r in rows),
                library_cold_ms=sum(r["library_cold_ms"] * r["weight"]
                                    for r in rows))
+  return out
+
+
+def ds2_step_ms_by_batch(rows: list[dict], kernel: str,
+                         key: str = "kernel_ms") -> dict:
+  """`kernel`'s time a deepspeech2-wsj frame step at each timed batch
+  (BATCHES): the sum of its timed rows' `key` (or "library_ms") at the
+  serving path's shapes. Also takes the rows of an earlier version's
+  run, one JSON object a line."""
+  out: dict = {}
+  for r in rows:
+    if r.get("kernel") == kernel and r.get(key) is not None and \
+        r.get("path") in (None, "ds2"):
+      out[r["batch"]] = out.get(r["batch"], 0.0) + r[key]
   return out
 
 
@@ -820,8 +937,9 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
   and its launches on the main paths. Times: the DS2 kernels' per frame
   step at the server's batch (summed over the step's launches);
   flash_attention's per call at the prefill's (1, 4096, 32/8, 128), with
-  the repeated-heads (1, 4096, 32, 128) beside it; decode_matvec adds the
-  llama3-8b decode step at batch 4, warm and cold."""
+  the repeated-heads (1, 4096, 32, 128) beside it; the DS2 kernels add
+  their frame step at every timed batch (`ms_by_batch`), decode_matvec
+  the llama3-8b decode step at batch 4, warm and cold."""
   out = []
   for name, (source, replaces) in KERNELS.items():
     mine = [r for r in rows if r["kernel"] == name]
@@ -841,6 +959,8 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
       mha = [r for r in mine if r["shape"] == f"causal (1, {PREFILL_LEN}, "
              "32, 128)"]
       entry["repeated_heads_ms"] = mha[0]["kernel_ms"]
+    else:
+      entry["ms_by_batch"] = ds2_step_ms_by_batch(rows, name)
     lm_step = [r for r in mine if r["path"] == "lm_decode"]
     if lm_step:
       entry["llama3_8b_decode_step"] = _sums(lm_step)
@@ -886,6 +1006,7 @@ def main() -> int:
   rows = check_kernels(forms["dense"], forms["factored"], forms["int8"], lm)
   phases["2_kernels"] = time.perf_counter() - t0
   print(json.dumps({"kernels_checked": sorted(KERNELS)}), flush=True)
+  check_one_lowrank_launch(forms["factored"])
   by_path = {}
   t0 = time.perf_counter()
   by_path["ds2_serving"] = check_serving(cfg, forms, card)

@@ -33,9 +33,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "rk_decode_matvec": (_P, _P, _P, _P, _P, *(_I,) * 7, _P),
-    "rk_lowrank_gemm": (_P, _P, _P, _P, _P, _P, _P, *(_I,) * 11, _P),
+    "rk_lowrank_gemm": (_P, _P, _P, _P, _P, _P, *(_I,) * 10, _P),
     "rk_gru_cell": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "rk_int8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rk_int8_gemm": (_P, _P, _P, _P, _P, _P, _P, *(_I,) * 6, _P),
     "rk_flash_attention": (_P, _P, _P, _P, *(_I,) * 7, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,7 +1,8 @@
 // Shared pieces of the skinny-GEMM kernels (sm_90a): the dtype codes and
-// conversions every kernel uses, and the first skeleton, which gru_cell
-// and int8_gemm still run (decode_matvec and lowrank_gemm run the
-// split-K template of matvec.cuh).
+// conversions every kernel uses, RK_DISPATCH_ROWS, and the first
+// skeleton, which only gru_cell still runs (decode_matvec and lowrank_gemm
+// run the split-K template of matvec.cuh, int8_gemm its own in
+// int8_gemm.cu).
 //
 // Each of those kernels multiplies a few activation rows (the serving
 // batch, b <= 16 per block) by a weight matrix W (m, n) stored row-major,

@@ -1,7 +1,10 @@
 // The skinny-GEMM kernel template: y (b, n) = x (b, m) @ W (m, n), W
 // row-major, f32 accumulation, any of f32 / bf16 for x, W and y
-// independently. decode_matvec instantiates it once; lowrank_gemm twice
-// (x @ U into an f32 scratch, then that @ V).
+// independently. One tile of it is `matvec_block`: decode_matvec's kernel
+// runs one a block; lowrank_gemm's fused kernel runs both of its phases
+// (x @ U into an f32 t, then t @ V from a slab of V in shared memory) as
+// tiles of one grid. Its warp sums (`block_sums`) and split-K tail
+// (`last_sums`) are int8_gemm's too, on s32.
 //
 // What bounds it on the H100: the bytes of W. At b <= 16 it does 2*b
 // operations per weight element (<= 16 per bf16 byte), far below the ~295
@@ -28,10 +31,15 @@
 //     to part[y][b][n] (a workspace the wrapper allocates), counts itself in
 //     an int counter of its (column tile, batch tile), and the last block
 //     of the tile sums the ranges in order 0, 1, ... and resets the
-//     counter: one launch, no floating-point atomics, the same result run
-//     to run whichever block comes last. (A thread block cluster summing
-//     the partials through distributed shared memory was measured too: its
-//     8-block limit and co-scheduling cost more than it saved.)
+//     counter (`last_sums`): one launch, no floating-point atomics, the
+//     same result run to run whichever block comes last. (A thread block
+//     cluster summing the partials through distributed shared memory was
+//     measured too: its 8-block limit and co-scheduling cost more than it
+//     saved.)
+//   * The block's sums over its 8 warps go through shared memory P batch
+//     rows per pair of barriers (`block_sums`; xs is free once the block
+//     has computed), not one row per pair, whose barriers grew with the
+//     batch.
 //   * x: the block stages its k range of x (all its batch rows) in shared
 //     memory as f32 [k][R], at most kXsFloats at a time (a longer range is
 //     staged in chunks), and every lane reads x[k][0..R) as broadcasts.
@@ -45,7 +53,7 @@
 // split-K partials all at the same time, with no other block streaming
 // W meanwhile; hiding that prologue and epilogue (blocks of uneven phase,
 // a persistent grid) is what remains against torch.matmul. Nor TMA
-// staging of W, or lowrank_gemm's two phases in one launch.
+// staging of W.
 #pragma once
 
 #include "common.cuh"
@@ -152,51 +160,197 @@ __device__ __forceinline__ void stage_x(float* xs, const TX* __restrict__ x, int
   }
 }
 
-// y[row0 + r][col] = the sum over k ranges j = 0, 1, ... of
-// part[j][row0 + r][col], in that order, for rows r < rows and the
-// block's columns [col_begin, col_begin + cols); 8 loads in flight a
-// thread.
-template <typename TY>
-__device__ __forceinline__ void sum_ranges(const float* __restrict__ part, TY* __restrict__ y,
-                                           int b, int n, int split, int row0, int rows,
-                                           int col_begin, int cols) {
-  const size_t stride = (size_t)b * n;
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-    const int r = i / cols, col = col_begin + i % cols;
-    if (col >= n) continue;
-    const float* src = part + (size_t)(row0 + r) * n + col;
-    float s = 0.f;
-    int j = 0;
-    for (; j + 8 <= split; j += 8) {
-      float v[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) v[t] = __ldcg(src + (size_t)(j + t) * stride);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) s += v[t];
+// Stage the same x, f32, written by other blocks of this launch: read
+// through the L2 (ld.global.cg; L1 is not coherent across SMs), four
+// neighbouring k a thread (one 16-byte load) where the rows allow.
+template <int R>
+__device__ __forceinline__ void stage_x_fresh(float* xs, const float* x, int m, int row0,
+                                              int rows, int k0, int kc) {
+  if (m % 4 == 0 && k0 % 4 == 0 && kc % 4 == 0) {  // uniform
+    const int groups = kc / 4;
+    for (int i = threadIdx.x; i < R * groups; i += kThreads) {
+      const int r = i / groups, k = 4 * (i - r * groups);
+      const float4 v =
+          r < rows ? __ldcg(reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * m + k0 + k))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      xs[k * R + r] = v.x;
+      xs[(k + 1) * R + r] = v.y;
+      xs[(k + 2) * R + r] = v.z;
+      xs[(k + 3) * R + r] = v.w;
     }
-    for (; j < split; ++j) s += __ldcg(src + (size_t)j * stride);
-    y[(size_t)(row0 + r) * n + col] = from_f<TY>(s);
+  } else {
+    for (int i = threadIdx.x; i < R * kc; i += kThreads) {
+      const int r = i / kc, k = i - r * kc;
+      xs[k * R + r] = r < rows ? __ldcg(x + (size_t)(row0 + r) * m + k0 + k) : 0.f;
+    }
   }
 }
 
-// G lanes side by side cover G x kVec columns of a row (a block owns
-// those columns); the 32 / G lane groups of a warp and the 8 warps take
-// different rows: 256 / G row slots a block.
-template <typename TX, typename TW, typename TY, int R, int G>
-__global__ void __launch_bounds__(kThreads, Resident<R>::kBlocks)
-matvec_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TY* __restrict__ y,
-              float* __restrict__ part, int* __restrict__ count, int b, int m, int n, int kper,
-              bool aligned) {
+// How matvec_block stages its chunk of x: through the ordinary path, or
+// through the L2 (x written earlier in the same launch).
+enum Stage { kStageLoop, kStageFresh };
+
+// The row slot of this thread (its first row of a k range) when G lanes
+// lie side by side across a row: 256 / G slots a block.
+template <int G>
+__device__ __forceinline__ int row_slot() {
+  return (threadIdx.x / 32) * (32 / G) + (threadIdx.x % 32) / G;
+}
+
+// A slab: the rows [k0, k0 + kc) of W under a block's G x 16 bytes of
+// columns, in shared memory as [k][G] 16-byte vectors. Each thread copies
+// (cp.async, 16 bytes, L2 only) exactly the vectors it later reads, so
+// its own cp.async.wait_all makes them visible to it: no barrier. W's rows
+// must lie on 16-byte boundaries.
+template <typename TW, int G>
+__device__ __forceinline__ void copy_slab(uint4* slab, const TW* __restrict__ w, int n, int k0,
+                                          int kc, int col0) {
+  constexpr int kSlots = kThreads / G;
+  for (int k = row_slot<G>(); k < kc; k += kSlots) {
+    const uint32_t dst =
+        static_cast<uint32_t>(__cvta_generic_to_shared(slab + k * G + threadIdx.x % G));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(w + (size_t)(k0 + k) * n + col0)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_slab() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// The lane's vectors of slab rows kb, kb + slots, ... (kUnroll of them);
+// rows at or past kc read as zero.
+template <int G>
+__device__ __forceinline__ void slab_rows(uint4 (&raw)[kUnroll], const uint4* slab, int kb,
+                                          int slots, int kc) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int k = kb + u * slots;
+    raw[u] = k < kc ? slab[k * G + threadIdx.x % G] : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Shared memory of one block: staged x (also the warps' sums once the
+// block has computed), and the last-block flag.
+struct Smem {
+  float xs[kXsFloats];  // [k][R], then block_sums' [warp][P][columns]
+  int last;
+};
+
+// The block's sums of its threads' accumulators (acc[r][c]: batch row r,
+// the lane's V columns; TA = f32 or s32), one a (batch row, column of the
+// block's G * V): first over the warp's 32 / G lane groups (a fixed
+// shuffle tree), then over the 8 warps in warp order, P batch rows per
+// pair of barriers through `red` ([warp][P][G * V] in shared memory; the
+// caller syncs before it reuses it). kOwnRed: red is the sums' own, else
+// it is memory other warps may still read (staged x) and the first pass
+// syncs first too. emit(r, i, s) takes batch row r < rows and column i
+// of the block.
+template <int G, int P, bool kOwnRed, typename TA, int R, int V, typename Emit>
+__device__ __forceinline__ void block_sums(TA (&acc)[R][V], TA* red, int rows, Emit emit) {
+  constexpr int kCols = G * V;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+#pragma unroll
+      for (int off = G; off < 32; off *= 2)
+        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+#pragma unroll
+  for (int r0 = 0; r0 < R; r0 += P) {
+    if (r0 < rows) {  // uniform across the block
+      if (r0 > 0 || !kOwnRed) __syncthreads();  // red is free
+      if (lane < G) {
+#pragma unroll
+        for (int q = 0; q < P && r0 + q < R; ++q)
+#pragma unroll
+          for (int c = 0; c < V; ++c) red[(warp * P + q) * kCols + lane * V + c] = acc[r0 + q][c];
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < P * kCols; i += kThreads) {
+        const int q = i / kCols, c = i - q * kCols;
+        if (r0 + q < rows) {
+          TA s = 0;
+#pragma unroll
+          for (int j = 0; j < kWarps; ++j) s += red[(j * P + q) * kCols + c];
+          emit(r0 + q, c, s);
+        }
+      }
+    }
+  }
+}
+
+// The split-K tail of one tile (kCols columns from col_begin, batch rows
+// [row0, row0 + rows)) of `split` k ranges, once every thread of the
+// block has written its partial sums part[j][row][col] (TA = f32 or s32):
+// thread 0 counts the block with one acquire-release add on the tile's
+// counter (the barrier before makes the block's writes part of the
+// release); the last block sums the ranges' partials in range order 0,
+// 1, ..., 16 loads in flight a thread, hands each sum to emit(row, col,
+// s) (columns below n), and resets the counter. Returns whether this
+// block was the last.
+template <int kCols, typename TA, typename Emit>
+__device__ __forceinline__ bool last_sums(const TA* __restrict__ part, int* count, int b, int n,
+                                          int split, int col_begin, int row0, int rows, int& last,
+                                          Emit emit) {
+  constexpr int C = 16;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(count)
+                 : "memory");
+    last = old == split - 1;
+    if (last) *count = 0;
+  }
+  __syncthreads();
+  if (!last) return false;
+  const size_t stride = (size_t)b * n;
+  for (int i = threadIdx.x; i < rows * kCols; i += kThreads) {
+    const int r = i / kCols, col = col_begin + i % kCols;
+    if (col >= n) continue;
+    const TA* src = part + (size_t)(row0 + r) * n + col;
+    TA s = 0;
+    for (int j = 0; j < split; j += C) {
+      TA v[C];
+#pragma unroll
+      for (int t = 0; t < C; ++t) v[t] = j + t < split ? __ldcg(src + (size_t)(j + t) * stride) : 0;
+#pragma unroll
+      for (int t = 0; t < C; ++t) s += v[t];  // + 0 past split: exact, s is never -0
+    }
+    emit(row0 + r, col, s);
+  }
+  return true;
+}
+
+// One tile of y = x @ W: columns [bx * G * kVec, (bx + 1) * G * kVec), k
+// range by of `split` (rows [by * kper, min(m, (by + 1) * kper))) and
+// batch rows [16 bz, 16 bz + R); gx column tiles. G lanes side by side
+// cover the block's columns; the 32 / G lane groups of a warp and the 8
+// warps take different rows: 256 / G row slots a block. kStage: how x is
+// staged (kStageFresh: f32, written earlier in this launch). kSlab: W's
+// rows of this range are in `slab` (copy_slab, already waited for; the
+// range is staged in one chunk of x), else they stream from global
+// memory. Writes y, or with `part` this range's slice of the partial sums
+// (part[by][row][col]); leaves sm.xs in use by the warps' sums.
+template <typename TX, typename TW, typename TY, int R, int G, int kStage, bool kSlab>
+__device__ __forceinline__ void matvec_block(const TX* __restrict__ x, const TW* __restrict__ w,
+                                             const uint4* slab, TY* __restrict__ y,
+                                             float* __restrict__ part, int b, int m, int n,
+                                             int kper, bool aligned, int bx, int by, int bz,
+                                             Smem& sm) {
   constexpr int V = Lane<TW>::kVec, kCols = G * V, kSlots = kThreads / G;
   constexpr int kXsRows = kXsFloats / R;  // rows of x staged at a time
-  __shared__ __align__(16) float xs[kXsFloats];       // [k][R]
-  __shared__ __align__(16) float red[kWarps][kCols];  // the warps' sums of one batch row
-  __shared__ int last;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int slot = warp * (32 / G) + lane / G;  // this lane's first row
-  const int col0 = blockIdx.x * kCols + (lane % G) * V;
-  const int row0 = blockIdx.z * kBatchTile, rows = min(R, b - row0);
-  const int k0 = blockIdx.y * kper, kend = min(m, k0 + kper);
+  // batch rows summed over the warps per pair of barriers (through xs)
+  constexpr int kFit = kXsFloats / (kWarps * kCols), P = R < kFit ? R : kFit;
+  float* xs = sm.xs;
+  const int lane = threadIdx.x % 32;
+  const int slot = row_slot<G>();  // this lane's first row
+  const int col0 = bx * kCols + (lane % G) * V;
+  const int row0 = bz * kBatchTile, rows = min(R, b - row0);
+  const int k0 = by * kper, kend = min(m, k0 + kper);
   const bool live = col0 < n;
 
   float acc[R][V];
@@ -210,13 +364,22 @@ matvec_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TY* __restrict
     const TW* wp = w + (size_t)kx * n + col0;
     uint4 raw[kUnroll];
     // the lane's first rows of W are in flight while x is staged
-    if (live) load_rows(raw, wp, slot, kSlots, kc, col0, n, aligned);
+    if (live) {
+      if constexpr (kSlab) slab_rows<G>(raw, slab, slot, kSlots, kc);
+      else load_rows(raw, wp, slot, kSlots, kc, col0, n, aligned);
+    }
     if (kx > k0) __syncthreads();  // every warp is done with the previous chunk
-    stage_x<TX, R>(xs, x, m, row0, rows, kx, kc);
+    if constexpr (kStage == kStageFresh)
+      stage_x_fresh<R>(xs, x, m, row0, rows, kx, kc);
+    else
+      stage_x<TX, R>(xs, x, m, row0, rows, kx, kc);
     __syncthreads();
     if (live) {
       for (int kb = slot; kb < kc; kb += kSlots * kUnroll) {
-        if (kb != slot) load_rows(raw, wp, kb, kSlots, kc, col0, n, aligned);
+        if (kb != slot) {
+          if constexpr (kSlab) slab_rows<G>(raw, slab, kb, kSlots, kc);
+          else load_rows(raw, wp, kb, kSlots, kc, col0, n, aligned);
+        }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int k = kb + u * kSlots;
@@ -236,55 +399,34 @@ matvec_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TY* __restrict
     }
   }
 
-  // The sums of one column: first over the warp's 32 / G lane groups (a
-  // fixed shuffle tree), then over the 8 warps in warp order; into y (one
-  // k range) or into this range's slice of the partial sums.
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < V; ++c)
-#pragma unroll
-      for (int off = G; off < 32; off *= 2)
-        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < rows) {  // uniform across the block
-      if (lane < G) {
-#pragma unroll
-        for (int c = 0; c < V; ++c) red[warp][lane * V + c] = acc[r][c];
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < kCols; i += kThreads) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < kWarps; ++j) s += red[j][i];
-        const int col = blockIdx.x * kCols + i;
-        if (col < n) {
-          if (part != nullptr)
-            part[((size_t)blockIdx.y * b + row0 + r) * n + col] = s;
-          else
-            y[(size_t)(row0 + r) * n + col] = from_f<TY>(s);
-        }
-      }
-      __syncthreads();
+  // into y (one k range) or into this range's slice of the partial sums
+  block_sums<G, P, false>(acc, xs, rows, [&](int r, int i, float s) {
+    const int col = bx * kCols + i;
+    if (col < n) {
+      if (part != nullptr)
+        part[((size_t)by * b + row0 + r) * n + col] = s;
+      else
+        y[(size_t)(row0 + r) * n + col] = from_f<TY>(s);
     }
-  }
-  if (part == nullptr) return;
+  });
+}
 
-  // Split k: the last block of this (column tile, batch tile) to finish
-  // sums the ranges' partials in range order (the same order whichever
-  // block is last) and resets the tile's counter for the next launch.
-  __threadfence();  // this block's partials are visible before it counts
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* c = count + blockIdx.z * gridDim.x + blockIdx.x;
-    last = atomicAdd(c, 1) == (int)gridDim.y - 1;
-    if (last) *c = 0;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  sum_ranges<TY>(part, y, b, n, gridDim.y, row0, rows, blockIdx.x * kCols, kCols);
+template <typename TX, typename TW, typename TY, int R, int G>
+__global__ void __launch_bounds__(kThreads, Resident<R>::kBlocks)
+matvec_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TY* __restrict__ y,
+              float* __restrict__ part, int* __restrict__ count, int b, int m, int n, int kper,
+              bool aligned) {
+  constexpr int kCols = G * Lane<TW>::kVec;
+  __shared__ __align__(16) Smem sm;
+  matvec_block<TX, TW, TY, R, G, kStageLoop, false>(x, w, nullptr, y, part, b, m, n, kper,
+                                                    aligned, blockIdx.x, blockIdx.y, blockIdx.z,
+                                                    sm);
+  if (part == nullptr) return;
+  // split k: the last block of this (column tile, batch tile) sums
+  const int row0 = blockIdx.z * kBatchTile;
+  last_sums<kCols>(part, count + blockIdx.z * gridDim.x + blockIdx.x, b, n, gridDim.y,
+                   blockIdx.x * kCols, row0, min(R, b - row0), sm.last,
+                   [&](int row, int col, float s) { y[(size_t)row * n + col] = from_f<TY>(s); });
 }
 
 }  // namespace mv

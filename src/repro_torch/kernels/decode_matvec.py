@@ -1,6 +1,7 @@
 """decode_matvec — launcher of `csrc/decode_matvec.cu` (y = x @ w at
 serving batch, f32 accumulation, output in x.dtype), and `plan`, the
-tiling and split-K it and `lowrank_gemm` pass to the kernel.
+tiling and split-K it passes to the kernel, on the one-wave rule
+`split_plan` that `int8_gemm.plan` shares.
 
 Replaces the Pallas kernel `repro/kernels/decode_matvec.py:38`. The
 design note (what bounds it, what the design does) heads
@@ -11,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from collections.abc import Callable
 
 import torch
 
@@ -41,15 +43,15 @@ class Plan:
 
   Block (x, y, z) owns columns [x * cols, (x + 1) * cols) (`lanes` lanes
   of `vec` columns side by side), k range y (`k_ranges()[y]`) and batch
-  rows [16 z, 16 z + rows). With split > 1 each block writes its f32
-  partial sums to workspace[y, row, col] (a (split, b, n) tensor) and
-  counts itself in counter [z, x]; the last block of a tile sums the k
-  ranges in order and zeroes the counter."""
+  rows [16 z, 16 z + rows). With split > 1 each block writes its partial
+  sums (f32; int8_gemm: s32) to workspace[y, row, col] (a (split, b, n)
+  tensor) and counts itself in counter [z, x]; the last block of a tile
+  sums the k ranges in order and zeroes the counter."""
   b: int
   m: int
   n: int
   rows: int          # R: batch rows a block holds (power of two <= 16)
-  vec: int           # columns a lane owns (16 bytes of W)
+  vec: int           # columns a lane owns (16 bytes of W; int8: 8 at R = 16)
   lanes: int         # G: lanes side by side across a row, in LANES
   split: int         # k ranges
   k_per_split: int   # rows of W a k range takes (the last may take fewer)
@@ -70,7 +72,7 @@ class Plan:
 
   @property
   def workspace_shape(self) -> tuple[int, ...]:
-    """The f32 partial sums the kernel writes: (split, b, n), or none."""
+    """The partial sums the kernel writes: (split, b, n), or none."""
     return (self.split, self.b, self.n) if self.split > 1 else (0,)
 
   @property
@@ -89,28 +91,42 @@ def k_min(lanes: int) -> int:
   return THREADS // lanes * UNROLL
 
 
-@functools.lru_cache(maxsize=4096)
-def plan(b: int, m: int, n: int, *, w_bytes: int = 2,
-         sms: int = H100_SMS) -> Plan:
-  """The tiling of one skinny GEMM, in one wave: as many k ranges as fit
-  the SMs' resident blocks once (two when the column tiles alone
-  overflow them), each a multiple of 8 rows and at least `k_min(lanes)`.
-  The widest column tile whose ranges keep K_PREF rows wins (fewer
+def batch_rows(b: int) -> int:
+  """R: the batch rows a block holds, b rounded up to a power of two <= 16
+  (RK_DISPATCH_ROWS in csrc/common.cuh)."""
+  return min(BATCH_TILE, 1 << (b - 1).bit_length())
+
+
+def split_plan(b: int, m: int, n: int, *, vec: int, resident: dict,
+               k_min: Callable[[int], int], k_align: int, sms: int) -> Plan:
+  """The one-wave split-K rule of the skinny GEMMs (decode_matvec's and
+  int8_gemm's): as many k ranges as fit the SMs' `resident` blocks once
+  (two when the column tiles alone overflow them), each a multiple of
+  `k_align` rows and at least `k_min(lanes)`. The widest column tile
+  (`vec` columns a lane) whose ranges keep K_PREF rows wins (fewer
   partial sums); else the narrowest."""
-  if min(b, m, n) <= 0 or w_bytes not in (2, 4):
-    raise ValueError(f"plan: b={b} m={m} n={n} w_bytes={w_bytes}")
-  rows = min(BATCH_TILE, 1 << (b - 1).bit_length())
-  vec = 16 // w_bytes
-  slots = RESIDENT[rows] * sms
+  rows = batch_rows(b)
+  slots = resident[rows] * sms
   for lanes in LANES:
     tiles = math.ceil(n / (lanes * vec)) * math.ceil(b / BATCH_TILE)
     split = slots // tiles if tiles <= slots else 2
     k = math.ceil(m / split)
-    k = min(m, max(k_min(lanes), k + (-k) % 8))
+    k = min(m, max(k_min(lanes), k + (-k) % k_align))
     if k >= K_PREF:
       break
   return Plan(b=b, m=m, n=n, rows=rows, vec=vec, lanes=lanes,
               split=math.ceil(m / k), k_per_split=k)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, m: int, n: int, *, w_bytes: int = 2,
+         sms: int = H100_SMS) -> Plan:
+  """The tiling of one y = x @ W (f32 or bf16): `split_plan` with a lane
+  owning 16 bytes of a row and k ranges of multiples of 8 rows."""
+  if min(b, m, n) <= 0 or w_bytes not in (2, 4):
+    raise ValueError(f"plan: b={b} m={m} n={n} w_bytes={w_bytes}")
+  return split_plan(b, m, n, vec=16 // w_bytes, resident=RESIDENT,
+                    k_min=k_min, k_align=8, sms=sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,13 +140,13 @@ def plan_for(x: torch.Tensor, w: torch.Tensor) -> Plan:
               sms=sm_count(x.device.index or 0))
 
 
-def workspace(x: torch.Tensor, *plans: Plan) -> torch.Tensor | None:
-  """One f32 partial-sum buffer large enough for each of `plans` (run one
-  after another on one stream), or None when none of them splits k."""
-  size = max(math.prod(p.workspace_shape) for p in plans)
+def workspace(x: torch.Tensor, p, dtype=torch.float32) -> torch.Tensor | None:
+  """The partial-sum buffer of plan `p` (its `workspace_shape`), or None
+  when it needs none."""
+  size = math.prod(p.workspace_shape)
   if size == 0:
     return None
-  return torch.empty((size,), dtype=torch.float32, device=x.device)
+  return torch.empty((size,), dtype=dtype, device=x.device)
 
 
 #: (device index, stream handle) -> zeroed int32 tile counters, shared by
@@ -138,10 +154,10 @@ def workspace(x: torch.Tensor, *plans: Plan) -> torch.Tensor | None:
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def counters(x: torch.Tensor, *plans: Plan) -> torch.Tensor | None:
-  """Zeroed tile counters for each of `plans` on x's current stream, or
-  None when none of them splits k."""
-  need = max(p.counters for p in plans)
+def counters(x: torch.Tensor, p) -> torch.Tensor | None:
+  """Zeroed counters for plan `p` (its `counters` ints) on x's current
+  stream, or None when it needs none."""
+  need = p.counters
   if need == 0:
     return None
   key = (x.device.index, _build.stream(x))

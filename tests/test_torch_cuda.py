@@ -251,3 +251,83 @@ def test_matvec_kernels_on_ragged_shapes(cuda, dtype, b):
                                ref.lowrank_gemm(x, u, v), **tol)
     splits.add(plan(b, m, n, w_bytes=w.element_size()).split > 1)
   assert splits == {True, False}
+
+
+@pytest.mark.parametrize("b", [1, 4, 5, 16, 17])
+def test_int8_gemm_bitwise_on_ragged_and_unaligned_shapes(cuda, b):
+  """int8_gemm equals the plain version bit for bit at m off every quad
+  (37), n off every lane's 16 or 8 columns (13) and at the DS2 widths,
+  including a w_q whose rows start off a 16-byte boundary (a view one
+  byte into its storage: the kernel's scalar-load branch)."""
+  from repro_torch.kernels import int8_gemm as ig
+  for m in (37, 640, 1536):
+    for n in (13, 32, 2304):
+      x = torch.from_numpy(rnd(b, (b, m))).to(cuda)
+      xq, xs = ref.quantize_rowwise(x)
+      w = torch.from_numpy(rnd(m + n, (m, n), 0.05)).to(cuda)
+      wq, ws = ref.quantize_colwise(w)
+      assert torch.equal(ig.int8_gemm(xq, wq, xs, ws),
+                         ref.int8_gemm(xq, wq, xs, ws))
+      flat = torch.zeros(m * n + 1, dtype=torch.int8, device=cuda)
+      flat[1:] = wq.flatten()
+      off = flat[1:].view(m, n)
+      assert off.data_ptr() % 16 != 0
+      assert torch.equal(ig.int8_gemm(xq, off, xs, ws),
+                         ref.int8_gemm(xq, wq, xs, ws))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_lowrank_finishes_oversubscribed_and_beside_a_busy_stream(
+    cuda, dtype):
+  """The fused lowrank_gemm takes its work items by ticket, phase 1
+  first, so it cannot deadlock: with a plan forced to several waves of
+  blocks (k ranges of 8 rows, batch 17: 1 block an SM), and with a long
+  kernel holding SMs on a second stream, it finishes and agrees with the
+  plain version; the counters it leaves let the next call run too."""
+  import dataclasses
+
+  from repro_torch.kernels import decode_matvec as dm
+  from repro_torch.kernels import lowrank_gemm as lg
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm, lowrank_plan
+  launch = lg._launch
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  b, m, r, n = 17, 1000, 130, 700
+  x = torch.from_numpy(rnd(1, (b, m))).to(cuda, dt)
+  u = torch.from_numpy(rnd(2, (m, r), 0.05)).to(cuda, dt)
+  v = torch.from_numpy(rnd(3, (r, n), 0.08)).to(cuda, dt)
+  want = ref.lowrank_gemm(x, u, v)
+  p = dataclasses.replace(
+      lowrank_plan(b, m, r, n, w_bytes=x.element_size()), split1=125,
+      kper1=8, split2=17, kper2=8)
+  sms = dm.sm_count(cuda.index or 0)
+  assert p.blocks > 2 * lg.RESIDENT[p.rows] * sms
+  torch.testing.assert_close(launch(x, u, v, p), want, **tol)
+  side = torch.cuda.Stream()
+  big = torch.randn(8192, 8192, device=cuda)
+  side.wait_stream(torch.cuda.current_stream())   # big is written
+  with torch.cuda.stream(side):
+    for _ in range(4):
+      big @ big.T
+  got = launch(x, u, v, p)
+  again = lowrank_gemm(x, u, v)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got, want, **tol)
+  torch.testing.assert_close(again, want, **tol)
+
+
+def test_factored_quantized_leaf_matches_ref_apply_bitwise(cuda):
+  """A factored QuantizedLinear through the kernels (int8_gemm for x @ U,
+  a per-row requantize of t, int8_gemm for t @ V) equals `ref_apply` bit
+  for bit, at the DS2 frame step's batch and at a ragged one."""
+  from repro_torch.core.factored import factored
+  from repro_torch.quant.leaf import kernel_apply, ref_apply
+  from repro_torch.quant.ptq import quantize_leaf
+  gen = torch.Generator().manual_seed(0)
+  leaf = quantize_leaf(factored(1024, 3840, 256, name="gru2/nonrec",
+                                group="nonrec", generator=gen, device=cuda))
+  assert leaf.is_factored
+  for b in (4, 17):
+    x = torch.from_numpy(rnd(b, (b, 1024))).to(cuda)
+    assert torch.equal(kernel_apply(leaf, x), ref_apply(leaf, x))

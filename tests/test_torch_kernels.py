@@ -219,9 +219,9 @@ def test_attention_layer_hands_unrepeated_kv_to_the_kernel(monkeypatch):
   assert len(seen) == 1
 
 
-#: (m, n) of every GEMM decode_matvec and lowrank_gemm's two phases run on
-#: the main paths: deepspeech2-wsj's unfactored nonrec/fc leaves, its
-#: rank-256 factors, and llama3-8b's q/o, k/v, gate/up, down and head
+#: (m, n) of every GEMM decode_matvec runs on the main paths, and more:
+#: deepspeech2-wsj's unfactored nonrec/fc leaves, its rank-256 factors'
+#: shapes, and llama3-8b's q/o, k/v, gate/up, down and head
 PLAN_SHAPES = {
     "ds2 gru0/nonrec": (640, 2304), "ds2 gru1/nonrec": (768, 3072),
     "ds2 gru2/nonrec": (1024, 3840), "ds2 fc": (1280, 1536),
@@ -307,3 +307,171 @@ def test_decode_matvec_plan_constants_match_the_kernel(name):
               batch_rows=sorted({dm.plan(b, 64, 64).rows
                                  for b in range(1, 2 * dm.BATCH_TILE + 1)}))
   assert mine[name] == _kernel_constants()[name]
+
+
+#: (m, n) of the deepspeech2-wsj leaves: the 7 that FactorizationPlan()
+#: factors at rank 256 (lowrank_gemm) and, with `out`, the 8 PTQ'd ones
+#: (int8_gemm); then ragged shapes (m, n off every quad, vector and tile)
+DS2_LEAVES = {
+    "gru0/nonrec": (640, 2304), "gru1/nonrec": (768, 3072),
+    "gru2/nonrec": (1024, 3840), "gru0/rec": (768, 2304),
+    "gru1/rec": (1024, 3072), "gru2/rec": (1280, 3840), "fc": (1280, 1536),
+}
+DS2_INT8 = dict(DS2_LEAVES, out=(1536, 32))
+RAGGED = {"ragged 1000x700": (1000, 700), "ragged 333x1030": (333, 1030),
+          "ragged 37x13": (37, 13)}
+
+
+@pytest.mark.parametrize("shape", sorted(DS2_LEAVES) + sorted(RAGGED))
+def test_lowrank_plan_covers_u_and_v_once_in_one_wave(shape):
+  """For b 1..17 and bf16/f32 (rank 256 on the DS2 leaves, 130 and 72 on
+  the ragged shapes): the tickets decode to every phase-1 item and every
+  phase-2 item once, all phase 1's first; phase 1's k ranges cover every
+  k of U once and phase 2's tiles and ranges every (k, column) of V once;
+  the grid fits one wave of resident blocks at 132 SMs (always at the
+  main path's bf16 DS2 shapes; elsewhere unless the column and batch
+  tiles alone overflow it, and then no k is split); the slab fits the
+  kernel's shared memory and one chunk of staged t; the workspace holds t
+  and each splitting phase's partials, and the counters the head and one
+  a tile of each phase."""
+  from repro_torch.kernels import decode_matvec as dm
+  from repro_torch.kernels import lowrank_gemm as lg
+  m, n = {**DS2_LEAVES, **RAGGED}[shape]
+  ranks = (256,) if shape in DS2_LEAVES else (130, 72)
+  for r in ranks:
+    for w_bytes in (2, 4):
+      for b in range(1, 18):
+        p = lg.lowrank_plan(b, m, r, n, w_bytes=w_bytes)
+        gx1, gx2, gz = p.tiles
+        assert p.rows >= min(b, dm.BATCH_TILE) and p.cols == lg.LANES * p.vec
+        phases = [p.item(t)[0] for t in range(p.blocks)]
+        assert phases == sorted(phases) and phases.count(1) == p.items1
+        seen = {p.item(t) for t in range(p.blocks)}
+        assert len(seen) == p.blocks
+        for phase, k, gx, split in ((1, m, gx1, p.split1),
+                                    (2, r, gx2, p.split2)):
+          ranges = p.k_ranges(phase)
+          assert len(ranges) == split
+          covered = np.zeros(k, dtype=np.int64)
+          for k0, k1 in ranges:
+            assert k0 < k1
+            covered[k0:k1] += 1
+          assert (covered == 1).all()
+          assert {(ph, x, y, z) for ph, x, y, z in seen if ph == phase} == {
+              (phase, x, y, z) for x in range(gx) for y in range(split)
+              for z in range(gz)}
+        written = np.zeros((r, gx2 * p.cols), dtype=np.int8)
+        for x in range(gx2):
+          for k0, k1 in p.k_ranges(2):
+            written[k0:k1, x * p.cols:(x + 1) * p.cols] += 1
+        assert (written[:, :n] == 1).all()
+        assert p.blocks <= lg.RESIDENT[p.rows] * dm.H100_SMS or \
+            p.split1 == p.split2 == 1
+        if shape in DS2_LEAVES and b <= dm.BATCH_TILE and w_bytes == 2:
+          assert p.blocks <= lg.RESIDENT[p.rows] * dm.H100_SMS
+        assert p.kper1 % 8 == 0 or p.kper1 == m
+        assert p.kper2 % 8 == 0 or p.kper2 == r
+        if p.slab:
+          assert n % p.vec == 0
+          assert p.slab_bytes == p.kper2 * p.cols * w_bytes <= lg.SLAB_BYTES
+          assert p.kper2 * p.rows <= lg.XS_FLOATS
+        elif shape in DS2_LEAVES and b <= dm.BATCH_TILE:
+          pytest.fail(f"{shape} b={b}: no slab of V at a main-path shape")
+        assert p.slab_bytes == (p.kper2 * p.cols * w_bytes if p.slab else 0)
+        assert p.workspace_shape == (
+            b * r + (p.split1 * b * r if p.split1 > 1 else 0)
+            + (p.split2 * b * n if p.split2 > 1 else 0),)
+        assert p.counters == lg.HEAD + gz * (gx1 + gx2)
+
+
+@pytest.mark.parametrize("shape", sorted(DS2_INT8) + sorted(RAGGED))
+def test_int8_plan_covers_k_once_and_its_workspace(shape):
+  """For b 1..17: int8_gemm's k ranges cover every k of w_q once, in
+  whole 16-row quads-of-quads (or one range); the grid fits one wave (or
+  two k ranges); 16 columns a lane up to 8 batch rows, 8 at 16; the
+  blocks' writes cover the (split, b, n) s32 workspace once, with one
+  counter a (column tile, batch tile)."""
+  from repro_torch.kernels import decode_matvec as dm
+  from repro_torch.kernels import int8_gemm as ig
+  m, n = {**DS2_INT8, **RAGGED}[shape]
+  for b in range(1, 18):
+    p = ig.plan(b, m, n)
+    covered = np.zeros(m, dtype=np.int64)
+    for k0, k1 in p.k_ranges():
+      assert k0 < k1
+      covered[k0:k1] += 1
+    assert (covered == 1).all()
+    assert p.k_per_split % 16 == 0 or p.split == 1
+    assert p.k_per_split >= min(m, ig.k_min(p.lanes))
+    assert p.vec == (16 if p.rows <= 8 else 8) and p.lanes in dm.LANES
+    gx, gy, gz = p.grid
+    assert p.blocks <= ig.RESIDENT[p.rows] * dm.H100_SMS or gy <= 2
+    if p.split == 1:
+      assert p.workspace_shape == (0,) and p.counters == 0
+      continue
+    written = np.zeros(p.workspace_shape, dtype=np.int8)
+    for z in range(gz):
+      rows = slice(dm.BATCH_TILE * z, min(b, dm.BATCH_TILE * z + p.rows))
+      for x in range(gx):
+        written[:, rows, x * p.cols:(x + 1) * p.cols] += 1
+    assert gy == p.split and (written == 1).all()
+    assert p.counters == gx * gz
+
+
+def _source_constants() -> dict:
+  """The constants of `csrc/lowrank_gemm.cu` and `csrc/int8_gemm.cu`,
+  read from the sources (int8_gemm.cu takes its warps and batch tile
+  from matvec.cuh)."""
+  import pathlib
+  import re
+  csrc = pathlib.Path(ops.__file__).parent / "csrc"
+  lr = (csrc / "lowrank_gemm.cu").read_text()
+  mv = (csrc / "matvec.cuh").read_text()
+  i8 = (csrc / "int8_gemm.cu").read_text()
+  rows = (1, 2, 4, 8, 16)
+
+  def const(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+  def resident(src):
+    expr = re.search(r"kBlocks = ([^;]+);", src).group(1)
+    tiers = [(int(r), int(k)) for r, k in
+             re.findall(r"R <= (\d+) \? (\d+) :", expr)]
+    default = int(expr.rsplit(":", 1)[1])
+    return {r: next((k for t, k in tiers if r <= t), default) for r in rows}
+
+  vec = re.search(r"kVec = R <= (\d+) \? (\d+) : (\d+);", i8).groups()
+  head = re.search(r"kTicket = 0, kTReady = 1, kPast = 2, kTiles = (\d+);",
+                   lr)
+  return dict(
+      lowrank_lanes=const(lr, "kLanes"), lowrank_slab=const(lr, "kSlabBytes"),
+      lowrank_head=int(head.group(1)), lowrank_resident=resident(lr),
+      lowrank_xs_floats=const(mv, "kXsFloats"),
+      int8_threads=const(mv, "kWarps") * 32, int8_unroll=const(i8, "kUnroll"),
+      int8_batch_tile=const(mv, "kBatchTile"), int8_resident=resident(i8),
+      int8_cols_a_lane={r: int(vec[1]) if r <= int(vec[0]) else int(vec[2])
+                        for r in rows},
+      int8_lanes=sorted(int(g) for g in re.findall(r"lanes != (\d+)", i8)))
+
+
+@pytest.mark.parametrize("name", [
+    "lowrank_lanes", "lowrank_slab", "lowrank_head", "lowrank_resident",
+    "lowrank_xs_floats", "int8_threads",
+    "int8_unroll", "int8_batch_tile", "int8_resident", "int8_cols_a_lane",
+    "int8_lanes"])
+def test_fused_lowrank_and_int8_plan_constants_match_the_kernels(name):
+  """The plans of the fused lowrank_gemm and of int8_gemm size their
+  grids from copies of the kernels' constants; each copy equals the value
+  in the CUDA source."""
+  from repro_torch.kernels import decode_matvec as dm
+  from repro_torch.kernels import int8_gemm as ig
+  from repro_torch.kernels import lowrank_gemm as lg
+  mine = dict(
+      lowrank_lanes=lg.LANES, lowrank_slab=lg.SLAB_BYTES,
+      lowrank_head=lg.HEAD, lowrank_resident=lg.RESIDENT,
+      lowrank_xs_floats=lg.XS_FLOATS,
+      int8_threads=ig.THREADS, int8_unroll=ig.UNROLL,
+      int8_batch_tile=dm.BATCH_TILE, int8_resident=ig.RESIDENT,
+      int8_cols_a_lane={r: ig.cols_a_lane(r) for r in ig.RESIDENT},
+      int8_lanes=sorted(dm.LANES))
+  assert mine[name] == _source_constants()[name]
