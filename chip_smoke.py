@@ -15,10 +15,14 @@
    blocks, alone and beside a long product on a second stream (its ticket
    order cannot deadlock), `int8_gemm` at ragged and unaligned shapes (m
    off every quad, n off every lane's columns, w_q rows off a 16-byte
-   boundary); `decode_matvec` at the full-width `llama3-8b` decode shapes at
-   batch 4, and `flash_attention` at the prefill's grouped-kv
-   (1, 4096, 32 q / 8 kv heads, 128) (k and v not repeated; the plain
-   version repeats them), at (1, 4096, 32, 128), at (1, 32768, 32, 128)
+   boundary), `gru_cell` at ragged H (200 off its unit tile; 333 and 1030
+   off a 16-byte row of U) at batch 1, 4, 5, 16 and 17 in bf16 and f32,
+   also with k ranges of 8 rows, alone and beside a busy stream, every
+   `gru_cell` case called twice (the calls must agree bit for bit: its
+   split-K sums run in a fixed order); `decode_matvec` at the full-width
+   `llama3-8b` decode shapes at batch 4, and `flash_attention` at the
+   prefill's grouped-kv (1, 4096, 32 q / 8 kv heads, 128) (k and v not
+   repeated; the plain version repeats them), at (1, 4096, 32, 128), at (1, 32768, 32, 128)
    (its plain version by query-row chunks) and at (1, 1024, 32, 128)
    causal bf16, once causal in f32 and once non-causal at a ragged
    (1, 1500, 12, 64) in bf16: bf16 within atol = rtol = 1e-2 (one bf16
@@ -32,13 +36,16 @@
    starve the card) and prints one JSON line per kernel and shape;
    `int8_gemm` has no one-call library equivalent at b <= 16 and gets a
    yardstick instead, `torch._int_mm` on x_q zero-padded to 32 rows, no
-   dequant (`int_mm_padded_ms`). Then it traces one `lowrank_gemm` call
+   dequant (`int_mm_padded_ms`), and `gru_cell` (no PyTorch call has its
+   gate order) `torch.matmul(h, U)`, the recurrent product without the
+   gates (`matmul_h_u_ms`). Then it traces one `lowrank_gemm` call
    at the largest factored leaf with `torch.profiler` and requires exactly
    one device kernel (the fused launch). Weights
    that fit stay warm in the 50 MB L2 across those launches; at the
    `llama3-8b` decode shapes `decode_matvec` and `torch.matmul` are also
    timed cold, with the L2 evicted before every timed call by reading a
-   256 MB buffer (outside the events), as a real decode step finds them.
+   256 MB buffer (outside the events), as a real decode step finds them;
+   so are `gru_cell` and its yardstick at the DS2 shapes at batch 4.
 3. Serves the full-width config (bf16, random weights from seed 0) with
    4 slots and 8 utterances of 17..64 frames, through
    `StreamingSpeechServer`, three times: dense, factored (rank 256 on
@@ -146,6 +153,9 @@ FLASH_CASES = [(1, PREFILL_LEN, 32, 8, 128, True, torch.bfloat16, True),
 RAGGED_MATVEC = [(1000, 700), (4100, 1030), (333, 130)]
 RAGGED_LOWRANK = [(1000, 130, 700), (333, 72, 1030)]
 RAGGED_INT8 = [(37, 13), (640, 2304), (1536, 32), (37, 2304), (1536, 13)]
+#: gru_cell's hidden sizes off the unit tile (200) and off a 16-byte row
+#: of U (333, 1030: scalar loads)
+RAGGED_GRU = (200, 333, 1030)
 RAGGED_BATCHES = (1, 4, 5, 16, 17)
 #: rows x_q is zero-padded to for int8_gemm's torch._int_mm yardstick
 #: (it refuses 16 rows or fewer)
@@ -228,18 +238,21 @@ def randn(shape, gen, dtype, scale=1.0):
 
 def case(kernel, label, b, dtype, fn, plain, lib=None, nbytes=0, ops=0,
          exact=False, path=None, weight=1, reps=50, cold=False,
-         yardstick=None):
+         yardstick=None, stable=False):
   """One comparison. `path` names the main path whose per-step sums the
   case feeds ("ds2" frame step, "lm_decode" step, "lm_prefill" call);
   `weight` is its launches in one step; nbytes/ops give the bound; `reps`
-  the timed calls of each version; `cold` also times the kernel and the
-  library call with the L2 evicted before each call; `yardstick` is a
-  PyTorch call timed beside the kernel that does not compute the same
-  function (int8_gemm's `torch._int_mm` at 32 rows, no dequant)."""
+  the timed calls of each version; `cold` also times the kernel, the
+  library call and the yardstick with the L2 evicted before each call;
+  `yardstick` is (name, fn): a PyTorch call timed beside the kernel that
+  does not compute the same function, reported as `<name>_ms`
+  (int8_gemm's `torch._int_mm` at 32 rows, no dequant: "int_mm_padded";
+  gru_cell's `torch.matmul(h, U)`, the product without the gates:
+  "matmul_h_u"); `stable`: a second call must give the same bits."""
   return dict(kernel=kernel, label=label, batch=b, dtype=dtype, fn=fn,
               plain=plain, lib=lib, nbytes=nbytes, ops=ops, exact=exact,
               path=path, weight=weight, reps=reps, cold=cold,
-              yardstick=yardstick)
+              yardstick=yardstick, stable=stable)
 
 
 _BUSY: list = []
@@ -283,7 +296,9 @@ def kernel_cases(dense, fact, quant, lm, gen):
   from repro_torch.kernels import ref
   from repro_torch.kernels.decode_matvec import decode_matvec
   from repro_torch.kernels.flash_attention import flash_attention
+  from repro_torch.kernels.gru_cell import _launch as gru_launch
   from repro_torch.kernels.gru_cell import gru_cell
+  from repro_torch.kernels.gru_cell import plan as gru_plan
   from repro_torch.kernels.int8_gemm import int8_gemm
   from repro_torch.kernels.lowrank_gemm import _launch as lowrank_launch
   from repro_torch.kernels.lowrank_gemm import lowrank_gemm, lowrank_plan
@@ -311,11 +326,16 @@ def kernel_cases(dense, fact, quant, lm, gen):
       xw = randn((b, 3 * hid), gen, bf16)
       h = randn((b, hid), gen, bf16, 0.5)
       bias = randn((3 * hid,), gen, torch.float32, 0.1)
+      # no PyTorch call computes the gates; the yardstick is the
+      # recurrent product alone
       cases.append(case("gru_cell", f"gru{i}/rec {hid}x{3 * hid}", b, bf16,
                         lambda a=(xw, h, u, bias): gru_cell(*a),
                         lambda a=(xw, h, u, bias): ref.gru_cell(*a), None,
                         2 * (b * 3 * hid + 2 * b * hid + 3 * hid * hid)
-                        + 4 * 3 * hid, 6 * b * hid * hid, path=path))
+                        + 4 * 3 * hid, 6 * b * hid * hid, path=path,
+                        cold=b == SERVE_BATCH, stable=True,
+                        yardstick=("matmul_h_u",
+                                   lambda h=h, u=u: torch.matmul(h, u))))
     for leaf in iter_factored_leaves(fact):
       if not leaf.is_factored:
         continue
@@ -342,7 +362,8 @@ def kernel_cases(dense, fact, quant, lm, gen):
                         lambda a=(xq, wq, xs, ws): ref.int8_gemm(*a), None,
                         b * m + m * n + 4 * (b + n + b * n), 2 * b * m * n,
                         exact=True, path=path,
-                        yardstick=lambda a=xq32, w=wq: torch._int_mm(a, w)))
+                        yardstick=("int_mm_padded",
+                                   lambda a=xq32, w=wq: torch._int_mm(a, w))))
   # decode_matvec at the LM's decode shapes: layer 0's GEMMs (the other 31
   # layers have the same shapes) and the head, at the engine's batch
   b = SERVE_BATCH
@@ -392,6 +413,26 @@ def kernel_cases(dense, fact, quant, lm, gen):
                           lambda a=(x, u, v), p=p: beside_busy_stream(
                               lambda: lowrank_launch(*a, p)),
                           lambda a=(x, u, v): ref.lowrank_gemm(*a)))
+      for hid in RAGGED_GRU:
+        g = (randn((b, 3 * hid), gen, dtype), randn((b, hid), gen, dtype, 0.5),
+             randn((hid, 3 * hid), gen, dtype, 0.05),
+             randn((3 * hid,), gen, torch.float32, 0.1))
+        cases.append(case("gru_cell", f"ragged H={hid}", b, dtype,
+                          lambda g=g: gru_cell(*g),
+                          lambda g=g: ref.gru_cell(*g), stable=True))
+        # k ranges of 8 rows (several waves of blocks at the larger H
+        # and batches), alone and beside a long product on a second
+        # stream: no block waits on another
+        p = dataclasses.replace(gru_plan(b, hid, w_bytes=g[1].element_size()),
+                                lanes=8, split=math.ceil(hid / 8),
+                                k_per_split=8)
+        cases.append(case("gru_cell", f"k ranges of 8 rows H={hid}", b,
+                          dtype, lambda g=g, p=p: gru_launch(*g, p),
+                          lambda g=g: ref.gru_cell(*g), stable=True))
+        cases.append(case("gru_cell", f"beside a busy stream H={hid}", b,
+                          dtype, lambda g=g, p=p: beside_busy_stream(
+                              lambda: gru_launch(*g, p)),
+                          lambda g=g: ref.gru_cell(*g), stable=True))
     # int8_gemm at ragged shapes: m off every quad, n off every lane's
     # columns, rows of w_q off a 16-byte boundary (a view one byte in)
     for b in RAGGED_BATCHES:
@@ -437,7 +478,7 @@ def kernel_cases(dense, fact, quant, lm, gen):
       case("lowrank_gemm", "f32 640x256x2304", 4, f32,
            lambda: lowrank_gemm(x, u, v), lambda: ref.lowrank_gemm(x, u, v)),
       case("gru_cell", "f32 768x2304", 4, f32, lambda: gru_cell(*g),
-           lambda: ref.gru_cell(*g)),
+           lambda: ref.gru_cell(*g), stable=True),
   ]
   return cases
 
@@ -456,6 +497,11 @@ def check_kernels(dense, fact, quant, lm) -> list[dict]:
     max_err = float(err.max())
     row = dict(kernel=kernel, shape=label, batch=b, dtype=str(dtype),
                max_abs_err=max_err, path=c["path"], weight=c["weight"])
+    if c["stable"]:
+      again = c["fn"]()
+      if not torch.equal(got, again):
+        fail(f"{kernel} {label} b={b} {dtype}: two calls differ")
+      del again
     if c["exact"]:
       ok = torch.equal(got, want)
     else:
@@ -481,10 +527,15 @@ def check_kernels(dense, fact, quant, lm) -> list[dict]:
                              else None),
                  bound_ms=bnd, bound_by=by)
       if c["cold"]:
-        row.update(kernel_cold_ms=time_ms(c["fn"], reps, cold=True),
-                   library_cold_ms=time_ms(c["lib"], reps, cold=True))
+        row["kernel_cold_ms"] = time_ms(c["fn"], reps, cold=True)
+        if c["lib"] is not None:
+          row["library_cold_ms"] = time_ms(c["lib"], reps, cold=True)
       if c["yardstick"] is not None:
-        row["int_mm_padded_ms"] = time_ms(c["yardstick"], reps)
+        name, fn = c["yardstick"]
+        row["yardstick"] = name
+        row[f"{name}_ms"] = time_ms(fn, reps)
+        if c["cold"]:
+          row[f"{name}_cold_ms"] = time_ms(fn, reps, cold=True)
     print(json.dumps(row), flush=True)
     rows.append(row)
   return rows
@@ -908,13 +959,17 @@ def _sums(rows: list[dict]) -> dict:
       else "operations",
       library_ms=(sum(x * r["weight"] for x, r in zip(libs, rows))
                   if libs and None not in libs else None))
-  if rows and all("int_mm_padded_ms" in r for r in rows):
-    out["int_mm_padded_ms"] = sum(r["int_mm_padded_ms"] * r["weight"]
-                                  for r in rows)
   if rows and all("kernel_cold_ms" in r for r in rows):
-    out.update(cold_ms=sum(r["kernel_cold_ms"] * r["weight"] for r in rows),
-               library_cold_ms=sum(r["library_cold_ms"] * r["weight"]
-                                   for r in rows))
+    out["cold_ms"] = sum(r["kernel_cold_ms"] * r["weight"] for r in rows)
+    out["library_cold_ms"] = (
+        sum(r["library_cold_ms"] * r["weight"] for r in rows)
+        if all("library_cold_ms" in r for r in rows) else None)
+  names = {r.get("yardstick") for r in rows}
+  if len(names) == 1 and None not in names:   # one yardstick for every row
+    name = names.pop()
+    for key in (f"{name}_ms", f"{name}_cold_ms"):
+      if all(key in r for r in rows):
+        out[key] = sum(r[key] * r["weight"] for r in rows)
   return out
 
 
@@ -961,6 +1016,9 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
       entry["repeated_heads_ms"] = mha[0]["kernel_ms"]
     else:
       entry["ms_by_batch"] = ds2_step_ms_by_batch(rows, name)
+      for y in sorted({r["yardstick"] for r in mine if "yardstick" in r}):
+        entry[f"{y}_ms_by_batch"] = ds2_step_ms_by_batch(rows, name,
+                                                         f"{y}_ms")
     lm_step = [r for r in mine if r["path"] == "lm_decode"]
     if lm_step:
       entry["llama3_8b_decode_step"] = _sums(lm_step)

@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "rk_decode_matvec": (_P, _P, _P, _P, _P, *(_I,) * 7, _P),
     "rk_lowrank_gemm": (_P, _P, _P, _P, _P, _P, *(_I,) * 10, _P),
-    "rk_gru_cell": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rk_gru_cell": (*(_P,) * 8, *(_I,) * 6, _P),
     "rk_int8_gemm": (_P, _P, _P, _P, _P, _P, _P, *(_I,) * 6, _P),
     "rk_flash_attention": (_P, _P, _P, _P, *(_I,) * 7, _P),
 }

@@ -111,8 +111,8 @@ lowrank_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __rest
     const int bx = it % g.gx1, by = it / g.gx1 % g.split1, bz = it / g.gx1 / g.split1;
     const int row0 = bz * rk::mv::kBatchTile;
     rk::mv::matvec_block<T, T, float, R, kLanes, rk::mv::kStageLoop, false>(
-        x, u, nullptr, t, g.split1 > 1 ? part1 : nullptr, b, m, r, g.kper1, aligned_u, bx, by,
-        bz, sm);
+        x, u, nullptr, t, g.split1 > 1 ? part1 : nullptr, b, m, r, r, g.kper1, aligned_u, bx,
+        by, bz, sm);
     if (g.split1 == 1 ||
         rk::mv::last_sums<kCols>(part1, count + kTiles + bz * g.gx1 + bx, b, r, g.split1,
                                  bx * kCols, row0, min(R, b - row0), sm.last,
@@ -142,10 +142,10 @@ lowrank_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __rest
   if (use_slab) {
     rk::mv::wait_slab();
     rk::mv::matvec_block<float, T, T, R, kLanes, rk::mv::kStageFresh, true>(
-        t, v, slab, y, p2, b, r, n, g.kper2, aligned_v, bx, by, bz, sm);
+        t, v, slab, y, p2, b, r, n, n, g.kper2, aligned_v, bx, by, bz, sm);
   } else {
     rk::mv::matvec_block<float, T, T, R, kLanes, rk::mv::kStageFresh, false>(
-        t, v, nullptr, y, p2, b, r, n, g.kper2, aligned_v, bx, by, bz, sm);
+        t, v, nullptr, y, p2, b, r, n, n, g.kper2, aligned_v, bx, by, bz, sm);
   }
   if (g.split2 > 1)
     rk::mv::last_sums<kCols>(part2, count + kTiles + g.gz * g.gx1 + bz * g.gx2 + bx, b, n,

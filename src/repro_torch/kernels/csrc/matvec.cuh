@@ -3,8 +3,11 @@
 // independently. One tile of it is `matvec_block`: decode_matvec's kernel
 // runs one a block; lowrank_gemm's fused kernel runs both of its phases
 // (x @ U into an f32 t, then t @ V from a slab of V in shared memory) as
-// tiles of one grid. Its warp sums (`block_sums`) and split-K tail
-// (`last_sums`) are int8_gemm's too, on s32.
+// tiles of one grid; gru_cell's kernel runs one gate's columns of h @ U a
+// block (W's rows `ld` apart, wider than the tile's n columns). Its warp
+// sums (`block_sums`) and split-K tail (`last_sums`, built of
+// `arrive_last` and `range_sums`, which gru_cell's gate tail uses
+// directly) are int8_gemm's too, on s32.
 //
 // What bounds it on the H100: the bytes of W. At b <= 16 it does 2*b
 // operations per weight element (<= 16 per bf16 byte), far below the ~295
@@ -128,23 +131,24 @@ __device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
 }
 
 // Issue the loads of rows kb, kb + slots, ... (kUnroll of them) of the
-// lane's columns; rows at or past kc read as zero. `aligned` (every row
-// on a 16-byte boundary) is the same for the whole grid: one vector load
-// a row, else scalars.
+// lane's columns (rows ld elements apart, columns below n); rows at or
+// past kc read as zero. `aligned` (every row on a 16-byte boundary) is
+// the same for the whole grid: one vector load a row, else scalars.
 template <typename TW>
 __device__ __forceinline__ void load_rows(uint4 (&raw)[kUnroll], const TW* wp, int kb,
-                                          int slots, int kc, int col0, int n, bool aligned) {
+                                          int slots, int kc, int col0, int n, int ld,
+                                          bool aligned) {
   if (aligned) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int k = kb + u * slots;
-      raw[u] = k < kc ? ld_stream(wp + (size_t)k * n) : make_uint4(0u, 0u, 0u, 0u);
+      raw[u] = k < kc ? ld_stream(wp + (size_t)k * ld) : make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int k = kb + u * slots;
-      raw[u] = k < kc ? load_ragged(wp + (size_t)k * n, col0, n) : make_uint4(0u, 0u, 0u, 0u);
+      raw[u] = k < kc ? load_ragged(wp + (size_t)k * ld, col0, n) : make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
@@ -281,20 +285,13 @@ __device__ __forceinline__ void block_sums(TA (&acc)[R][V], TA* red, int rows, E
   }
 }
 
-// The split-K tail of one tile (kCols columns from col_begin, batch rows
-// [row0, row0 + rows)) of `split` k ranges, once every thread of the
-// block has written its partial sums part[j][row][col] (TA = f32 or s32):
-// thread 0 counts the block with one acquire-release add on the tile's
-// counter (the barrier before makes the block's writes part of the
-// release); the last block sums the ranges' partials in range order 0,
-// 1, ..., 16 loads in flight a thread, hands each sum to emit(row, col,
-// s) (columns below n), and resets the counter. Returns whether this
-// block was the last.
-template <int kCols, typename TA, typename Emit>
-__device__ __forceinline__ bool last_sums(const TA* __restrict__ part, int* count, int b, int n,
-                                          int split, int col_begin, int row0, int rows, int& last,
-                                          Emit emit) {
-  constexpr int C = 16;
+// Count this block in its tile's counter once every thread of the block
+// has written its partial sums: thread 0 adds one with an acquire-release
+// add (the barrier before makes the block's writes part of the release);
+// the block that brings the count to `arrivals` is the last and resets
+// the counter. `last` is shared memory. Returns whether this block was
+// the last.
+__device__ __forceinline__ bool arrive_last(int* count, int arrivals, int& last) {
   __syncthreads();
   if (threadIdx.x == 0) {
     int old;
@@ -302,45 +299,80 @@ __device__ __forceinline__ bool last_sums(const TA* __restrict__ part, int* coun
                  : "=r"(old)
                  : "l"(count)
                  : "memory");
-    last = old == split - 1;
+    last = old == arrivals - 1;
     if (last) *count = 0;
   }
   __syncthreads();
-  if (!last) return false;
+  return last;
+}
+
+// s[p] = the sum over k ranges j = 0, 1, ..., split - 1 (in that order)
+// of src[p * part_stride + j * range_stride], read through the L2 (other
+// blocks wrote them): kParts sums side by side, C ranges of each in
+// flight at once.
+template <int kParts, typename TA>
+__device__ __forceinline__ void range_sums(const TA* __restrict__ src, size_t part_stride,
+                                           size_t range_stride, int split, TA (&s)[kParts]) {
+  constexpr int C = kParts == 1 ? 16 : 8;
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) s[p] = 0;
+  for (int j = 0; j < split; j += C) {
+    TA v[kParts][C];
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int t = 0; t < C; ++t)
+        v[p][t] = j + t < split
+                      ? __ldcg(src + p * part_stride + (size_t)(j + t) * range_stride)
+                      : 0;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int t = 0; t < C; ++t) s[p] += v[p][t];  // + 0 past split: exact, s is never -0
+  }
+}
+
+// The split-K tail of one tile (kCols columns from col_begin, batch rows
+// [row0, row0 + rows)) of `split` k ranges, once every thread of the
+// block has written its partial sums part[j][row][col] (TA = f32 or s32):
+// the last block of the tile (`arrive_last`) sums the ranges' partials in
+// range order 0, 1, ... (`range_sums`) and hands each sum to emit(row,
+// col, s) (columns below n). Returns whether this block was the last.
+template <int kCols, typename TA, typename Emit>
+__device__ __forceinline__ bool last_sums(const TA* __restrict__ part, int* count, int b, int n,
+                                          int split, int col_begin, int row0, int rows, int& last,
+                                          Emit emit) {
+  if (!arrive_last(count, split, last)) return false;
   const size_t stride = (size_t)b * n;
   for (int i = threadIdx.x; i < rows * kCols; i += kThreads) {
     const int r = i / kCols, col = col_begin + i % kCols;
     if (col >= n) continue;
-    const TA* src = part + (size_t)(row0 + r) * n + col;
-    TA s = 0;
-    for (int j = 0; j < split; j += C) {
-      TA v[C];
-#pragma unroll
-      for (int t = 0; t < C; ++t) v[t] = j + t < split ? __ldcg(src + (size_t)(j + t) * stride) : 0;
-#pragma unroll
-      for (int t = 0; t < C; ++t) s += v[t];  // + 0 past split: exact, s is never -0
-    }
-    emit(row0 + r, col, s);
+    TA s[1];
+    range_sums<1>(part + (size_t)(row0 + r) * n + col, 0, stride, split, s);
+    emit(row0 + r, col, s[0]);
   }
   return true;
 }
 
-// One tile of y = x @ W: columns [bx * G * kVec, (bx + 1) * G * kVec), k
-// range by of `split` (rows [by * kper, min(m, (by + 1) * kper))) and
-// batch rows [16 bz, 16 bz + R); gx column tiles. G lanes side by side
+// One tile of y = x @ W: columns [bx * G * kVec, (bx + 1) * G * kVec)
+// (below n), k range by of `split` (rows [by * kper, min(m, (by + 1) *
+// kper))) and batch rows [16 bz, 16 bz + R); gx column tiles. Rows of W,
+// y and the partial sums lie `ld` elements apart (n for a whole matrix;
+// gru_cell's gate is n = H columns of a row of 3H). G lanes side by side
 // cover the block's columns; the 32 / G lane groups of a warp and the 8
 // warps take different rows: 256 / G row slots a block. kStage: how x is
 // staged (kStageFresh: f32, written earlier in this launch). kSlab: W's
 // rows of this range are in `slab` (copy_slab, already waited for; the
 // range is staged in one chunk of x), else they stream from global
 // memory. Writes y, or with `part` this range's slice of the partial sums
-// (part[by][row][col]); leaves sm.xs in use by the warps' sums.
+// (part[(by * b + row) * ld + col]); leaves sm.xs in use by the warps'
+// sums.
 template <typename TX, typename TW, typename TY, int R, int G, int kStage, bool kSlab>
 __device__ __forceinline__ void matvec_block(const TX* __restrict__ x, const TW* __restrict__ w,
                                              const uint4* slab, TY* __restrict__ y,
                                              float* __restrict__ part, int b, int m, int n,
-                                             int kper, bool aligned, int bx, int by, int bz,
-                                             Smem& sm) {
+                                             int ld, int kper, bool aligned, int bx, int by,
+                                             int bz, Smem& sm) {
   constexpr int V = Lane<TW>::kVec, kCols = G * V, kSlots = kThreads / G;
   constexpr int kXsRows = kXsFloats / R;  // rows of x staged at a time
   // batch rows summed over the warps per pair of barriers (through xs)
@@ -361,12 +393,12 @@ __device__ __forceinline__ void matvec_block(const TX* __restrict__ x, const TW*
 
   for (int kx = k0; kx < kend; kx += kXsRows) {  // one chunk of staged x
     const int kc = min(kXsRows, kend - kx);
-    const TW* wp = w + (size_t)kx * n + col0;
+    const TW* wp = w + (size_t)kx * ld + col0;
     uint4 raw[kUnroll];
     // the lane's first rows of W are in flight while x is staged
     if (live) {
       if constexpr (kSlab) slab_rows<G>(raw, slab, slot, kSlots, kc);
-      else load_rows(raw, wp, slot, kSlots, kc, col0, n, aligned);
+      else load_rows(raw, wp, slot, kSlots, kc, col0, n, ld, aligned);
     }
     if (kx > k0) __syncthreads();  // every warp is done with the previous chunk
     if constexpr (kStage == kStageFresh)
@@ -378,7 +410,7 @@ __device__ __forceinline__ void matvec_block(const TX* __restrict__ x, const TW*
       for (int kb = slot; kb < kc; kb += kSlots * kUnroll) {
         if (kb != slot) {
           if constexpr (kSlab) slab_rows<G>(raw, slab, kb, kSlots, kc);
-          else load_rows(raw, wp, kb, kSlots, kc, col0, n, aligned);
+          else load_rows(raw, wp, kb, kSlots, kc, col0, n, ld, aligned);
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -404,9 +436,9 @@ __device__ __forceinline__ void matvec_block(const TX* __restrict__ x, const TW*
     const int col = bx * kCols + i;
     if (col < n) {
       if (part != nullptr)
-        part[((size_t)by * b + row0 + r) * n + col] = s;
+        part[((size_t)by * b + row0 + r) * ld + col] = s;
       else
-        y[(size_t)(row0 + r) * n + col] = from_f<TY>(s);
+        y[(size_t)(row0 + r) * ld + col] = from_f<TY>(s);
     }
   });
 }
@@ -418,7 +450,7 @@ matvec_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TY* __restrict
               bool aligned) {
   constexpr int kCols = G * Lane<TW>::kVec;
   __shared__ __align__(16) Smem sm;
-  matvec_block<TX, TW, TY, R, G, kStageLoop, false>(x, w, nullptr, y, part, b, m, n, kper,
+  matvec_block<TX, TW, TY, R, G, kStageLoop, false>(x, w, nullptr, y, part, b, m, n, n, kper,
                                                     aligned, blockIdx.x, blockIdx.y, blockIdx.z,
                                                     sm);
   if (part == nullptr) return;

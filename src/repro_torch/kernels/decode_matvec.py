@@ -98,17 +98,21 @@ def batch_rows(b: int) -> int:
 
 
 def split_plan(b: int, m: int, n: int, *, vec: int, resident: dict,
-               k_min: Callable[[int], int], k_align: int, sms: int) -> Plan:
-  """The one-wave split-K rule of the skinny GEMMs (decode_matvec's and
-  int8_gemm's): as many k ranges as fit the SMs' `resident` blocks once
-  (two when the column tiles alone overflow them), each a multiple of
-  `k_align` rows and at least `k_min(lanes)`. The widest column tile
-  (`vec` columns a lane) whose ranges keep K_PREF rows wins (fewer
-  partial sums); else the narrowest."""
+               k_min: Callable[[int], int], k_align: int, sms: int,
+               groups: int = 1) -> Plan:
+  """The one-wave split-K rule of the skinny GEMMs (decode_matvec's,
+  int8_gemm's and gru_cell's): as many k ranges as fit the SMs'
+  `resident` blocks once (two when the column tiles alone overflow them),
+  each a multiple of `k_align` rows and at least `k_min(lanes)`. The
+  widest column tile (`vec` columns a lane) whose ranges keep K_PREF rows
+  wins (fewer partial sums); else the narrowest. `groups`: the columns
+  are that many groups of n, each tiled on its own (gru_cell's three
+  gates)."""
   rows = batch_rows(b)
   slots = resident[rows] * sms
   for lanes in LANES:
-    tiles = math.ceil(n / (lanes * vec)) * math.ceil(b / BATCH_TILE)
+    tiles = (groups * math.ceil(n / (lanes * vec))
+             * math.ceil(b / BATCH_TILE))
     split = slots // tiles if tiles <= slots else 2
     k = math.ceil(m / split)
     k = min(m, max(k_min(lanes), k + (-k) % k_align))

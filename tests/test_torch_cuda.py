@@ -331,3 +331,85 @@ def test_factored_quantized_leaf_matches_ref_apply_bitwise(cuda):
   for b in (4, 17):
     x = torch.from_numpy(rnd(b, (b, 1024))).to(cuda)
     assert torch.equal(kernel_apply(leaf, x), ref_apply(leaf, x))
+
+
+#: hidden sizes for gru_cell: two DS2 widths, then H off the 64-unit bf16
+#: tile (200) and off a 16-byte row (333, 37: U read by scalar loads)
+GRU_HIDDEN = (768, 1280, 200, 333, 37)
+
+
+def _gru_operands(b, hidden, dt, device):
+  xw = torch.from_numpy(rnd(b, (b, 3 * hidden))).to(device, dt)
+  h = torch.from_numpy(rnd(b + 1, (b, hidden), 0.5)).to(device, dt)
+  u = torch.from_numpy(rnd(hidden, (hidden, 3 * hidden), 0.05)).to(device, dt)
+  bias = torch.from_numpy(rnd(hidden + 1, (3 * hidden,), 0.1)).to(device)
+  return xw, h, u, bias
+
+
+def _counters_are_zero():
+  from repro_torch.kernels import decode_matvec as dm
+  return all(int(buf.abs().sum()) == 0 for buf in dm._COUNTERS.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 4, 5, 16, 17])
+def test_gru_cell_on_ragged_shapes_is_bit_stable(cuda, dtype, b):
+  """gru_cell against the plain version at the DS2 widths and ragged H,
+  batch 1..17; a second call gives the same bits (the three gates' k
+  ranges are summed in a fixed order, whichever block comes last), and
+  the tile counters are zero after the calls."""
+  from repro_torch.kernels.gru_cell import gru_cell
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  for hidden in GRU_HIDDEN:
+    args = _gru_operands(b, hidden, dt, cuda)
+    got, again = gru_cell(*args), gru_cell(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.gru_cell(*args), **tol)
+    assert torch.equal(got, again)
+  assert _counters_are_zero()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_cell_forced_to_several_waves_and_beside_a_busy_stream(cuda,
+                                                                   dtype):
+  """A plan forced to several waves of blocks (k ranges of 8 rows, batch
+  17: one block an SM) and a launch while a long product holds SMs on a
+  second stream both agree with the plain version (no block waits on
+  another: the last of a tile's blocks does its tail); the counters stay
+  zero for the next call; `stamps` gets each block's start <= partial
+  sums <= end."""
+  import dataclasses
+  import math
+
+  from repro_torch.kernels import decode_matvec as dm
+  from repro_torch.kernels import gru_cell as gc
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  b, hidden = 17, 333
+  args = _gru_operands(b, hidden, dt, cuda)
+  want = ref.gru_cell(*args)
+  natural = gc.plan(b, hidden, w_bytes=args[1].element_size())
+  p = dataclasses.replace(natural, lanes=8, split=math.ceil(hidden / 8),
+                          k_per_split=8)
+  assert p.blocks > 2 * dm.RESIDENT[p.rows] * dm.sm_count(cuda.index or 0)
+  torch.testing.assert_close(gc._launch(*args, p), want, **tol)
+  side = torch.cuda.Stream()
+  big = torch.randn(8192, 8192, device=cuda)
+  side.wait_stream(torch.cuda.current_stream())   # big is written
+  with torch.cuda.stream(side):
+    for _ in range(4):
+      big @ big.T
+  got = gc._launch(*args, p)
+  stamps = torch.zeros(3 * natural.blocks, dtype=torch.int64, device=cuda)
+  stamped = gc._launch(*args, natural, stamps=stamps)
+  again = gc.gru_cell(*args)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got, want, **tol)
+  assert torch.equal(stamped, again)
+  st = stamps.view(-1, 3)
+  assert bool((st[:, 0] > 0).all() and (st[:, 1] >= st[:, 0]).all()
+              and (st[:, 2] >= st[:, 1]).all())
+  assert _counters_are_zero()

@@ -475,3 +475,95 @@ def test_fused_lowrank_and_int8_plan_constants_match_the_kernels(name):
       int8_cols_a_lane={r: ig.cols_a_lane(r) for r in ig.RESIDENT},
       int8_lanes=sorted(dm.LANES))
   assert mine[name] == _source_constants()[name]
+
+
+#: hidden sizes of gru_cell's plan: deepspeech2-wsj's three GRUs (the
+#: main path), then narrow ones (one k range; H off the unit tile)
+GRU_HIDDEN = (768, 1024, 1280, 64, 80, 96)
+DS2_HIDDEN = (768, 1024, 1280)
+
+
+@pytest.mark.parametrize("b", [1, 4, 5, 16, 17])
+@pytest.mark.parametrize("hidden", GRU_HIDDEN)
+def test_gru_cell_plan_covers_k_once_and_its_workspace(hidden, b):
+  """For bf16 and f32 U: the plan's k ranges tile [0, H) once; the column
+  tiles (gate x % 3 of unit tile x // 3, as the kernel decodes them)
+  cover all three gates of every unit once; the grid fits one wave of
+  resident blocks (always at the bf16 DS2 widths up to batch 16; else
+  two k ranges at most); the blocks' writes (block (x, y, z) ->
+  workspace[y, 16 z + r, gate * H + unit]) cover the (split, b, 3H)
+  workspace once, and each of the counters (one a unit tile and batch
+  tile) counts 3 * split blocks."""
+  from repro_torch.kernels import decode_matvec as dm
+  from repro_torch.kernels import gru_cell as gc
+  for w_bytes in (2, 4):
+    p = gc.plan(b, hidden, w_bytes=w_bytes)
+    covered = np.zeros(hidden, dtype=np.int64)
+    for k0, k1 in p.k_ranges():
+      assert k0 < k1
+      covered[k0:k1] += 1
+    assert (covered == 1).all()
+    assert p.k_per_split % 8 == 0 or p.k_per_split == hidden
+    assert p.k_per_split >= min(hidden, dm.k_min(p.lanes))
+    assert p.lanes in dm.LANES and p.vec == 16 // w_bytes
+    assert p.cols == p.lanes * p.vec and p.rows >= min(b, dm.BATCH_TILE)
+    gx, gy, gz = p.grid
+    assert gx == gc.GATES * p.unit_tiles and gy == p.split
+    slots = dm.RESIDENT[p.rows] * dm.H100_SMS
+    assert p.blocks <= slots or gy <= 2
+    if hidden in DS2_HIDDEN and b <= dm.BATCH_TILE and w_bytes == 2:
+      assert p.blocks <= slots
+    units = np.zeros((gc.GATES, hidden), dtype=np.int64)
+    written = np.zeros(p.workspace_shape, dtype=np.int64)
+    arrivals = np.zeros((gz, p.unit_tiles), dtype=np.int64)
+    for z in range(gz):
+      rows = slice(dm.BATCH_TILE * z, min(b, dm.BATCH_TILE * z + p.rows))
+      for x in range(gx):
+        gate, t = p.tile(x)
+        u0, u1 = t * p.cols, min(hidden, (t + 1) * p.cols)
+        if z == 0:
+          units[gate, u0:u1] += 1
+        for y in range(gy):
+          written[y, rows, gate * hidden + u0:gate * hidden + u1] += 1
+          arrivals[z, t] += 1
+    assert (units == 1).all()
+    assert (written == 1).all()
+    assert arrivals.size == p.counters
+    assert (arrivals == gc.GATES * p.split).all()
+
+
+def _gru_source_constants() -> dict:
+  """What `gru_cell.plan` copies from `csrc/gru_cell.cu`: its gates and
+  the lane widths its launcher takes; and, where the kernel runs the tile
+  of `matvec.cuh` (its threads, resident blocks and 16-byte lanes), that
+  tile's values (None where it does not)."""
+  import pathlib
+  import re
+  csrc = pathlib.Path(ops.__file__).parent / "csrc"
+  gru = (csrc / "gru_cell.cu").read_text()
+  tile = _kernel_constants()
+  on_tile = "using rk::mv::kThreads;" in gru
+  return dict(
+      gates=int(re.search(r"constexpr int kGates = (\d+);", gru).group(1)),
+      lanes=sorted(int(g) for g in re.findall(r"lanes != (\d+)", gru)),
+      threads=tile["threads"] if on_tile else None,
+      resident=(tile["resident"]
+                if "__launch_bounds__(kThreads, rk::mv::Resident<R>::kBlocks)"
+                in gru else None),
+      vec=({w: 16 // w for w in (2, 4)}
+           if "rk::mv::Lane<T>::kVec" in gru else None))
+
+
+@pytest.mark.parametrize("name", ["gates", "lanes", "threads", "resident",
+                                  "vec"])
+def test_gru_cell_plan_constants_match_the_kernel(name):
+  """`gru_cell.plan` sizes its grid from copies of the kernel's constants:
+  GATES column groups (kGates), the lane widths its launcher takes, and
+  the threads, resident blocks and 16-byte lanes of the matvec.cuh tile
+  that the kernel runs (decode_matvec's THREADS and RESIDENT)."""
+  from repro_torch.kernels import decode_matvec as dm
+  from repro_torch.kernels import gru_cell as gc
+  mine = dict(gates=gc.GATES, lanes=sorted(dm.LANES), threads=dm.THREADS,
+              resident=gc.RESIDENT,
+              vec={w: gc.plan(4, 64, w_bytes=w).vec for w in (2, 4)})
+  assert mine[name] == _gru_source_constants()[name]
