@@ -77,19 +77,42 @@
    smoke readings of a tiny mix, not serving metrics. Last, it times a
    batch-4 decode step with `LayerStack.layers()`'s per-layer views kept
    and with them rebuilt, and `layers()` alone.
-6. Prints `{"kernels": [...]}` with each kernel's numbers, all measured
+6. Training: the port's two-stage recipe on the card. First one f32
+   `Trainer` step at the DS2 smoke width on the card and on the CPU from
+   the same weights (the CPU trainer's, through a checkpoint) and batch:
+   the loss within `TRAIN_LOSS_RTOL`, each gradient within
+   `TRAIN_GRAD_RTOL` and each leaf's update within `TRAIN_UPDATE_RTOL`
+   (relative, in norm). Then full `deepspeech2-wsj` (bf16, random
+   weights from seed 0) for 8 steps of batch 16 from `data/speech.batch_at`
+   with `TwoStageSchedule`: trace norm at lambda 1e-4 on both groups,
+   `launch/train.py`'s plan, the transition at step 4. Requires finite
+   losses, stage 2 from step 4, fewer parameters after the transition,
+   and every factored leaf's rank a multiple of 8 and <= min(m, n); prints
+   the ranks, `compression_report`'s totals, the first 5 GEMMs' nu and
+   each stage's median step (its first step and its profiled one left
+   out), and `torch.profiler`'s device time of one step of each stage (by
+   kernel, and the device's idle share of the stage's median step). Saves the
+   trained state with `CheckpointManager`, restores it into a fresh
+   `Trainer` and requires every leaf equal bit for bit. Last, it holds
+   `lowrank_gemm` and `int8_gemm` against their plain versions at the
+   trained shapes (uneven ranks) and serves the trained weights and their
+   PTQ'd form as phase 3 does (`launches_by_path` key `ds2_trained`).
+7. Prints `{"kernels": [...]}` with each kernel's numbers, all measured
    in this run but the computed bounds, then, as the last line,
    `{"ok": true, "device": {...}}`. Any failure raises: the script exits
    non-zero and prints no result line.
 
 On an H100 the build takes about 30 s (nvcc, the five sources in
-parallel) and phases 2-5 under a minute.
+parallel) and phases 2-6 about a minute and a half.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -162,6 +185,20 @@ RAGGED_BATCHES = (1, 4, 5, 16, 17)
 INT_MM_ROWS = 32
 #: the L2 is evicted before each cold timed call by reading this many bytes
 L2_FLUSH_BYTES = 256 << 20
+#: phase 6: full-width training, batch, steps and the stage transition
+TRAIN_BATCH = 16
+TRAIN_STEPS = 8
+TRAIN_TRANSITION = 4
+TRAIN_LAMBDA = 1e-4
+#: one f32 smoke-width step on the card against the CPU from the same
+#: weights and batch: the loss (relative), each gradient (relative, in
+#: norm) — f32 sums in another order, cuDNN's conv algorithms — and each
+#: leaf's update (relative, in norm): Adam's first step moves each weight
+#: by about lr * sign(g), so a gradient within rounding of zero may move
+#: its weight the other way on the other device
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_UPDATE_RTOL = 1e-2
 LM_GEMMS = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
             "ffn_down")
 KERNELS = {
@@ -485,8 +522,14 @@ def kernel_cases(dense, fact, quant, lm, gen):
 
 def check_kernels(dense, fact, quant, lm) -> list[dict]:
   gen = torch.Generator().manual_seed(1)
+  return check_cases(kernel_cases(dense, fact, quant, lm, gen))
+
+
+def check_cases(cases: list[dict]) -> list[dict]:
+  """Each case's kernel against its plain version (and timed where the
+  case gives its bytes); one JSON line and one row a case."""
   rows = []
-  for c in kernel_cases(dense, fact, quant, lm, gen):
+  for c in cases:
     kernel, label, b, dtype = c["kernel"], c["label"], c["batch"], c["dtype"]
     got, want = c["fn"](), c["plain"]()
     torch.cuda.synchronize()
@@ -586,8 +629,6 @@ EXPECTED_ROUTES = {
     "factored": lambda name: "jnp" if name == "out" else "lowrank_gemm",
     "int8": lambda name: "int8_gemm",
 }
-EXPECTED_KERNELS = {"dense": {"gru_cell", "decode_matvec"},
-                    "factored": {"lowrank_gemm"}, "int8": {"int8_gemm"}}
 
 
 def utterances(cfg) -> list[np.ndarray]:
@@ -633,21 +674,26 @@ def serve(cfg, params, utts, policy: str):
   return results, steps, dt, launches, set(log)
 
 
-def check_serving(cfg, forms: dict, card: str) -> dict:
+def check_serving(cfg, forms: dict, card: str, routes=None) -> dict:
+  """Serve each form under both policies. `routes` maps a form to its
+  expected route for a GEMM name (default: `EXPECTED_ROUTES`); the
+  kernels it names must launch, and no other."""
+  routes = routes or EXPECTED_ROUTES
   utts = utterances(cfg)
   frames = sum(len(u) for u in utts)
   total = {k: 0 for k in KERNELS}
   for form, params in forms.items():
-    res_k, steps_k, dt_k, launches, routes = serve(cfg, params, utts, "cuda")
+    res_k, steps_k, dt_k, launches, log = serve(cfg, params, utts, "cuda")
     res_p, steps_p, dt_p, plain_launches, _ = serve(cfg, params, utts,
                                                     "plain")
     # routing and launches
-    names = {name for name, _ in routes}
-    want_routes = {(n, EXPECTED_ROUTES[form](n)) for n in names}
-    if routes != want_routes or len(names) != 8:
-      fail(f"{form}: routing {sorted(routes)} != {sorted(want_routes)}")
+    names = {name for name, _ in log}
+    want_routes = {(n, routes[form](n)) for n in names}
+    if log != want_routes or len(names) != 8:
+      fail(f"{form}: routing {sorted(log)} != {sorted(want_routes)}")
+    kernels = {r for _, r in want_routes} - {"jnp"}
     for k, n in launches.items():
-      if (n > 0) != (k in EXPECTED_KERNELS[form]):
+      if (n > 0) != (k in kernels):
         fail(f"{form}: kernel {k} launched {n} times on the main path")
       total[k] += n
     if any(plain_launches.values()):
@@ -947,6 +993,246 @@ def check_lm_serving(lm, cfg, card) -> dict:
   return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training — the two-stage recipe at full width, then served.
+# ---------------------------------------------------------------------------
+
+def make_trainer(cfg, device, ckpt_dir, lr=None):
+  """`launch/train.py`'s trainer: two stages (trace norm, transition at
+  TRAIN_TRANSITION), its plan, cosine LR (or a constant `lr`), random
+  weights from seed 0."""
+  from repro_torch.core.compress import FactorizationPlan
+  from repro_torch.core.schedule import TwoStageSchedule, cosine_schedule
+  from repro_torch.core.svd import TruncationSpec
+  from repro_torch.core.tracenorm import RegularizerConfig
+  from repro_torch.training import TrainConfig, Trainer
+  sched = TwoStageSchedule(
+      total_steps=TRAIN_STEPS, transition_step=TRAIN_TRANSITION,
+      regularizer=RegularizerConfig(kind="trace", lambda_rec=TRAIN_LAMBDA,
+                                    lambda_nonrec=TRAIN_LAMBDA),
+      truncation=TruncationSpec(variance_threshold=0.9, round_to=8))
+  lr = cosine_schedule(1e-3, TRAIN_STEPS // 10, TRAIN_STEPS) if lr is None \
+      else lr
+  return Trainer(cfg, TrainConfig(lr=lr, checkpoint_dir=str(ckpt_dir),
+                                  async_checkpoint=False),
+                 schedule=sched,
+                 plan=FactorizationPlan(min_dim=32, exclude=("*embed*",)),
+                 generator=torch.Generator().manual_seed(0), device=device)
+
+
+def train_batch(cfg, step: int) -> dict:
+  from repro_torch.data.speech import SpeechDataConfig, batch_at
+  return batch_at(SpeechDataConfig(vocab_size=cfg.vocab_size,
+                                   feat_dim=cfg.feat_dim,
+                                   global_batch=TRAIN_BATCH), step)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+  return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_training_card_vs_cpu(card) -> dict:
+  """One f32 stage-1 step at the smoke width on the CPU and on the card,
+  the card's trainer restored from the CPU trainer's step-0 checkpoint
+  (each device's own stage-1 SVD would pick other signs)."""
+  from repro_torch import configs
+  cfg = configs.get_smoke("deepspeech2-wsj").with_(dtype=torch.float32)
+  ckpt = ROOT / "build" / "train_smoke_ckpt"
+  shutil.rmtree(ckpt, ignore_errors=True)
+  batch = train_batch(cfg, 0)
+  runs = []
+  for dev in ("cpu", "cuda"):
+    tr = make_trainer(cfg, dev, ckpt, lr=1e-3)
+    if runs:
+      tr.restore()
+    else:
+      tr.save(blocking=True)
+    before = {k: p.detach().cpu().clone() for k, p in
+              tr.params.named_parameters()}
+    _, _, grads = tr._step_fn.grads_of(tr.params, batch)
+    m = tr.train_step(batch)
+    runs.append((m["loss"], {k: g.cpu() for k, g in grads.items()},
+                 {k: p.detach().cpu() - before[k] for k, p in
+                  tr.params.named_parameters()}))
+  (l_c, g_c, d_c), (l_g, g_g, d_g) = runs
+  loss_rel = abs(l_g - l_c) / abs(l_c)
+  grad_rel = max(_rel(g_g[k], g_c[k]) for k in g_c)
+  update_rel = max(_rel(d_g[k], d_c[k]) for k in d_c)
+  out = dict(train_card_vs_cpu=cfg.name, card=card, batch=TRAIN_BATCH,
+             loss_cpu=l_c, loss_cuda=l_g, loss_rel=loss_rel,
+             max_grad_rel=grad_rel, max_update_rel=update_rel)
+  print(json.dumps(out), flush=True)
+  if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL and
+          update_rel <= TRAIN_UPDATE_RTOL):
+    fail(f"training step card vs CPU: loss {loss_rel:.3g}, gradients "
+         f"{grad_rel:.3g}, updates {update_rel:.3g} (limits "
+         f"{TRAIN_LOSS_RTOL}, {TRAIN_GRAD_RTOL}, {TRAIN_UPDATE_RTOL})")
+  return out
+
+
+def profile_step(fn, name: str) -> dict:
+  """`fn()` (one training step) under torch.profiler: the device's
+  kernel time in all, its idle share of this profiled step's wall time
+  (which the profiler's own host work lengthens), and the kernels that
+  take the most of it, summed by name. The profiler's and the trace's
+  objects are collected before it returns, so that the next timed step
+  does not pay for them."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  trace = ROOT / "build" / f"{name}_trace.json"
+  prof.export_chrome_trace(str(trace))
+  by_name: dict = {}
+  count = 0
+  for e in json.loads(trace.read_text())["traceEvents"]:
+    if e.get("cat") == "kernel":
+      count += 1
+      key = e.get("name", "?")[:60]
+      by_name[key] = by_name.get(key, 0.0) + e.get("dur", 0.0) / 1e3
+  busy = sum(by_name.values())
+  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+  del prof
+  gc.collect()
+  return dict(wall_ms=wall * 1e3, device_kernel_ms=busy, kernels=count,
+              profiled_idle_share=1.0 - busy / (wall * 1e3),
+              top_kernels_ms={k: round(v, 4) for k, v in top})
+
+
+def trained_kernel_cases(fact, quant, gen) -> list[dict]:
+  """lowrank_gemm at every trained factored leaf (batch SERVE_BATCH,
+  bf16) and int8_gemm at both GEMMs of every PTQ'd factored leaf: the
+  shapes the trained model's serving gives the kernels."""
+  from repro_torch.core.factored import iter_factored_leaves, iter_gemm_leaves
+  from repro_torch.kernels import ref
+  from repro_torch.kernels.int8_gemm import int8_gemm
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  b, bf16 = SERVE_BATCH, torch.bfloat16
+  cases = []
+  for leaf in iter_factored_leaves(fact):
+    u, v = leaf.u, leaf.v
+    (m, r), n = u.shape, v.shape[1]
+    if min(m, r, n) < 128:      # the lane gate: served by the plain path
+      continue
+    x = randn((b, m), gen, bf16)
+    cases.append(case("lowrank_gemm", f"trained {leaf.name} {m}x{r}x{n}", b,
+                      bf16, lambda a=(x, u, v): lowrank_gemm(*a),
+                      lambda a=(x, u, v): ref.lowrank_gemm(*a)))
+  for leaf in iter_gemm_leaves(quant):
+    for wq, ws in ((leaf.u_q, leaf.u_scale), (leaf.v_q, leaf.v_scale)):
+      m, n = wq.shape
+      xq, xs = ref.quantize_rowwise(randn((b, m), gen, bf16))
+      cases.append(case("int8_gemm", f"trained {leaf.name} {m}x{n}", b,
+                        torch.int8, lambda a=(xq, wq, xs, ws): int8_gemm(*a),
+                        lambda a=(xq, wq, xs, ws): ref.int8_gemm(*a),
+                        exact=True))
+  return cases
+
+
+def check_training(cfg, card) -> tuple[dict, list[dict], dict]:
+  """Full-width two-stage training, the checkpoint round trip, and the
+  trained model through the kernels and the server. Returns (the serving
+  run's launches, the kernel rows, the training summary)."""
+  from repro_torch.checkpoint.manager import flatten
+  from repro_torch.core.compress import compression_report
+  from repro_torch.core.factored import count_params, frozen, \
+      iter_factored_leaves
+  from repro_torch.quant import quantize_params
+  ckpt = ROOT / "build" / "train_ckpt"
+  shutil.rmtree(ckpt, ignore_errors=True)
+  t0 = time.perf_counter()
+  tr = make_trainer(cfg, "cuda", ckpt)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  steps, profiles = [], {}
+  for i in range(TRAIN_STEPS):
+    batch = train_batch(cfg, i)
+    if i == TRAIN_TRANSITION:
+      stage1 = tr.params
+      params_before = count_params(stage1)
+    t0 = time.perf_counter()
+    if i in (1, TRAIN_TRANSITION + 1):      # one profiled step a stage
+      profiles[f"stage{tr.stage}"] = profile_step(
+          lambda b=batch: steps.append(tr.train_step(b)), f"train_step{i}")
+    else:
+      steps.append(tr.train_step(batch))
+    steps[-1]["call_s"] = time.perf_counter() - t0
+  params_after = count_params(tr.params)
+  losses = [m["loss"] for m in steps]
+  if not all(math.isfinite(x) for x in losses):
+    fail(f"training: non-finite loss {losses}")
+  stages = [m["stage"] for m in steps]
+  if stages != [1] * TRAIN_TRANSITION + [2] * (TRAIN_STEPS - TRAIN_TRANSITION):
+    fail(f"training: stages {stages}")
+  if not params_after < params_before:
+    fail(f"training: {params_after} params after the transition, "
+         f"{params_before} before")
+  ranks = {}
+  for leaf in iter_factored_leaves(tr.params):
+    if not leaf.is_factored or leaf.rank % 8 or \
+        leaf.rank > min(leaf.in_dim, leaf.out_dim):
+      fail(f"training: leaf {leaf.name} rank "
+           f"{leaf.rank if leaf.is_factored else None}")
+    ranks[leaf.name] = leaf.rank
+  report = compression_report(stage1, tr.params)
+  nu = {k: r["nu"] for k, r in list(tr.tracenorm_report().items())[:5]}
+  # each stage's median leaves out its first step (warm-up, new shapes)
+  # and its profiled one
+  plain = [i for i in range(TRAIN_STEPS) if i not in
+           (0, 1, TRAIN_TRANSITION, TRAIN_TRANSITION + 1)]
+  median_ms = {f"stage{s}": statistics.median(
+      steps[i]["wall_s"] * 1e3 for i in plain if steps[i]["stage"] == s)
+      for s in (1, 2)}
+  for s, prof in profiles.items():     # idle share of an unprofiled step
+    prof["device_idle_share"] = 1.0 - prof["device_kernel_ms"] / median_ms[s]
+  transition_ms = (steps[TRAIN_TRANSITION]["call_s"]
+                   - steps[TRAIN_TRANSITION]["wall_s"]) * 1e3
+  # checkpoint round trip into a fresh trainer
+  tr.save(blocking=True)
+  fresh = make_trainer(cfg, "cuda", ckpt)
+  fresh.restore()
+  want = flatten({"params": tr.params, "opt": tr.opt_state})
+  got = dict(flatten({"params": fresh.params, "opt": fresh.opt_state}))
+  if (fresh.step, fresh.stage) != (tr.step, tr.stage) or \
+      sorted(got) != sorted(k for k, _ in want):
+    fail("checkpoint round trip: structure or step differs")
+  for k, x in want:
+    y = got[k]
+    same = x == y if isinstance(x, int) else (
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y))
+    if not same:
+      fail(f"checkpoint round trip: {k} differs")
+  del fresh
+  summary = dict(
+      train=cfg.name, card=card, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+      transition_step=TRAIN_TRANSITION, init_s=init_s, losses=losses,
+      stages=stages, wall_ms=[m["wall_s"] * 1e3 for m in steps],
+      median_step_ms=median_ms, transition_ms=transition_ms,
+      params_before=params_before, params_after=params_after,
+      total_params_before=report["total_params_before"],
+      total_params_after=report["total_params_after"], ranks=ranks,
+      nu_first5=nu, checkpoint_leaves=len(want), profiles=profiles)
+  print(json.dumps(summary), flush=True)
+  # serve what was trained, and its PTQ'd form
+  fact = frozen(copy.deepcopy(tr.params))
+  forms = {"factored": fact, "int8": quantize_params(fact)}
+  rows = check_cases(trained_kernel_cases(
+      fact, forms["int8"], torch.Generator().manual_seed(3)))
+  by_name = {leaf.name: leaf for leaf in iter_factored_leaves(fact)}
+
+  def trained_route(name):
+    leaf = by_name[name]
+    return "lowrank_gemm" if min(leaf.in_dim, leaf.rank, leaf.out_dim) >= \
+        128 else "jnp"
+  launches = check_serving(cfg, forms, card, routes={
+      "factored": trained_route, "int8": EXPECTED_ROUTES["int8"]})
+  return launches, rows, summary
+
+
 def _sums(rows: list[dict]) -> dict:
   """Per-step sums of timed rows, each row counted `weight` times (and
   the cold times' sums where every row has them)."""
@@ -1075,6 +1361,12 @@ def main() -> int:
   t0 = time.perf_counter()
   by_path["lm_serving"] = check_lm_serving(lm, lm_cfg, card)
   phases["5_lm_serving"] = time.perf_counter() - t0
+  del lm
+  t0 = time.perf_counter()
+  check_training_card_vs_cpu(card)
+  by_path["ds2_trained"], trained_rows, _ = check_training(cfg, card)
+  rows += trained_rows
+  phases["6_training"] = time.perf_counter() - t0
   launches = {k: sum(n[k] for n in by_path.values()) for k in KERNELS}
   if not all(n > 0 for n in launches.values()):
     fail(f"a kernel never launched on the main paths: {launches}")

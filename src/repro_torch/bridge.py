@@ -16,8 +16,12 @@ layout.
 
 bf16 arrives either as an `ml_dtypes.bfloat16` array or as its `uint16`
 view plus the dtype string "bfloat16" (the checkpoint layout); both are
-reinterpreted bit for bit. Reading a checkpoint directory from disk
-comes with the training slice.
+reinterpreted bit for bit.
+
+`to_reference` is the inverse: a model's `{path: np.ndarray}` (bf16 as
+the `uint16` view), and
+`load_checkpoint` builds a model from the params of a checkpoint
+directory either package wrote.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ import torch
 
 from torch import nn
 
+from repro_torch.checkpoint.manager import (CheckpointManager, flatten,
+                                            from_host, to_host)
 from repro_torch.core.factored import FactoredLinear
 from repro_torch.device import resolve_device
 from repro_torch.layers.attention import Attention
@@ -49,12 +55,9 @@ def to_tensor(a: np.ndarray, dtype: Optional[str] = None) -> torch.Tensor:
   the checkpoint's dtype string for arrays stored as raw views."""
   a = np.asarray(a)
   name = dtype or str(a.dtype)
-  if name == "bfloat16":
-    return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
-                            ).view(torch.bfloat16)
-  if a.dtype.kind not in "biuf":
+  if name != "bfloat16" and a.dtype.kind not in "biuf":
     raise TypeError(f"unsupported array dtype {a.dtype} ({name})")
-  return torch.from_numpy(np.array(a, copy=True))
+  return from_host(a, name)
 
 
 def _leaf(fields: dict, *, name: str, group: str, cfg: ModelConfig):
@@ -142,3 +145,25 @@ def from_reference(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, *,
   model = _FAMILIES[cfg.family](a, cfg)
   a.done()
   return model
+
+
+def to_reference(model: nn.Module) -> dict[str, np.ndarray]:
+  """The model's leaves keyed by the reference's path strings, as numpy
+  arrays on the host (bf16 as its uint16 view, as checkpoints store
+  it): `from_reference` of them, given the bf16 leaves' dtype strings,
+  rebuilds `m`."""
+  return {p: to_host(x)[0] for p, x in flatten(model)}
+
+
+def load_checkpoint(directory: str, cfg: ModelConfig, *,
+                    step: Optional[int] = None, device=None) -> nn.Module:
+  """The model stored under "params/" in a checkpoint directory written
+  by either package (`step` default: the latest), built on `device`
+  (default: the GPU)."""
+  ckpt = CheckpointManager(directory)
+  arrays, dtypes = {}, {}
+  for path in ckpt.manifest(step)["leaves"]:
+    if path.startswith("params/"):
+      key = path[len("params/"):]
+      arrays[key], dtypes[key] = ckpt.read(path, step)
+  return from_reference(arrays, cfg, dtypes=dtypes, device=device)

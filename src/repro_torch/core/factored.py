@@ -7,8 +7,9 @@ the static logical `name` ("gru0/rec", "fc", ...) and `group`
 so `state_dict()` keys are the reference checkpoint paths with "." for
 "/" (e.g. `grus.gru0.nonrec.w`).
 
-Weights are `nn.Parameter`s with `requires_grad=False`: the port
-serves; training turns gradients on when it is ported.
+Weights are `nn.Parameter`s made with `requires_grad=False`, as
+serving wants them; `training.Trainer` turns gradients on for every
+parameter it trains (`trainable`).
 
 Layer-stacked leaves keep the reference's layout — `w` (L, m, n), as
 `dense(..., stack=(L,))` makes it — so their `state_dict()` keys stay the
@@ -73,6 +74,19 @@ class FactoredLinear(nn.Module):
     return self.v.shape[-1] if self.is_factored else self.w.shape[-1]
 
   @property
+  def rank(self) -> int:
+    """Factorization rank (min(m, n) if unfactored)."""
+    if self.is_factored:
+      return self.u.shape[-1]
+    return min(self.w.shape[-2], self.w.shape[-1])
+
+  @property
+  def num_params(self) -> int:
+    if self.is_factored:
+      return self.u.numel() + self.v.numel()
+    return self.w.numel()
+
+  @property
   def dtype(self) -> torch.dtype:
     return self.u.dtype if self.is_factored else self.w.dtype
 
@@ -80,6 +94,13 @@ class FactoredLinear(nn.Module):
     return f"name={self.name!r}, group={self.group!r}"
 
   # -- math -----------------------------------------------------------------
+  def product(self) -> torch.Tensor:
+    """W = UV (or w), batched over leading dims; the product is summed
+    in f32 and returned in the factors' dtype."""
+    if self.is_factored:
+      return torch.matmul(self.u.float(), self.v.float()).to(self.u.dtype)
+    return self.w
+
   def apply(self, x: torch.Tensor, policy=None) -> torch.Tensor:
     """y = x @ W, computed as (x @ U) @ V when factored.
 
@@ -182,6 +203,43 @@ def iter_factored_leaves(model: nn.Module) -> Iterator[FactoredLinear]:
   for mod in iter_gemm_leaves(model):
     if isinstance(mod, FactoredLinear):
       yield mod
+
+
+def param_tree(model: nn.Module) -> dict[str, nn.Parameter]:
+  """{reference path: parameter} of a model: `named_parameters()` with
+  "/" for "." ("grus/gru0/rec/u", "conv1", ...), the keys the reference's
+  checkpoints and optimizer trees use."""
+  return {name.replace(".", "/"): p for name, p in model.named_parameters()}
+
+
+def count_params(model: nn.Module) -> int:
+  """Total parameter count, GEMM leaves at their stored (factored or
+  quantized) size: every other parameter and buffer counted whole."""
+  total = 0
+  leaves = list(iter_gemm_leaves(model))
+  inside = {id(t) for leaf in leaves for t in
+            list(leaf.parameters()) + list(leaf.buffers())}
+  for leaf in leaves:
+    total += leaf.num_params
+  for t in list(model.parameters()) + list(model.buffers()):
+    if id(t) not in inside:
+      total += t.numel()
+  return total
+
+
+def trainable(model: nn.Module) -> nn.Module:
+  """Turn gradients on for every parameter of `model`, in place."""
+  for p in model.parameters():
+    p.requires_grad_(True)
+  return model
+
+
+def frozen(model: nn.Module) -> nn.Module:
+  """Turn gradients off for every parameter of `model`, in place (the
+  form the serving path and the kernels take)."""
+  for p in model.parameters():
+    p.requires_grad_(False)
+  return model
 
 
 def map_factored_leaves(fn, model: nn.Module) -> nn.Module:

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core.factored import FactoredLinear, matmul_ref
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_supported
 from repro_torch.quant.leaf import QuantizedLinear, kernel_apply
 
 #: every regime a policy (or override) may name
@@ -261,11 +262,17 @@ def maybe_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   """Route one causal attention (q: (b, s, h, d); k, v: (b, s, h_kv, d),
   kv heads not repeated) to the flash_attention kernel, or return None to
   decline (the caller then repeats the kv heads and runs the plain
-  blockwise body)."""
+  blockwise body). It declines, recording nothing, wherever the kernel
+  would refuse the operands (`flash_attention.flash_supported`: a head
+  width it is not built for), as the reference's wrapper declines below
+  its block sizes; a direct call of the kernel's wrapper still raises
+  there."""
   if policy is None or policy.mode == "jnp_only":
     return None
   override = policy.override_for(name)
   if override is not None and override != "flash_attention":
+    return None
+  if not flash_supported(q, k, v):
     return None
   _record(name, "flash_attention")
   return ops.flash_attention(q, k, v, causal=True)

@@ -8,8 +8,9 @@ Replaces the Pallas kernel `repro/kernels/flash_attention.py:62`. The
 reads kv head j // (h // h_kv); nothing is repeated), and ragged
 sequence lengths are masked in the kernel, so no length needs to divide a
 block. The bf16 kernel loads through TMA, which wants 16-byte aligned
-bases: a bf16 operand that is not is refused, not copied. The f32 kernel
-reads scalars and takes any contiguous operand. The design note heads
+bases: a bf16 operand that does not start on one is copied into a fresh
+buffer first, as a non-contiguous operand is. The f32 kernel reads
+scalars and takes any contiguous operand. The design note heads
 the CUDA source.
 """
 from __future__ import annotations
@@ -20,6 +21,15 @@ from repro_torch.kernels import _build
 
 #: head widths the kernel is instantiated for
 HEAD_DIMS = (64, 128)
+
+
+def flash_supported(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> bool:
+  """Whether `flash_attention` is built for these operands: a head width
+  in HEAD_DIMS. The routing decision of
+  `kernels.dispatch.maybe_flash_attention`; a pure function of shapes, so
+  the CPU can test it."""
+  return q.shape[-1] in HEAD_DIMS
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,10 +47,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
   b, s, h, d = q.shape
   if d not in HEAD_DIMS:
     raise ValueError(f"flash_attention: head width {d} not in {HEAD_DIMS}")
-  q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-  if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-    raise ValueError("flash_attention: bf16 q, k and v must start on a "
-                     "16-byte boundary (TMA)")
+  # TMA (bf16) wants 16-byte aligned bases; a fresh buffer has one
+  q, k, v = (t.clone() if t.is_contiguous() and t.dtype == torch.bfloat16
+             and t.data_ptr() % 16 else t.contiguous() for t in (q, k, v))
   out = torch.empty_like(q)
   with torch.cuda.device(q.device):
     err = _build.library().rk_flash_attention(

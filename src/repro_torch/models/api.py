@@ -1,13 +1,14 @@
 """One dispatch surface over the ported model families — counterpart of
-`repro.models.api`, as far as serving needs it.
+`repro.models.api`, as far as serving and DS2 training need it.
 
 `get_model(cfg)` returns a `ModelApi` for the `transformer` and
-`deepspeech` families with `init`, `forward`, `init_decode_state`,
+`deepspeech` families with `init`, `forward`, `loss_fn` (deepspeech;
+the transformer's comes with its training slice), `init_decode_state`,
 `decode_step`, `decode_state_batch_axes` and the slot surgery
 `insert_slot`. Decode states are nested dicts of tensors; `insert_slot`
 writes into the batched state in place (the reference returns a new
 tree). `cast_kv_cache` narrows only attention-KV leaves. The other
-families, `loss_fn`, decode windows, the speculative-rewind and the
+families, decode windows, the speculative-rewind and the
 prefix-snapshot contracts come with their slices.
 """
 from __future__ import annotations
@@ -54,6 +55,8 @@ class ModelApi:
   family: str
   init: Callable
   forward: Optional[Callable] = None
+  # (params, batch, cfg) -> (loss, metrics)
+  loss_fn: Optional[Callable] = None
   init_decode_state: Optional[Callable] = None
   decode_step: Optional[Callable] = None
   # cfg -> nested dict of ints: the batch axis of every decode-state leaf
@@ -91,6 +94,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
   if fam == "deepspeech":
     return ModelApi(
         family=fam, init=deepspeech.init_model, forward=deepspeech.forward,
+        loss_fn=deepspeech.loss_fn,
         init_decode_state=lambda cfg, batch, max_len=None, cache_dtype=None,
         device=None: deepspeech.init_decode_state(cfg, batch, device),
         decode_step=deepspeech.api_decode_step,

@@ -5,8 +5,8 @@ growing forward-only GRUs (paper App. B.1), FC + ReLU, output GEMM and
 log-softmax. Public tensors keep the reference's layouts — features
 (b, t, f), conv weights HWIO — and the convs run as `F.conv2d` on
 NCHW/OIHW views with explicit `F.pad`s, because the reference's time
-padding (`conv_time_pads`) is asymmetric. CTC and `api_decode_window`
-come with later slices.
+padding (`conv_time_pads`) is asymmetric. `loss_fn` is the CTC
+training loss; `api_decode_window` comes with a later slice.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.core.factored import dense
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import ModelConfig, gemm
 from repro_torch.layers.gru import GRU, gru_decode, gru_forward, init_gru
+from repro_torch.models.ctc import ctc_loss
 
 CONV1_TIME_STRIDE = 2   # conv1 halves time; conv2's time stride is
                         # cfg.time_stride
@@ -138,6 +139,22 @@ def output_lengths(input_lengths: torch.Tensor, cfg: ModelConfig
   s1 = CONV1_TIME_STRIDE
   t1 = (input_lengths + s1 - 1) // s1
   return (t1 + cfg.time_stride - 1) // cfg.time_stride
+
+
+def loss_fn(params: DeepSpeech2, batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, dict]:
+  """The CTC loss of a batch — feats (b, t, f), feat_lengths (b,),
+  labels (b, l), label_lengths (b,), tensors or numpy arrays — through
+  the full-utterance forward with no kernel policy (no kernel has a
+  backward). Returns (loss, {"ctc": loss})."""
+  dev = params.conv1.device
+  feats, feat_lens, labels, label_lens = (
+      torch.as_tensor(batch[k], device=dev) for k in
+      ("feats", "feat_lengths", "labels", "label_lengths"))
+  log_probs = forward(params, feats, cfg)
+  loss = ctc_loss(log_probs, output_lengths(feat_lens, cfg), labels,
+                  label_lens)
+  return loss, {"ctc": loss}
 
 
 # -- streaming inference (the paper's embedded deployment mode) --------------

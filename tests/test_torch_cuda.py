@@ -213,16 +213,37 @@ def test_flash_attention_reads_gqa_heads_in_place(cuda, dtype):
     torch.testing.assert_close(got, want, **tol)
   with pytest.raises(ValueError, match="shapes"):
     flash_attention(q, k[:, :, :1].expand(-1, -1, 3, -1), v)
-  # operands off a 16-byte boundary: TMA (bf16) refuses them, the f32
-  # kernel reads them as they are
+  # operands off a 16-byte boundary: the wrapper copies a bf16 one for
+  # TMA, the f32 kernel reads it as it is
   q, k, v = (torch.from_numpy(rnd(i, (1 * 8 * 2 * 64 + 1,))).to(cuda, dt)[1:]
              .view(1, 8, 2, 64) for i in (1, 2, 3))
-  if dt == torch.bfloat16:
-    with pytest.raises(ValueError, match="16-byte"):
-      flash_attention(q, k, v)
-  else:
-    torch.testing.assert_close(flash_attention(q, k, v),
-                               ref.flash_attention(q, k, v), **tol)
+  torch.testing.assert_close(flash_attention(q, k, v),
+                             ref.flash_attention(q, k, v), **tol)
+
+
+def test_maybe_flash_attention_launches_on_bf16_views_off_a_16_byte_boundary(
+    cuda):
+  """bf16 q, k, v one element into their storage (off TMA's 16-byte
+  boundary) under the "cuda" policy: the dispatch routes them to the
+  kernel, which launches once on the wrapper's aligned copies and agrees
+  with the plain version on repeated kv heads within 1e-2."""
+  from repro_torch.kernels import dispatch, ops
+  b, s_, h, h_kv, d = 1, 200, 8, 2, 128
+  q = torch.from_numpy(rnd(1, (b * s_ * h * d + 1,))).to(
+      cuda, torch.bfloat16)[1:].view(b, s_, h, d)
+  k, v = (torch.from_numpy(rnd(i, (b * s_ * h_kv * d + 1,))).to(
+      cuda, torch.bfloat16)[1:].view(b, s_, h_kv, d) for i in (2, 3))
+  assert all(t.data_ptr() % 16 for t in (q, k, v))
+  ops.reset_launches()
+  with dispatch.record_dispatch() as log:
+    got = dispatch.maybe_flash_attention(q, k, v, dispatch.resolve_policy(
+        "cuda"), name="layers/attn")
+  assert ops.LAUNCHES["flash_attention"] == 1
+  assert log == [("layers/attn", "flash_attention")]
+  want = ref.flash_attention(q, torch.repeat_interleave(k, h // h_kv, dim=2),
+                             torch.repeat_interleave(v, h // h_kv, dim=2),
+                             causal=True)
+  torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
 
 
 #: ragged m and n (n not a multiple of the 8 bf16 / 4 f32 columns of a
@@ -413,3 +434,76 @@ def test_gru_cell_forced_to_several_waves_and_beside_a_busy_stream(cuda,
   assert bool((st[:, 0] > 0).all() and (st[:, 1] >= st[:, 0]).all()
               and (st[:, 2] >= st[:, 1]).all())
   assert _counters_are_zero()
+
+
+def test_prefill_at_the_default_smoke_config_declines_flash(cuda):
+  """The default llama3-8b smoke config (head width 16, which the flash
+  kernel is not built for) under the "cuda" policy: attention declines
+  to the plain path instead of raising, and the logits equal the plain
+  policy's within 1e-4."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.models import transformer
+  cfg = configs.get_smoke("llama3-8b").with_(dtype=torch.float32)
+  assert cfg.resolved_head_dim == 16
+  params = transformer.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                               device=cuda)
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(2, 70))).to(cuda)
+  ops.reset_launches()
+  with dispatch.record_dispatch() as log:
+    got = transformer.forward(params, toks, cfg,
+                              policy=dispatch.resolve_policy("cuda"))
+  assert ops.LAUNCHES["flash_attention"] == 0
+  assert ("layers/attn", "flash_attention") not in set(log)
+  want = transformer.forward(params, toks, cfg,
+                             policy=dispatch.resolve_policy("plain"))
+  torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+  """One f32 stage-1 step (trace norm on, DS2 smoke config) on the card
+  and on the CPU from the same weights (the CPU trainer's, carried to the
+  card through a checkpoint: each device's own stage-1 SVD would pick
+  other signs) and batch: the loss within 1e-4
+  relative, each gradient within 1e-3 relative in norm, and each leaf's
+  update within 1e-2 relative in norm (Adam's first step moves every
+  weight by about lr * sign(g), so a gradient within rounding of zero may
+  move the other way on the other device)."""
+  from repro_torch import configs
+  from repro_torch.core.compress import FactorizationPlan
+  from repro_torch.core.schedule import TwoStageSchedule
+  from repro_torch.core.svd import TruncationSpec
+  from repro_torch.core.tracenorm import RegularizerConfig
+  from repro_torch.data.speech import SpeechDataConfig, batch_at
+  from repro_torch.training import TrainConfig, Trainer
+  cfg = configs.get_smoke("deepspeech2-wsj").with_(dtype=torch.float32)
+  sched = TwoStageSchedule(
+      total_steps=4, transition_step=2,
+      regularizer=RegularizerConfig(kind="trace", lambda_rec=1e-4,
+                                    lambda_nonrec=1e-4),
+      truncation=TruncationSpec())
+  batch = batch_at(SpeechDataConfig(global_batch=4), 0)
+  runs = []
+  for dev in ("cpu", cuda):
+    tr = Trainer(cfg, TrainConfig(lr=1e-3, checkpoint_dir=str(tmp_path)),
+                 schedule=sched, device=dev,
+                 plan=FactorizationPlan(min_dim=32),
+                 generator=torch.Generator().manual_seed(0))
+    if runs:
+      tr.restore()
+    else:
+      tr.save(blocking=True)
+    before = {k: p.detach().cpu().clone() for k, p in
+              tr.params.named_parameters()}
+    _, _, grads = tr._step_fn.grads_of(tr.params, batch)
+    m = tr.train_step(batch)
+    after = {k: p.detach().cpu() for k, p in tr.params.named_parameters()}
+    runs.append((m["loss"], {k: g.cpu() for k, g in grads.items()},
+                 {k: after[k] - before[k] for k in before}))
+  (l_c, g_c, d_c), (l_g, g_g, d_g) = runs
+  np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+  for k in g_c:
+    assert float((g_g[k] - g_c[k]).norm() / g_c[k].norm()) < 1e-3, k
+  for k in d_c:
+    assert float((d_g[k] - d_c[k]).norm() / d_c[k].norm()) < 1e-2, k

@@ -567,3 +567,33 @@ def test_gru_cell_plan_constants_match_the_kernel(name):
               resident=gc.RESIDENT,
               vec={w: gc.plan(4, 64, w_bytes=w).vec for w in (2, 4)})
   assert mine[name] == _gru_source_constants()[name]
+
+
+@pytest.mark.parametrize("wrapper", ["decode_matvec", "lowrank_gemm",
+                                     "gru_cell", "int8_gemm",
+                                     "quantized_matmul", "flash_attention"])
+def test_wrappers_refuse_operands_that_require_grad(wrapper):
+  """No kernel has a backward: under grad mode every wrapper refuses an
+  operand that requires grad (on the CPU too), instead of cutting the
+  graph. Under torch.no_grad() the same call runs."""
+  x = torch.from_numpy(rnd(0, (4, 192)))
+  w = torch.from_numpy(rnd(1, (192, 256)))
+  u, v = torch.from_numpy(rnd(2, (192, 128))), torch.from_numpy(rnd(3, (128, 256)))
+  xw, h = torch.from_numpy(rnd(4, (4, 384))), torch.from_numpy(rnd(5, (4, 128)))
+  uh, bias = torch.from_numpy(rnd(6, (128, 384), 0.05)), torch.zeros(384)
+  xq, xs = ref.quantize_rowwise(x)
+  wq, ws = ref.quantize_colwise(w)
+  q, k, vv = (torch.from_numpy(rnd(i, (1, 40, 2, 64))) for i in (7, 8, 9))
+  args = {"decode_matvec": (x, w), "lowrank_gemm": (x, u, v),
+          "gru_cell": (xw, h, uh, bias), "int8_gemm": (xq, wq, xs, ws),
+          "quantized_matmul": (x, w), "flash_attention": (q, k, vv)}[wrapper]
+  fn = getattr(ops, wrapper)
+  floats = [a for a in args if a.is_floating_point()]
+  for a in floats:
+    a.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+      fn(*args)
+    with torch.no_grad():
+      fn(*args)
+    a.requires_grad_(False)
+  assert floats
