@@ -97,13 +97,34 @@
    `lowrank_gemm` and `int8_gemm` against their plain versions at the
    trained shapes (uneven ranks) and serves the trained weights and their
    PTQ'd form as phase 3 does (`launches_by_path` key `ds2_trained`).
-7. Prints `{"kernels": [...]}` with each kernel's numbers, all measured
+7. Speculative serving, run after phase 5 on its weights: the ported
+   `make_draft_params` builds the rank-128 truncated-SVD draft on the
+   card (timed; every GEMM leaf factored, the embedding and norms the
+   target's own storage). `lowrank_gemm` is held against its plain
+   version, and timed against two `torch.matmul` calls and its bound, at
+   each distinct draft shape at batch 1 (a draft prefill) and 4 (a draft
+   step), and `decode_matvec` at the target's shapes at the verify
+   window's 16 rows. One 16-row `decode_window` against the 4 steps it
+   stands for (log-probs within `LM_SERVE_ATOL`). Then
+   `LMEngine(speculate=3, kernel_policy="cuda")` serves phase 5's 8
+   requests greedily: every draft GEMM must route to `lowrank_gemm` and
+   every target GEMM (admission steps and verify windows) to
+   `decode_matvec`, with exactly 225 launches a counted call; each
+   request's tokens equal vanilla greedy's under the same policy up to
+   its first flip, which must sit at a vanilla log-prob gap below
+   `LM_SERVE_ATOL` (a near-tie). Draft build time, accept rate and tok/s
+   (hook-free runs of both engines) are smoke readings; with random
+   weights the accept rate is near 0. A speculative engine under the
+   "plain" policy launches nothing (`launches_by_path` key
+   `lm_speculative`).
+8. Prints `{"kernels": [...]}` with each kernel's numbers, all measured
    in this run but the computed bounds, then, as the last line,
    `{"ok": true, "device": {...}}`. Any failure raises: the script exits
    non-zero and prints no result line.
 
 On an H100 the build takes about 30 s (nvcc, the five sources in
-parallel) and phases 2-6 about a minute and a half.
+parallel) and phases 2-6 about a minute and a half; phase 7's draft
+build runs 225 exact SVDs on the card.
 """
 from __future__ import annotations
 
@@ -199,6 +220,11 @@ TRAIN_LAMBDA = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_UPDATE_RTOL = 1e-2
+#: phase 7: draft tokens an iteration and the draft's truncated-SVD rank
+#: (at or above the 128-lane gate, so every draft GEMM reaches
+#: lowrank_gemm)
+SPEC_K = 3
+DRAFT_RANK = 128
 LM_GEMMS = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
             "ffn_down")
 KERNELS = {
@@ -994,6 +1020,292 @@ def check_lm_serving(lm, cfg, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: speculative serving — the rank-128 draft through lowrank_gemm,
+# the verify window through decode_matvec.
+# ---------------------------------------------------------------------------
+
+def build_draft(lm, cfg, card):
+  """The ported `make_draft_params(rank=DRAFT_RANK)` of the full-width
+  target, on the card, timed. Requires every GEMM leaf factored at the
+  draft rank (32 layers x 7 stacked leaves and the head), the embedding
+  and norms shared with the target (the same storage), and the target
+  left unfactored."""
+  from repro_torch.core.factored import count_params, iter_factored_leaves
+  from repro_torch.serving.speculative import make_draft_params
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  draft = make_draft_params(lm, rank=DRAFT_RANK)
+  torch.cuda.synchronize()
+  build_s = time.perf_counter() - t0
+  leaves = list(iter_factored_leaves(draft))
+  if len(leaves) != len(LM_GEMMS) + 1 or any(
+      not leaf.is_factored or leaf.rank != DRAFT_RANK for leaf in leaves):
+    fail(f"draft: leaves {[(lf.name, lf.is_factored) for lf in leaves]}")
+  if any(lf.is_factored for lf in iter_factored_leaves(lm)):
+    fail("draft: building it factored the target")
+  shared = {"embedding.table", "final_norm", "dense_layers.ln1",
+            "dense_layers.ln2"}
+  dsd, tsd = draft.state_dict(), lm.state_dict()
+  if any(dsd[k].data_ptr() != tsd[k].data_ptr() for k in shared):
+    fail("draft: the embedding or a norm is a copy, not the target's")
+  out = dict(draft=cfg.name, card=card, rank=DRAFT_RANK,
+             build_s=build_s, draft_params=count_params(draft),
+             target_params=count_params(lm),
+             build_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+  print(json.dumps(out), flush=True)
+  return draft, out
+
+
+def speculative_cases(lm, draft, gen):
+  """`lowrank_gemm` at each distinct draft shape (layer 0's factors; the
+  other layers' have the same shapes) and the head's, at the batch of a
+  draft prefill (1) and of a draft step (SERVE_BATCH); `decode_matvec`
+  at the target's weights of those shapes at the verify window's
+  SERVE_BATCH x (SPEC_K + 1) rows. `weight`: launches of the shape in
+  one draft step, or one window."""
+  from repro_torch.kernels import ref
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  bf16 = torch.bfloat16
+  n_layers = len(lm.dense_layers.layers())
+
+  def layer0(model):
+    lp = model.dense_layers.layers()[0]
+    return ([lp["attn"][k] for k in ("wq", "wk", "wv", "wo")] +
+            [lp["ffn"][k] for k in ("w_gate", "w_up", "w_down")] +
+            [model.embedding.head])
+  names = [f"layers/{g}" for g in LM_GEMMS] + ["lm_head"]
+  shapes: dict = {}       # (m, r, n) -> [name, draft leaf, target w, weight]
+  for name, d, t in zip(names, layer0(draft), layer0(lm)):
+    key = (d.u.shape[0], d.u.shape[1], d.v.shape[1])
+    entry = shapes.setdefault(key, [name, d, t.w, 0])
+    entry[3] += 1 if name == "lm_head" else n_layers
+  cases = []
+  rows = SERVE_BATCH * (SPEC_K + 1)
+  for (m, r, n), (name, d, wt, weight) in shapes.items():
+    u, v = d.u, d.v
+    for b in (1, SERVE_BATCH):
+      x = randn((b, m), gen, bf16)
+      cases.append(case(
+          "lowrank_gemm", f"llama3-8b draft {name} {m}x{r}x{n}", b, bf16,
+          lambda a=(x, u, v): lowrank_gemm(*a),
+          lambda a=(x, u, v): ref.lowrank_gemm(*a),
+          lambda x=x, u=u, v=v: torch.matmul(torch.matmul(x, u), v),
+          2 * (b * m + m * r + r * n + b * n), 2 * b * r * (m + n),
+          path="lm_draft" if b == SERVE_BATCH else "lm_draft_prefill",
+          weight=weight, cold=True))
+    x = randn((rows, m), gen, bf16)
+    cases.append(case(
+        "decode_matvec", f"llama3-8b verify {name} {m}x{n}", rows, bf16,
+        lambda x=x, w=wt: decode_matvec(x, w),
+        lambda x=x, w=wt: ref.decode_matvec(x, w),
+        lambda x=x, w=wt: torch.matmul(x, w),
+        2 * (rows * m + m * n + rows * n), 2 * rows * m * n,
+        path="lm_verify", weight=weight, cold=True))
+  return cases
+
+
+def check_window_vs_steps(lm, cfg, card) -> dict:
+  """The verify window against the steps it stands for, on the card
+  under the "cuda" policy: SERVE_BATCH prompts of 8 tokens prefilled,
+  then one (SERVE_BATCH x (SPEC_K + 1))-row `decode_window` and, from a
+  clone of the same state, SPEC_K + 1 `decode_step`s. The window's GEMMs
+  take 16 rows where a step's take 4, so `decode_matvec` sums in another
+  split-K order: log-probs within LM_SERVE_ATOL, argmax flips only at a
+  top-2 gap below it."""
+  from repro_torch.kernels import dispatch
+  from repro_torch.models.api import get_model
+  api, dev = get_model(cfg), lm.final_norm.device
+  pol = dispatch.resolve_policy("cuda", SERVE_BATCH, window=SPEC_K + 1)
+  rng = np.random.RandomState(3)
+  toks = torch.from_numpy(rng.randint(
+      1, cfg.vocab_size, size=(SERVE_BATCH, 8 + SPEC_K + 1))).to(dev)
+  state = api.init_decode_state(cfg, SERVE_BATCH, 64, device=dev)
+  pos = torch.zeros(SERVE_BATCH, dtype=torch.int64, device=dev)
+  for t in range(8):
+    _, state = api.decode_step(lm, state, toks[:, t:t + 1], pos + t, cfg,
+                               pol)
+  steps_state = {"dense": {k: v.clone() for k, v in state["dense"].items()}}
+  win, _ = api.decode_window(lm, state, toks[:, 8:], pos + 8, cfg, pol)
+  seq, _ = api.decode_window_sequential(lm, steps_state, toks[:, 8:],
+                                        pos + 8, cfg, pol)
+  lw, ls = torch.log_softmax(win, -1), torch.log_softmax(seq, -1)
+  if not bool(torch.isfinite(lw).all()):
+    fail("window: non-finite log-probs")
+  diff = float((lw - ls).abs().max())
+  flip = lw.argmax(-1) != ls.argmax(-1)
+  gap = 0.0
+  if bool(flip.any()):
+    top2 = torch.topk(ls[flip], 2, dim=-1).values
+    gap = float((top2[:, 0] - top2[:, 1]).max())
+  out = dict(window_vs_steps=cfg.name, card=card,
+             rows=SERVE_BATCH * (SPEC_K + 1), max_logprob_diff=diff,
+             argmax_flips=int(flip.sum()), flip_max_top2_gap=gap)
+  print(json.dumps(out), flush=True)
+  if diff > LM_SERVE_ATOL or gap >= LM_SERVE_ATOL:
+    fail(f"window vs steps: log-probs differ by {diff:.3g}, a flip at a "
+         f"top-2 gap of {gap:.3g} (limit {LM_SERVE_ATOL})")
+  return out
+
+
+def spec_engine(lm, cfg, draft, policy: str):
+  """A speculative LMEngine at SERVE_BATCH slots, warmed up and reset."""
+  from repro_torch.serving.engine import LMEngine
+  eng = LMEngine(cfg, lm, batch_size=SERVE_BATCH, max_len=64,
+                 kernel_policy=policy, speculate=SPEC_K, draft_params=draft,
+                 device=lm.final_norm.device)
+  eng.submit(np.arange(1, 5), max_new_tokens=3)
+  eng.run()
+  eng.reset()
+  return eng
+
+
+def counted_spec_run(eng, reqs):
+  """One greedy speculative run that counts the target's steps, the
+  draft's steps and the verify windows and keeps each kind's routing.
+  The launch counts are zeroed just before the run and read just after.
+  Returns (finished, calls by kind, routes by kind, launches, seconds)."""
+  from repro_torch.kernels import dispatch, ops
+  calls = {"step": 0, "draft": 0, "window": 0}
+  routes = {k: set() for k in calls}
+  originals = {"step": eng._step, "draft": eng._draft_step,
+               "window": eng._window}
+
+  def counted(kind):
+    def fn(state, tokens, positions):
+      calls[kind] += 1
+      with dispatch.record_dispatch() as log:
+        out = originals[kind](state, tokens, positions)
+      routes[kind] |= set(log)
+      return out
+    return fn
+  eng._step, eng._draft_step, eng._window = (
+      counted("step"), counted("draft"), counted("window"))
+  for prompt, budget in reqs:
+    eng.submit(prompt, max_new_tokens=budget)
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  try:
+    t0 = time.perf_counter()
+    finished = eng.run(temperature=0.0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+  finally:
+    del eng._step, eng._draft_step, eng._window
+  launches = dict(ops.LAUNCHES)
+  return finished, calls, routes, launches, dt
+
+
+def vanilla_logprobs(eng, reqs):
+  """One greedy vanilla run that keeps, for each request, the log-probs
+  each of its tokens was picked from. Returns ({uid: tokens},
+  {uid: [log-probs (v,)]})."""
+  rows: dict = {}
+  last = []
+  sample, record = eng._sample, eng._record_token
+
+  def rec_sample(logits, temperature):
+    last[:] = [torch.log_softmax(logits[:, -1].float(), dim=-1)]
+    return sample(logits, temperature)
+
+  def rec_record(slot, tok, pos):
+    lp = last[0]
+    rows.setdefault(eng._slots[slot].req.uid, []).append(
+        lp[0] if lp.shape[0] == 1 else lp[slot])
+    return record(slot, tok, pos)
+  eng._sample, eng._record_token = rec_sample, rec_record
+  for prompt, budget in reqs:
+    eng.submit(prompt, max_new_tokens=budget)
+  try:
+    finished = eng.run(temperature=0.0)
+  finally:
+    del eng._sample, eng._record_token
+  eng.reset()
+  return {f.uid: f.tokens.tolist() for f in finished}, rows
+
+
+def check_lm_speculative(lm, cfg, card) -> tuple[dict, list[dict], dict]:
+  """Phase 7. Returns (the counted speculative run's launches, the kernel
+  rows, the summary)."""
+  draft, built = build_draft(lm, cfg, card)
+  rows = check_cases(speculative_cases(lm, draft,
+                                       torch.Generator().manual_seed(4)))
+  window = check_window_vs_steps(lm, cfg, card)
+  reqs = lm_requests(cfg)
+  eng = spec_engine(lm, cfg, draft, "cuda")
+  fin, calls, routes, launches, dt_rec = counted_spec_run(eng, reqs)
+  accept = eng.accept_rate
+  drafted, accepted, iters = (eng.drafted_tokens, eng.accepted_tokens,
+                              eng.decode_steps)
+  eng.reset()
+  # routing: every draft GEMM through lowrank_gemm, every target GEMM
+  # (admission steps and verify windows) through decode_matvec
+  names = {f"layers/{g}" for g in LM_GEMMS} | {"lm_head"}
+  want = {"draft": {(n, "lowrank_gemm") for n in names},
+          "step": {(n, "decode_matvec") for n in names},
+          "window": {(n, "decode_matvec") for n in names}}
+  if routes != want:
+    fail(f"speculative serving: routing {routes}")
+  per_call = cfg.num_layers * len(LM_GEMMS) + 1
+  want_launches = {k: 0 for k in launches}
+  want_launches.update(lowrank_gemm=per_call * calls["draft"],
+                       decode_matvec=per_call * (calls["step"] +
+                                                 calls["window"]))
+  if launches != want_launches:
+    fail(f"speculative serving: launches {launches} != {want_launches} "
+         f"({calls})")
+  if calls["window"] != iters or calls["draft"] < (SPEC_K + 1) * iters:
+    fail(f"speculative serving: {calls} for {iters} iterations")
+  # tokens: vanilla greedy's, up to the first flip at a near-tie
+  van = lm_engine(lm, cfg, "cuda")
+  toks_v, lps_v = vanilla_logprobs(van, reqs)
+  toks_s = {f.uid: f.tokens.tolist() for f in fin}
+  if sorted(toks_s) != sorted(toks_v) or len(toks_s) != len(reqs):
+    fail("speculative serving: not every request finished")
+  equal, first_flips = 0, []
+  for uid, tv in toks_v.items():
+    ts = toks_s[uid]
+    if len(ts) != len(tv):
+      fail(f"speculative serving: request {uid} emitted {len(ts)} tokens, "
+           f"vanilla {len(tv)}")
+    j = next((i for i, (a, b) in enumerate(zip(ts, tv)) if a != b), None)
+    if j is None:
+      equal += 1
+      continue
+    lp = lps_v[uid][j]
+    gap = float(lp[tv[j]] - lp[ts[j]])
+    first_flips.append(dict(uid=uid, token=j, vanilla_gap=gap))
+    if gap >= LM_SERVE_ATOL:
+      fail(f"speculative serving: request {uid} token {j} is {ts[j]}, "
+           f"vanilla's {tv[j]}, at a log-prob gap of {gap:.3g}")
+  # throughput smoke readings, hook-free: speculative and vanilla
+  fin_t, dt_s, _ = timed_run(eng, reqs)
+  fin_v, dt_v, _ = timed_run(van, reqs)
+  n_s = sum(len(f.tokens) for f in fin_t)
+  n_v = sum(len(f.tokens) for f in fin_v)
+  # the plain policy launches nothing on the speculative path
+  plain = spec_engine(lm, cfg, draft, "plain")
+  fin_p, dt_p, plain_launches = timed_run(plain, reqs[:SERVE_BATCH])
+  if any(plain_launches.values()) or len(fin_p) != SERVE_BATCH:
+    fail(f"speculative serving: the plain policy launched {plain_launches}")
+  summary = dict(
+      serve_speculative=cfg.name, card=card, requests=len(reqs),
+      slots=SERVE_BATCH, k=SPEC_K, draft_rank=DRAFT_RANK,
+      draft_build_s=built["build_s"], iterations=iters, calls=calls,
+      launches=launches, drafted=drafted, accepted=accepted,
+      accept_rate=accept, tokens_equal=f"{equal}/{len(toks_v)}",
+      first_flips=first_flips, counted_run_s=dt_rec,
+      speculative_tokens=n_s, speculative_tok_per_s=n_s / dt_s,
+      vanilla_tokens=n_v, vanilla_tok_per_s=n_v / dt_v,
+      plain_speculative_tok_per_s=sum(len(f.tokens) for f in fin_p) / dt_p,
+      window_max_logprob_diff=window["max_logprob_diff"])
+  print(json.dumps(summary), flush=True)
+  del eng, plain, van
+  return launches, rows, summary
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: training — the two-stage recipe at full width, then served.
 # ---------------------------------------------------------------------------
 
@@ -1280,7 +1592,9 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
   flash_attention's per call at the prefill's (1, 4096, 32/8, 128), with
   the repeated-heads (1, 4096, 32, 128) beside it; the DS2 kernels add
   their frame step at every timed batch (`ms_by_batch`), decode_matvec
-  the llama3-8b decode step at batch 4, warm and cold."""
+  the llama3-8b decode step at batch 4 and the speculative verify window
+  at 16 rows, lowrank_gemm the rank-128 draft's step at batch 4 and its
+  prefill's token at batch 1, warm and cold."""
   out = []
   for name, (source, replaces) in KERNELS.items():
     mine = [r for r in rows if r["kernel"] == name]
@@ -1305,9 +1619,13 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
       for y in sorted({r["yardstick"] for r in mine if "yardstick" in r}):
         entry[f"{y}_ms_by_batch"] = ds2_step_ms_by_batch(rows, name,
                                                          f"{y}_ms")
-    lm_step = [r for r in mine if r["path"] == "lm_decode"]
-    if lm_step:
-      entry["llama3_8b_decode_step"] = _sums(lm_step)
+    for path, key in (("lm_decode", "llama3_8b_decode_step"),
+                      ("lm_draft", "llama3_8b_draft_step"),
+                      ("lm_draft_prefill", "llama3_8b_draft_prefill_token"),
+                      ("lm_verify", "llama3_8b_verify_window")):
+      on_path = [r for r in mine if r["path"] == path]
+      if on_path:
+        entry[key] = _sums(on_path)
     out.append(entry)
   return out
 
@@ -1361,7 +1679,14 @@ def main() -> int:
   t0 = time.perf_counter()
   by_path["lm_serving"] = check_lm_serving(lm, lm_cfg, card)
   phases["5_lm_serving"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  by_path["lm_speculative"], spec_rows, _ = check_lm_speculative(
+      lm, lm_cfg, card)
+  rows += spec_rows
+  phases["7_lm_speculative"] = time.perf_counter() - t0
   del lm
+  gc.collect()
+  torch.cuda.empty_cache()
   t0 = time.perf_counter()
   check_training_card_vs_cpu(card)
   by_path["ds2_trained"], trained_rows, _ = check_training(cfg, card)

@@ -64,13 +64,17 @@ class TruncationSpec:
 
   def pick(self, s: np.ndarray) -> int:
     if self.fixed_rank is not None:
-      r = self.fixed_rank
-    else:
-      r = explained_variance_rank(s, self.variance_threshold)
+      return self.clamp(self.fixed_rank, len(s))
+    return self.clamp(explained_variance_rank(s, self.variance_threshold),
+                      len(s))
+
+  def clamp(self, r: int, n: int) -> int:
+    """Rank r capped at max_rank, rounded up to round_to, capped at n =
+    min(m, n) of the GEMM."""
     if self.max_rank is not None:
       r = min(r, self.max_rank)
     r = max(self.round_to, int(np.ceil(r / self.round_to)) * self.round_to)
-    return min(r, len(s))
+    return min(r, n)
 
 
 def _whitener(cov: np.ndarray, eps: float = 1e-6) -> np.ndarray:
@@ -113,6 +117,14 @@ def _svals(w: torch.Tensor) -> np.ndarray:
   return torch.linalg.svdvals(w.detach().float()).cpu().numpy()
 
 
+def _pick(spec: TruncationSpec, w: torch.Tensor) -> int:
+  """`spec`'s rank for the 2-D weight w. A fixed rank needs only
+  min(m, n), so no singular values are computed for it."""
+  if spec.fixed_rank is not None:
+    return spec.clamp(spec.fixed_rank, min(w.shape[-2:]))
+  return spec.pick(_svals(w))
+
+
 def _restack(w: torch.Tensor, uvs: list) -> tuple[torch.Tensor, torch.Tensor]:
   """(u, v) of a stacked leaf from its layers' (u, v) splits, the stack
   axes of w leading."""
@@ -136,7 +148,7 @@ def truncate_leaf(leaf: FactoredLinear, spec: TruncationSpec,
       if cov is not None:
         u, v, _ = activation_split(w, np.asarray(cov), spec)
         return FactoredLinear(u=u, v=v, **kw)
-      u, v = balanced_split(w, spec.pick(_svals(w)))
+      u, v = balanced_split(w, _pick(spec, w))
       return FactoredLinear(u=u, v=v, **kw)
     flat = w.reshape((-1,) + tuple(w.shape[-2:]))
     if cov is not None:
@@ -157,7 +169,7 @@ def truncate_leaf(leaf: FactoredLinear, spec: TruncationSpec,
       fixed = dataclasses.replace(spec, fixed_rank=r, round_to=1)
       uvs = [activation_split(m, c, fixed)[:2] for m, c in zip(flat, covs)]
     else:
-      r = max(spec.pick(_svals(m)) for m in flat)
+      r = max(_pick(spec, m) for m in flat)
       uvs = [balanced_split(m, r) for m in flat]
     u, v = _restack(w, uvs)
     return FactoredLinear(u=u, v=v, **kw)

@@ -1,12 +1,14 @@
 """Serving entry point of the port: drives a queue of mixed-length
-requests through the continuous-batching `LMEngine`, or streams DS2
-speech through the `StreamingSpeechServer` — the counterpart of
-`repro.launch.serve` without speculation, the prefix cache or the rank
-controller.
+requests through the continuous-batching `LMEngine` (vanilla, or
+self-speculative with the truncated-SVD draft: `--speculate`), or streams
+DS2 speech through the `StreamingSpeechServer` — the counterpart of
+`repro.launch.serve` without the prefix cache.
 
 Examples (on a machine with a GPU; `--device cpu` runs the plain path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --full --kernels cuda --batch 4 --num-requests 8 --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --device cpu --speculate 3 --draft-rank 8 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepspeech2-wsj \
       --full --kernels cuda --batch 4
 """
@@ -23,9 +25,11 @@ from repro_torch.data.speech import SpeechDataConfig, batch_at
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_model
 from repro_torch.serving.engine import LMEngine, StreamingSpeechServer
+from repro_torch.serving.speculative import (RankController,
+                                             make_draft_params)
 
 
-def main() -> None:
+def main(argv=None) -> None:
   ap = argparse.ArgumentParser()
   ap.add_argument("--arch", required=True, choices=configs.ARCH_NAMES)
   ap.add_argument("--batch", type=int, default=4,
@@ -53,9 +57,35 @@ def main() -> None:
   ap.add_argument("--quantize", action="store_true",
                   help="one-shot PTQ before serving: every GEMM leaf "
                        "becomes int8 + per-column scales")
+  ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                  help="LM: self-speculative decoding: a low-rank draft "
+                       "of the same params proposes K tokens a step, the "
+                       "target verifies them in one window. Greedy "
+                       "(--temperature 0) emits vanilla greedy's tokens; "
+                       "temperature > 0 rejection-samples, matching "
+                       "vanilla sampling's distribution")
+  ap.add_argument("--draft-rank", type=int, default=None,
+                  help="fixed truncated-SVD rank of the draft's GEMMs "
+                       "(default: the explained-variance rule at 0.9)")
+  ap.add_argument("--adapt-rank", action="store_true",
+                  help="online draft-rank controller: walk --draft-rank "
+                       "to keep the measured accept rate inside "
+                       "--rank-band (needs --draft-rank)")
+  ap.add_argument("--rank-band", type=float, nargs=2, default=(0.5, 0.85),
+                  metavar=("LO", "HI"),
+                  help="target accept-rate band for --adapt-rank")
+  ap.add_argument("--rank-step", type=int, default=16,
+                  help="rank change per --adapt-rank adjustment")
+  ap.add_argument("--rank-interval", type=int, default=8,
+                  help="engine iterations per --adapt-rank measurement")
   ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
   ap.add_argument("--seed", type=int, default=0)
-  args = ap.parse_args()
+  args = ap.parse_args(argv)
+  if args.adapt_rank and args.draft_rank is None:
+    ap.error("--adapt-rank needs --draft-rank (a starting rank to walk)")
+  if args.adapt_rank and args.quantize:
+    ap.error("--adapt-rank rebuilds the draft from the served params, "
+             "which int8 leaves cannot be factored from: drop one flag")
 
   device = resolve_device(args.device)
   cfg = (configs.get_config(args.arch) if args.full
@@ -67,6 +97,17 @@ def main() -> None:
   gen_device = device if on_card else "cpu"
   gen = torch.Generator(device=gen_device).manual_seed(args.seed)
   params = get_model(cfg).init(cfg, generator=gen, device=device)
+  if args.speculate and cfg.family == "deepspeech":
+    # the streaming CTC server is frame-synchronous: there is no token
+    # sequence to draft
+    print("--speculate applies to the LM engine only; the deepspeech "
+          "family streams frame-synchronously — ignoring")
+    args.speculate = 0
+  draft = None
+  if args.speculate and args.quantize:
+    # int8 leaves cannot be factored: the draft comes from the float
+    # weights, before PTQ
+    draft = make_draft_params(params, rank=args.draft_rank)
   if args.quantize:
     from repro_torch.core.factored import iter_gemm_leaves
     from repro_torch.quant import QuantizedLinear, quantize_params
@@ -79,7 +120,7 @@ def main() -> None:
   if cfg.family == "deepspeech":
     serve_speech(args, cfg, params, device, where)
   else:
-    serve_lm(args, cfg, params, device, where)
+    serve_lm(args, cfg, params, device, where, draft)
 
 
 def _timed(device, fn):
@@ -92,10 +133,23 @@ def _timed(device, fn):
   return out, time.perf_counter() - t0
 
 
-def serve_lm(args, cfg, params, device, where) -> None:
+def serve_lm(args, cfg, params, device, where, draft=None) -> None:
+  controller = None
+  if args.adapt_rank:
+    controller = RankController(band=tuple(args.rank_band),
+                                step=args.rank_step,
+                                interval=args.rank_interval)
   engine = LMEngine(cfg, params, batch_size=args.batch,
                     max_len=args.max_len, kernel_policy=args.kernels,
-                    eos_id=args.eos_id, device=device)
+                    eos_id=args.eos_id, speculate=args.speculate,
+                    draft_params=draft, draft_rank=args.draft_rank,
+                    rank_controller=controller, device=device)
+  spec = ""
+  if args.speculate:
+    from repro_torch.core.factored import count_params
+    print(f"speculating {args.speculate} tokens a step with a "
+          f"{count_params(engine.draft_params)}-param low-rank draft "
+          f"(target {count_params(params)})")
   rng = np.random.RandomState(args.seed)
   lo, hi = max(1, args.prompt_len // 2), 2 * args.prompt_len
   for _ in range(args.num_requests or args.batch):
@@ -106,10 +160,18 @@ def serve_lm(args, cfg, params, device, where) -> None:
   tokens = sum(len(f.tokens) for f in finished)
   ttfts = sorted(f.ttft_s for f in finished if f.ttft_s is not None)
   ttft_p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else float("nan")
+  if args.speculate:
+    # None until something was drafted: "no data", not 0
+    rate = engine.accept_rate
+    spec = (f", accept rate {rate:.2f}" if rate is not None
+            else ", accept rate n/a")
+    if args.adapt_rank:
+      spec += (f", draft rank {engine.draft_rank} "
+               f"({len(engine.rank_history)} adjustments)")
   print(f"served {len(finished)} requests ({tokens} tokens) through "
         f"{args.batch} slots in {dt:.3f}s on {where} ({tokens / dt:.1f} "
         f"tok/s, TTFT p50 {ttft_p50:.1f} ms, occupancy "
-        f"{engine.occupancy:.2f}, kernels {args.kernels})")
+        f"{engine.occupancy:.2f}{spec}, kernels {args.kernels})")
   for f in finished[:4]:
     print(f"  req {f.uid}: prompt {len(f.prompt)} -> {len(f.tokens)} "
           f"tokens ({f.finish_reason}); sample {f.tokens[:6].tolist()}")

@@ -8,11 +8,13 @@ CUDA kernel (`kernels/csrc/flash_attention.cu`, through
 which the kernel reads in place; otherwise it repeats the kv heads, as
 the reference does, and runs the plain blockwise online softmax over
 `cfg.attn_block_q` x `cfg.attn_block_kv` tiles, which never builds the
-S x S score matrix. `decode_window` comes with speculation.
+S x S score matrix.
 
-`attention_decode` writes the new K/V rows into the cache in place (the
-reference returns a new cache; a copy per step would double the cache
-traffic) and returns the same dict.
+`attention_decode` and `attention_decode_window` (speculative
+verification: W tokens a slot in one pass) write the new K/V rows into
+the cache in place (the reference returns a new cache; a copy per step
+would double the cache traffic) and return the same dict. A row at or
+past max_len is dropped, as the reference's scatter drops it.
 """
 from __future__ import annotations
 
@@ -138,6 +140,24 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
           "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _write_rows(cache: torch.Tensor, new: torch.Tensor,
+                start: torch.Tensor, pos: torch.Tensor) -> None:
+  """cache[i, pos[i, t]] = new[i, t] in place; cache (b, S, kv, hd), new
+  (b, W, kv, hd), pos (b, W) = start[:, None] + t. A row at or past S is
+  dropped (the reference's scatter drops it; an index past S would
+  raise here, or assert on the device) without a host sync: it rewrites
+  row clamp(start - 1, 0, S - 1) with that row's own value, a row this
+  call writes nowhere else unless start is 0 and W > S (an idle slot's
+  window, whose rows are garbage until its next admit)."""
+  b, s = cache.shape[:2]
+  valid = pos < s
+  spare = (start - 1).clamp(0, s - 1)[:, None].expand_as(pos)
+  rows = torch.where(valid, pos, spare)
+  bidx = torch.arange(b, device=cache.device)[:, None].expand_as(pos)
+  cache[bidx, rows] = torch.where(valid[..., None, None],
+                                  new.to(cache.dtype), cache[bidx, rows])
+
+
 def attention_decode(p, x: torch.Tensor, cache: dict,
                      positions: torch.Tensor, cfg: ModelConfig,
                      policy=None) -> tuple[torch.Tensor, dict]:
@@ -146,10 +166,9 @@ def attention_decode(p, x: torch.Tensor, cache: dict,
   b = x.shape[0]
   h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
   q, k_new, v_new = _project_qkv(p, x, cfg, positions[:, None], policy)
-  bidx = torch.arange(b, device=x.device)
   k, v = cache["k"], cache["v"]
-  k[bidx, positions] = k_new[:, 0].to(k.dtype)
-  v[bidx, positions] = v_new[:, 0].to(v.dtype)
+  _write_rows(k, k_new, positions, positions[:, None])
+  _write_rows(v, v_new, positions, positions[:, None])
   f32 = torch.float32
   mask = torch.arange(k.shape[1], device=x.device)[None, :] <= \
       positions[:, None]                                   # (b, S)
@@ -168,4 +187,44 @@ def attention_decode(p, x: torch.Tensor, cache: dict,
     pr = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", pr, v.to(f32))
   out = out.reshape(b, 1, h * hd).to(x.dtype)
+  return gemm(p["wo"], out, policy), cache
+
+
+def attention_decode_window(p, x: torch.Tensor, cache: dict,
+                            positions: torch.Tensor, cfg: ModelConfig,
+                            policy=None) -> tuple[torch.Tensor, dict]:
+  """Batched W-token decode window. x: (b, W, d); positions: (b,) start;
+  cache {"k", "v"}: (b, max_len, kv, hd), updated in place.
+
+  The speculative-verify forward: the W tokens go through the q/k/v/o
+  GEMMs as one (b*W)-row pass (one weight read for the whole window, the
+  paper's §4 amortization), then attend causally against the cache with
+  per-query masks (query t sees positions <= positions + t). Each row
+  computes what `attention_decode` computes for its token; the two
+  agree to f32 summation order, not bit for bit (the GEMMs and the
+  score einsums block their rows differently)."""
+  b, w, _ = x.shape
+  h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+  pos = positions[:, None] + torch.arange(w, device=x.device)[None, :]
+  q, k_new, v_new = _project_qkv(p, x, cfg, pos, policy)
+  k, v = cache["k"], cache["v"]
+  _write_rows(k, k_new, positions, pos)
+  _write_rows(v, v_new, positions, pos)
+  f32 = torch.float32
+  mask = torch.arange(k.shape[1], device=x.device)[None, None, :] <= \
+      pos[:, :, None]                                      # (b, W, S)
+  if h != kvh:
+    group = h // kvh
+    qg = q.reshape(b, w, kvh, group, hd)
+    sc = torch.einsum("bqkgd,bskd->bqkgs", qg.to(f32), k.to(f32)) / \
+        (hd ** 0.5)
+    sc = torch.where(mask[:, :, None, None, :], sc, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", pr, v.to(f32))
+  else:
+    sc = torch.einsum("bqhd,bshd->bqhs", q.to(f32), k.to(f32)) / (hd ** 0.5)
+    sc = torch.where(mask[:, :, None, :], sc, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bqhs,bshd->bqhd", pr, v.to(f32))
+  out = out.reshape(b, w, h * hd).to(x.dtype)
   return gemm(p["wo"], out, policy), cache

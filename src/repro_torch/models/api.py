@@ -4,17 +4,20 @@
 `get_model(cfg)` returns a `ModelApi` for the `transformer` and
 `deepspeech` families with `init`, `forward`, `loss_fn` (deepspeech;
 the transformer's comes with its training slice), `init_decode_state`,
-`decode_step`, `decode_state_batch_axes` and the slot surgery
+`decode_step`, `decode_state_batch_axes`, the speculative-rewind
+contract `decode_state_carry`, the batched window `decode_window` (and
+its oracle `decode_window_sequential`) and the slot surgery
 `insert_slot`. Decode states are nested dicts of tensors; `insert_slot`
 writes into the batched state in place (the reference returns a new
 tree). `cast_kv_cache` narrows only attention-KV leaves. The other
-families, decode windows, the speculative-rewind and the
-prefix-snapshot contracts come with their slices.
+families and the prefix-snapshot contract come with their slices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch.layers.common import ModelConfig
 from repro_torch.models import deepspeech, transformer
@@ -61,10 +64,53 @@ class ModelApi:
   decode_step: Optional[Callable] = None
   # cfg -> nested dict of ints: the batch axis of every decode-state leaf
   decode_state_batch_axes: Optional[Callable] = None
+  # cfg -> nested dict of bools of the decode state's structure: True for
+  # read-modify-write carries (GRU hiddens) that a speculative rewind
+  # restores from a pre-draft snapshot and replays through the accepted
+  # prefix; False for attention KV rows, written at absolute positions,
+  # whose rewind is the position counter alone
+  decode_state_carry: Optional[Callable] = None
+  # family batched window: (params, state, tokens (b, W), positions (b,),
+  # cfg, policy) -> (logits (b, W, v), state after the W tokens), the
+  # whole window in one weight pass; each row equals W sequential
+  # `decode_step`s' to f32 summation order (the port's GEMMs block b*W
+  # rows differently from b rows, so not bit for bit as on the reference)
+  decode_window_batched: Optional[Callable] = None
 
   @property
   def decodable(self) -> bool:
     return self.decode_step is not None
+
+  def decode_window(self, params, state, tokens, positions,
+                    cfg: ModelConfig, policy=None):
+    """Decode a W-token window: tokens (b, W) ids, or (b, W, f) frames
+    for deepspeech, fed at positions `positions + t`; returns (logits
+    (b, W, v) f32, state after all W steps). Routes to the family's
+    `decode_window_batched`, or to `decode_window_sequential` where the
+    family has none. The caller owns undoing a rejected suffix (see
+    `decode_state_carry`)."""
+    if not self.decodable:
+      raise ValueError(f"{self.family} has no decode path")
+    if self.decode_window_batched is None:
+      return self.decode_window_sequential(params, state, tokens, positions,
+                                           cfg, policy)
+    logits, state = self.decode_window_batched(params, state, tokens,
+                                               positions, cfg, policy)
+    return logits.float(), state
+
+  def decode_window_sequential(self, params, state, tokens, positions,
+                               cfg: ModelConfig, policy=None):
+    """The W-token window as W `decode_step`s, one position each: the
+    oracle of `decode_window` and the fallback of a family without a
+    batched window; same semantics."""
+    if not self.decodable:
+      raise ValueError(f"{self.family} has no decode path")
+    logits = []
+    for t in range(tokens.shape[1]):
+      lg, state = self.decode_step(params, state, tokens[:, t:t + 1],
+                                   positions + t, cfg, policy)
+      logits.append(lg[:, 0].float())
+    return torch.stack(logits, dim=1), state
 
   def _slot_axes(self, cfg: ModelConfig) -> dict:
     if self.decode_state_batch_axes is None:
@@ -90,7 +136,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         family=fam, init=transformer.init_lm, forward=transformer.forward,
         init_decode_state=transformer.init_decode_state,
         decode_step=transformer.decode_step,
-        decode_state_batch_axes=transformer.decode_state_batch_axes)
+        decode_state_batch_axes=transformer.decode_state_batch_axes,
+        decode_state_carry=transformer.decode_state_carry,
+        decode_window_batched=transformer.decode_window)
   if fam == "deepspeech":
     return ModelApi(
         family=fam, init=deepspeech.init_model, forward=deepspeech.forward,
@@ -98,5 +146,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         init_decode_state=lambda cfg, batch, max_len=None, cache_dtype=None,
         device=None: deepspeech.init_decode_state(cfg, batch, device),
         decode_step=deepspeech.api_decode_step,
-        decode_state_batch_axes=deepspeech.decode_state_batch_axes)
+        decode_state_batch_axes=deepspeech.decode_state_batch_axes,
+        decode_state_carry=deepspeech.decode_state_carry,
+        decode_window_batched=deepspeech.api_decode_window)
   raise ValueError(f"model family {fam!r} is not ported yet")

@@ -6,7 +6,8 @@ log-softmax. Public tensors keep the reference's layouts — features
 (b, t, f), conv weights HWIO — and the convs run as `F.conv2d` on
 NCHW/OIHW views with explicit `F.pad`s, because the reference's time
 padding (`conv_time_pads`) is asymmetric. `loss_fn` is the CTC
-training loss; `api_decode_window` comes with a later slice.
+training loss; `api_decode_window` the batched window of the streaming
+frame step.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from torch import nn
 from repro_torch.core.factored import dense
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import ModelConfig, gemm
-from repro_torch.layers.gru import GRU, gru_decode, gru_forward, init_gru
+from repro_torch.layers.gru import (GRU, gru_cell, gru_decode, gru_forward,
+                                   init_gru)
 from repro_torch.models.ctc import ctc_loss
 
 CONV1_TIME_STRIDE = 2   # conv1 halves time; conv2's time stride is
@@ -197,3 +199,36 @@ def api_decode_step(params: DeepSpeech2, state: dict, feat: torch.Tensor,
   del positions
   log_probs, new_state = decode_step(params, state, feat[:, 0], cfg, policy)
   return log_probs[:, None], new_state
+
+
+def decode_state_carry(cfg: ModelConfig) -> dict:
+  """Speculative-rewind contract: every GRU hidden state is a read-
+  modify-write carry, so a rewind restores a pre-draft snapshot and
+  replays the accepted prefix."""
+  return {f"gru{i}": True for i in range(len(cfg.gru_dims))}
+
+
+def api_decode_window(params: DeepSpeech2, state: dict, feat: torch.Tensor,
+                      positions: torch.Tensor, cfg: ModelConfig, policy=None
+                      ) -> tuple[torch.Tensor, dict]:
+  """Batched window of frame steps: feat (b, W, gru_in) -> (log-probs
+  (b, W, v), state after the W frames). Per layer the non-recurrent
+  W_{z,r,h} GEMM takes the whole window as b*W rows in one weight pass
+  (paper §4's Wx batching); only the recurrence (`gru_cell`) steps over
+  the window, seeded from the streaming carry, and the FC and output
+  GEMMs take the window's rows together. `state` is not written; the
+  returned dict holds new tensors. `positions` is ignored, as in the
+  frame step."""
+  del positions
+  new_state = {}
+  h = feat
+  for i, hidden in enumerate(cfg.gru_dims):
+    p = params.grus[f"gru{i}"]
+    xw = gemm(p.nonrec, h, policy)                      # (b, W, 3H)
+    hc, hs = state[f"gru{i}"], []
+    for t in range(feat.shape[1]):
+      hc = gru_cell(xw[:, t], hc, p.rec, p.bias, hidden, policy)
+      hs.append(hc)
+    new_state[f"gru{i}"] = hc
+    h = torch.stack(hs, dim=1)
+  return _head(params, h, policy), new_state

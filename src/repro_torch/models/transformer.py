@@ -9,7 +9,8 @@ scans over that axis; here a Python loop walks the layers and takes
 layer i's 2-D leaves from `LayerStack.layers()`. Training
 (`loss_fn`, remat) and the MoE/MLA/MTP variants come with later slices.
 
-`decode_step` updates the decode state in place and returns it.
+`decode_step` and `decode_window` update the decode state in place and
+return it.
 """
 from __future__ import annotations
 
@@ -161,20 +162,48 @@ def decode_state_batch_axes(cfg: ModelConfig) -> dict:
   return {"dense": {"k": 1, "v": 1}}
 
 
-def decode_step(params: TransformerLM, state: dict, token: torch.Tensor,
-                positions: torch.Tensor, cfg: ModelConfig,
-                policy=None) -> tuple[torch.Tensor, dict]:
-  """token (b, 1), positions (b,) -> (logits (b, 1, v), state), the KV
-  rows at `positions` written into `state` in place."""
-  x = embed(params.embedding, token)
+def decode_state_carry(cfg: ModelConfig) -> dict:
+  """Speculative-rewind contract: the whole decode state is attention KV
+  written at absolute positions. Rows past the committed position are
+  never read under the causal mask, so a rejected draft suffix rewinds
+  by moving the position counter alone (no leaf is a carry)."""
+  return {"dense": {"k": False, "v": False}}
+
+
+def _decode_stack(params: TransformerLM, state: dict, tokens: torch.Tensor,
+                  positions: torch.Tensor, cfg: ModelConfig, policy,
+                  attend) -> tuple[torch.Tensor, dict]:
+  x = embed(params.embedding, tokens)
   cache = state["dense"]
   for i, lp in enumerate(params.dense_layers.layers()):
     a = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, _ = attn_lib.attention_decode(
-        lp["attn"], a, {"k": cache["k"][i], "v": cache["v"][i]}, positions,
-        cfg, policy)
+    a, _ = attend(lp["attn"], a, {"k": cache["k"][i], "v": cache["v"][i]},
+                  positions, cfg, policy)
     x = x + a
     f = rms_norm(x, lp["ln2"], cfg.norm_eps)
     x = x + swiglu_forward(lp["ffn"], f, policy)
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   return lm_logits(params.embedding, x, policy), state
+
+
+def decode_step(params: TransformerLM, state: dict, token: torch.Tensor,
+                positions: torch.Tensor, cfg: ModelConfig,
+                policy=None) -> tuple[torch.Tensor, dict]:
+  """token (b, 1), positions (b,) -> (logits (b, 1, v), state), the KV
+  rows at `positions` written into `state` in place."""
+  return _decode_stack(params, state, token, positions, cfg, policy,
+                       attn_lib.attention_decode)
+
+
+def decode_window(params: TransformerLM, state: dict, tokens: torch.Tensor,
+                  positions: torch.Tensor, cfg: ModelConfig,
+                  policy=None) -> tuple[torch.Tensor, dict]:
+  """Batched window decode: tokens (b, W) at positions `positions + t`
+  -> (logits (b, W, v), state after the W tokens, written in place). One
+  weight pass for the whole window: every GEMM takes b*W rows (under the
+  "cuda" policy `decode_matvec` up to 16 rows) and the attention runs
+  `attention_decode_window`; norms and the FFN are position-independent.
+  Each row's logits equal W sequential `decode_step`s' to f32 summation
+  order."""
+  return _decode_stack(params, state, tokens, positions, cfg, policy,
+                       attn_lib.attention_decode_window)

@@ -1,8 +1,9 @@
 """Serving: the continuous-batching LM engine and the streaming DS2
 speech server — counterpart of `repro.serving.engine`.
 
-`LMEngine` — vanilla continuous batching over a persistent KV cache.
-The engine owns `batch_size` slots, each with its own request lifecycle
+`LMEngine` — continuous batching over a persistent KV cache, vanilla or
+self-speculative. The engine owns `batch_size` slots, each with its own
+request lifecycle
 
     admit -> prefill -> decode -> retire (EOS / token budget / max_len)
 
@@ -12,9 +13,17 @@ into its slot (`ModelApi.insert_slot`). Decoding is one masked step for
 the whole batch: retired slots keep stepping at position 0 with token 0
 (their rows are overwritten at the next admit). `max_len` is a hard
 boundary: `submit` rejects prompts that do not fit, and a slot whose
-cache is full retires with reason "max_len". Speculation, the prefix
-cache, the rank controller and meshes come with later slices and raise
-if asked for; `compile_stats` has no counterpart (nothing is compiled).
+cache is full retires with reason "max_len".
+
+With `speculate=k` each iteration drafts k tokens a slot with the
+paper's truncated-SVD copy of the weights (`serving.speculative`),
+verifies them in one (b x (k+1))-row `decode_window` of the target and
+commits the accepted prefix plus one token, through the same retirement
+rules. The reference's carry-family branch (snapshot, `merge_rewind`,
+masked replay) has no family here to serve: a family whose decode state
+has a carry leaf raises. The prefix cache and meshes come with later
+slices and raise if asked for; `compile_stats` has no counterpart
+(nothing is compiled).
 
 `StreamingSpeechServer` keeps the reference's two surfaces (a
 continuous-batching fleet, and the lockstep chunk API) over one masked
@@ -39,6 +48,10 @@ from repro_torch.kernels.dispatch import resolve_policy
 from repro_torch.layers.common import ModelConfig
 from repro_torch.models import deepspeech
 from repro_torch.models.api import cast_kv_cache, get_model
+from repro_torch.serving.speculative import (RankController,
+                                             accept_longest_prefix,
+                                             accept_sampled,
+                                             make_draft_params)
 
 _INHERIT = object()   # submit(eos_id=...) sentinel: use the engine's eos_id
 
@@ -48,6 +61,7 @@ class GenerationResult:
   tokens: np.ndarray            # (b, steps); rows past their length are 0
   steps: int
   lengths: Optional[np.ndarray] = None   # (b,) generated tokens per row
+  accept_rate: Optional[float] = None    # speculative: accepted / drafted
 
 
 @dataclasses.dataclass
@@ -82,26 +96,44 @@ class _SlotState:
 
 
 #: LMEngine options of the reference that later slices port
-_LATER = {"speculate": "speculation", "draft_params": "speculation",
-          "draft_rank": "speculation", "rank_controller": "speculation",
-          "prefix_cache": "the prefix cache",
+_LATER = {"prefix_cache": "the prefix cache",
           "publish_on_retire": "the prefix cache", "mesh": "distribution"}
 
 
+def _host_probs(logits: torch.Tensor, temperature: float) -> np.ndarray:
+  """softmax(logits / temperature) on the host in float64: the
+  acceptance-side view of the distribution `_draw` samples from."""
+  x = logits.float().cpu().numpy().astype(np.float64) / temperature
+  x -= x.max(axis=-1, keepdims=True)
+  np.exp(x, out=x)
+  x /= x.sum(axis=-1, keepdims=True)
+  return x
+
+
 class LMEngine:
-  """Continuous-batching LM decode engine (vanilla decoding).
+  """Continuous-batching LM decode engine, vanilla or self-speculative.
 
   `params` is moved to `device` (default: the GPU). `kernel_policy`
   "cuda" routes every decode-regime GEMM through the CUDA kernels;
   "plain" (or None) runs plain PyTorch. Sampling at temperature > 0
   draws from `rng`, a `torch.Generator` on the engine's device (other
   bits than the reference's `jax.random`); greedy is `torch.argmax`,
-  which takes the first maximum as `jnp.argmax` does."""
+  which takes the first maximum as `jnp.argmax` does.
+
+  `speculate=k` drafts k tokens an iteration with `draft_params`
+  (default: `make_draft_params(params, rank=draft_rank)`, which shares
+  every unfactored tensor with `params`) and verifies them in one
+  window; the policy's `decode_matvec` bound widens to b * (k+1) rows
+  (at most 16). `rank_controller` walks `draft_rank` against an
+  accept-rate band, rebuilding the draft."""
 
   def __init__(self, model_cfg: ModelConfig, params: Any, *,
                batch_size: int, max_len: int, cache_dtype=None,
                rng: Optional[torch.Generator] = None, kernel_policy=None,
-               eos_id: Optional[int] = None, device=None, **later):
+               eos_id: Optional[int] = None, speculate: int = 0,
+               draft_params: Any = None, draft_rank: Optional[int] = None,
+               rank_controller: Optional[RankController] = None,
+               device=None, **later):
     for key, val in later.items():
       if key not in _LATER:
         raise TypeError(f"LMEngine got an unexpected argument {key!r}")
@@ -119,20 +151,55 @@ class LMEngine:
     self.max_len = max_len
     self.cache_dtype = cache_dtype
     self.eos_id = eos_id
-    self.kernel_policy = resolve_policy(kernel_policy, batch_size)
+    if speculate < 0:
+      raise ValueError(f"speculate must be >= 0, got {speculate}")
+    self.speculate = int(speculate)
+    self.kernel_policy = resolve_policy(kernel_policy, batch_size,
+                                        window=self.speculate + 1)
+    if self.speculate and _any_leaf(self.api.decode_state_carry(model_cfg)):
+      raise NotImplementedError(
+          f"speculative decoding of {model_cfg.name}: its decode state "
+          "has carry leaves, whose rewind (snapshot, merge_rewind, masked "
+          "replay) comes with the carry LM families (zamba, xlstm; "
+          "ROADMAP A8)")
     if rng is None:
       rng = torch.Generator(device=self.device).manual_seed(0)
     self.rng = rng
     self._rng0 = rng.get_state()
     self.state = self._init_state(batch_size)
     self.positions = np.zeros((batch_size,), np.int64)   # host-side
+    if rank_controller is not None:
+      if not self.speculate:
+        raise ValueError("rank_controller requires speculate > 0")
+      if draft_rank is None:
+        raise ValueError(
+            "rank_controller needs a starting draft_rank to walk from "
+            "(the explained-variance draft has no single rank)")
+    # the self-speculative draft: the same model, matched GEMMs factored
+    # at the draft rank, decoding against its own state
+    self.draft_params = self.draft_state = None
+    if self.speculate:
+      if draft_params is None:
+        draft_params = make_draft_params(self.params, rank=draft_rank)
+      self.draft_params = draft_params.to(self.device)
+      self.draft_state = self._init_state(batch_size)
+    self.rank_controller = rank_controller
+    self.draft_rank = draft_rank
+    self.rank_history: list = []   # (decode_steps, old_rank, new_rank)
     self._queue: collections.deque = collections.deque()
     self._slots: list = [_SlotState() for _ in range(batch_size)]
     self._finished: dict = {}
     self._next_uid = 0
+    self._reset_counters()
+
+  def _reset_counters(self) -> None:
     # occupancy accounting: busy slot-steps / slot-steps
     self.decode_steps = 0
     self.busy_slot_steps = 0
+    # speculative accounting: accept_rate = accepted / drafted
+    self.drafted_tokens = 0
+    self.accepted_tokens = 0
+    self._ctrl_step0 = self._ctrl_drafted0 = self._ctrl_accepted0 = 0
 
   def _init_state(self, batch: int) -> dict:
     state = self.api.init_decode_state(self.cfg, batch, self.max_len,
@@ -145,15 +212,26 @@ class LMEngine:
     return self.api.decode_step(self.params, state, tokens, positions,
                                 self.cfg, self.kernel_policy)
 
+  def _draft_step(self, state: dict, tokens: torch.Tensor,
+                  positions: torch.Tensor):
+    return self.api.decode_step(self.draft_params, state, tokens, positions,
+                                self.cfg, self.kernel_policy)
+
+  def _window(self, state: dict, tokens: torch.Tensor,
+              positions: torch.Tensor):
+    return self.api.decode_window(self.params, state, tokens, positions,
+                                  self.cfg, self.kernel_policy)
+
   def reset(self) -> None:
     self.state = self._init_state(self.batch)
+    if self.speculate:
+      self.draft_state = self._init_state(self.batch)
     self.positions = np.zeros((self.batch,), np.int64)
     self.rng.set_state(self._rng0)   # seeded sampling restarts with reset
     self._queue.clear()
     self._slots = [_SlotState() for _ in range(self.batch)]
     self._finished = {}
-    self.decode_steps = 0
-    self.busy_slot_steps = 0
+    self._reset_counters()
 
   # -- request lifecycle ----------------------------------------------------
 
@@ -168,9 +246,18 @@ class LMEngine:
     return sum(s.active for s in self._slots)
 
   @property
+  def accept_rate(self) -> Optional[float]:
+    """Accepted draft tokens / drafted tokens since init or reset(), or
+    None when nothing has been drafted yet ("no data", not "every draft
+    rejected")."""
+    return (self.accepted_tokens / self.drafted_tokens
+            if self.drafted_tokens else None)
+
+  @property
   def occupancy(self) -> float:
-    """Mean fraction of slots doing useful work per decode step, since
-    init or reset(); admission prefill is excluded. 0.0 before any
+    """Mean fraction of slots doing useful work per engine iteration
+    (one masked step, or one speculative draft + verify + commit round),
+    since init or reset(); admission prefill is excluded. 0.0 before any
     decoding."""
     total = self.decode_steps * self.batch
     return self.busy_slot_steps / total if total else 0.0
@@ -224,19 +311,22 @@ class LMEngine:
       return False
     return True
 
-  def _prefill_slot(self, prompt: np.ndarray) -> tuple[torch.Tensor, dict]:
+  def _prefill_slot(self, prompt: np.ndarray, step=None
+                    ) -> tuple[torch.Tensor, dict]:
     """Feed `prompt` into a fresh batch-1 state, one decode step per
-    token; returns (last logits (1, 1, v) f32, state). The reference pads
-    the prompt to a pow2 bucket (one jit program per bucket) and masks
-    the steps past its length back to the old state; eager PyTorch feeds
-    exactly the prompt's tokens, which leaves the same state."""
+    token (`step`: the target's, or the draft's); returns (last logits
+    (1, 1, v) f32, state). The reference pads the prompt to a pow2 bucket
+    (one jit program per bucket) and masks the steps past its length
+    back to the old state; eager PyTorch feeds exactly the prompt's
+    tokens, which leaves the same state."""
+    step = step or self._step
     state = self._init_state(1)
     toks = torch.as_tensor(prompt, dtype=torch.int64,
                            device=self.device).view(1, -1)
     pos = torch.arange(prompt.size, device=self.device)
     logits = None
     for t in range(prompt.size):
-      logits, state = self._step(state, toks[:, t:t + 1], pos[t:t + 1])
+      logits, state = step(state, toks[:, t:t + 1], pos[t:t + 1])
     return logits.to(torch.float32), state
 
   def _admit(self, req: Request, slot: int, temperature: float) -> None:
@@ -249,10 +339,17 @@ class LMEngine:
     self.positions[slot] = plen
     self._slots[slot] = _SlotState(req=req, remaining=req.max_new_tokens,
                                    active=True)
+    # the first token comes from the target's prefill, as in vanilla
+    # admission: the draft only ever proposes
     tok = int(self._sample(last, temperature)[0, 0])
     self._slots[slot].ttft_s = time.perf_counter() - t_admit
     if self._record_token(slot, tok, plen):
       self._slots[slot].next_tok = tok
+      if self.speculate:
+        # only a slot that survives admission drafts: the draft consumes
+        # the prompt into its own state
+        _, draft_slot = self._prefill_slot(req.prompt, self._draft_step)
+        self.api.insert_slot(self.cfg, self.draft_state, draft_slot, slot)
 
   def _admit_from_queue(self, temperature: float) -> None:
     slot = 0
@@ -282,17 +379,129 @@ class LMEngine:
           i, int(toks[i, 0]), int(self.positions[i])):
         self._slots[i].next_tok = int(toks[i, 0])
 
+  def _decode_all_speculative(self, temperature: float) -> None:
+    """One speculative iteration for every slot: draft k, verify k+1 in
+    one window, commit the accepted prefix + one token. Temperature 0
+    accepts greedily (token for token vanilla greedy); temperature > 0
+    rejection-samples against the draft distribution (`accept_sampled`).
+
+    Window layout per slot: inputs [t0, d_1..d_k] fed at positions
+    p..p+k (t0 = the committed-but-unfed token) give target distributions
+    p_1..p_{k+1}; after accepting `a` drafts the slot commits d_1..d_a
+    plus one more token and its position moves to p+a+1. KV rows past
+    the new position are dead until overwritten (the causal mask never
+    reads them), so the rejected suffix rewinds with the position alone.
+    Rows at or past max_len are dropped by the attention layer, and the
+    commit loop retires the slot at the boundary first."""
+    k = self.speculate
+    sampled = temperature > 0.0
+    active = self._active_mask()
+    pos_np = self.positions.copy()
+    pos0 = torch.as_tensor(np.where(active, self.positions, 0),
+                           device=self.device)
+
+    # draft: k proposals against the draft's own state
+    cur = torch.as_tensor(self._next_tokens(), device=self.device)
+    cols, draft_lgs = [cur], []
+    for j in range(k):
+      lg, self.draft_state = self._draft_step(self.draft_state, cur,
+                                              pos0 + j)
+      cur = self._draw(lg, temperature)
+      cols.append(cur)
+      if sampled:
+        draft_lgs.append(lg[:, -1:])
+    # one more draft step consumes d_k, so a fully accepted window leaves
+    # the draft's cache complete through p+k
+    _, self.draft_state = self._draft_step(self.draft_state, cur, pos0 + k)
+    window = torch.cat(cols, dim=1)                       # (b, k+1)
+
+    # verify: all k+1 positions in one window of the target
+    logits_w, self.state = self._window(self.state, window, pos0)
+    window_np = window.cpu().numpy()
+    if sampled:
+      q = _host_probs(torch.cat(draft_lgs, dim=1), temperature)
+      p = _host_probs(logits_w, temperature)
+      if not active.all():
+        # idle slots step garbage rows; their (discarded) acceptance
+        # math must still see finite probabilities
+        q[~active] = 1.0 / q.shape[-1]
+        p[~active] = 1.0 / p.shape[-1]
+      accept, out_toks, out_len = accept_sampled(window_np[:, 1:], q, p,
+                                                 self._host_rng())
+    else:
+      target = torch.argmax(logits_w, dim=-1).cpu().numpy()
+      accept, out_toks, out_len = accept_longest_prefix(window_np[:, 1:],
+                                                        target)
+    self.decode_steps += 1
+    self.busy_slot_steps += int(active.sum())
+
+    # commit: accepted prefix + one token, by the vanilla retirement rules
+    commit = np.ones((self.batch,), np.int64)   # window tokens consumed
+    for i in range(self.batch):
+      s = self._slots[i]
+      if not s.active:
+        continue
+      self.drafted_tokens += k
+      alive = True
+      for j in range(int(out_len[i])):
+        commit[i] = j + 1
+        alive = self._record_token(i, int(out_toks[i, j]),
+                                   int(pos_np[i]) + j + 1)
+        if not alive:
+          break                      # EOS / budget / max_len mid-window
+      if alive:
+        s.next_tok = int(out_toks[i, int(out_len[i]) - 1])
+      # realized acceptance only: drafts a mid-window retirement never
+      # emitted do not count
+      self.accepted_tokens += min(int(accept[i]), int(commit[i]))
+    self.positions = np.where(active, self.positions + commit,
+                              self.positions)
+    self._maybe_adapt_rank()
+
+  def _host_rng(self) -> np.random.Generator:
+    """One host RNG per sampled acceptance round, seeded from the
+    engine's generator: `reset()` and `run(rng=...)` reproduce the
+    rejection draws as they reproduce the sampled tokens."""
+    seed = torch.randint(0, np.iinfo(np.int32).max, (2,), generator=self.rng,
+                         device=self.rng.device)
+    return np.random.default_rng(seed.tolist())
+
+  def _maybe_adapt_rank(self) -> None:
+    """Rank-controller tick: every `interval` iterations, measure the
+    window's accept rate and apply the controller's proposal by
+    rebuilding the draft at the new rank. The draft's decode state
+    carries over (factoring weights never changes state shapes): stale
+    draft caches cost accept rate for a few iterations, never
+    correctness (the target verifies everything)."""
+    rc = self.rank_controller
+    if rc is None or self.decode_steps - self._ctrl_step0 < rc.interval:
+      return
+    d = self.drafted_tokens - self._ctrl_drafted0
+    a = self.accepted_tokens - self._ctrl_accepted0
+    new = rc.propose(self.draft_rank, a / d if d else None)
+    if new != self.draft_rank:
+      self.rank_history.append((self.decode_steps, self.draft_rank, new))
+      self.draft_rank = new
+      self.draft_params = make_draft_params(self.params, rank=new)
+    self._ctrl_step0 = self.decode_steps
+    self._ctrl_drafted0 = self.drafted_tokens
+    self._ctrl_accepted0 = self.accepted_tokens
+
   def run(self, *, temperature: float = 0.0,
           rng: Optional[torch.Generator] = None) -> list:
     """Drain the queue: admit, decode, retire, refill until idle. Returns
     the requests finished since the last call, in submission order. `rng`
-    replaces the sampling generator (temperature > 0)."""
+    replaces the sampling generator (temperature > 0; speculative
+    rejection sampling seeds its host RNG from it too)."""
     if rng is not None:
       self.rng = rng
     while self._queue or self.num_active:
       self._admit_from_queue(temperature)
       if self.num_active:
-        self._decode_all(temperature)
+        if self.speculate:
+          self._decode_all_speculative(temperature)
+        else:
+          self._decode_all(temperature)
     out = [self._finished[uid] for uid in sorted(self._finished)]
     self._finished = {}
     return out
@@ -326,8 +535,10 @@ class LMEngine:
     """Static-batch wrapper over the continuous engine: every row becomes
     a request with a `steps` token budget and no EOS exit. Rows retired
     early at the max_len boundary come back shorter; see `lengths`.
-    Accepts more rows than slots — extras queue."""
+    Accepts more rows than slots — extras queue. A speculative engine
+    reports the call's accept rate."""
     prompts = np.asarray(prompts)
+    drafted0, accepted0 = self.drafted_tokens, self.accepted_tokens
     uids = [self.submit(row, max_new_tokens=steps, eos_id=None)
             for row in prompts]
     by_uid = {f.uid: f for f in self.run(temperature=temperature, rng=rng)}
@@ -337,22 +548,35 @@ class LMEngine:
       t = by_uid[uid].tokens
       tokens[r, :t.size] = t
       lengths[r] = t.size
-    return GenerationResult(tokens=tokens, steps=steps, lengths=lengths)
+    drafted = self.drafted_tokens - drafted0
+    rate = ((self.accepted_tokens - accepted0) / drafted
+            if self.speculate and drafted else None)
+    return GenerationResult(tokens=tokens, steps=steps, lengths=lengths,
+                            accept_rate=rate)
+
+  def _draw(self, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """(b, 1) int64 tokens on the logits' device from the last position's
+    logits (no host sync)."""
+    lg = logits[:, -1].to(torch.float32)
+    if temperature <= 0.0:
+      return torch.argmax(lg, dim=-1, keepdim=True)
+    probs = torch.softmax(lg / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=self.rng)
 
   def _sample(self, logits: torch.Tensor, temperature: float) -> np.ndarray:
     """(b, 1) int tokens on the host from the last position's logits."""
-    lg = logits[:, -1].to(torch.float32)
-    if temperature <= 0.0:
-      tok = torch.argmax(lg, dim=-1)
-    else:
-      probs = torch.softmax(lg / temperature, dim=-1)
-      tok = torch.multinomial(probs, 1, generator=self.rng)[:, 0]
-    return tok.cpu().numpy().astype(np.int32)[:, None]
+    return self._draw(logits, temperature).cpu().numpy().astype(np.int32)
 
 
 # ----------------------------------------------------------------------------
 # Streaming speech.
 # ----------------------------------------------------------------------------
+
+
+def _any_leaf(tree) -> bool:
+  if isinstance(tree, dict):
+    return any(_any_leaf(v) for v in tree.values())
+  return bool(tree)
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:

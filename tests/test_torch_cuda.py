@@ -507,3 +507,71 @@ def test_training_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert float((g_g[k] - g_c[k]).norm() / g_c[k].norm()) < 1e-3, k
   for k in d_c:
     assert float((d_g[k] - d_c[k]).norm() / d_c[k].norm()) < 1e-2, k
+
+
+#: (m, r, n) of the llama3-8b draft at rank 128 that stress the fused
+#: launch most: phase 1's split-K over w_down's 14336 rows, and the
+#: factored head's 128256 columns (2004 phase-2 column tiles)
+LLAMA_DRAFT = [(14336, 128, 4096), (4096, 128, 128256)]
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("shape", LLAMA_DRAFT)
+def test_lowrank_gemm_at_llama3_8b_draft_shapes(cuda, shape, b):
+  """`lowrank_gemm` against its plain version in bf16 at the draft's
+  widest shapes, at the batch of a draft prefill (1) and of a 4-slot
+  draft step (4), within 1e-2."""
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm, lowrank_plan
+  m, r, n = shape
+  gen = torch.Generator(device=cuda).manual_seed(b)
+
+  def draw(*s, scale=1.0):
+    return (torch.randn(s, generator=gen, device=cuda) * scale).to(
+        torch.bfloat16)
+  x, u, v = draw(b, m), draw(m, r, scale=m ** -0.5), draw(r, n,
+                                                           scale=r ** -0.5)
+  got = lowrank_gemm(x, u, v)
+  torch.cuda.synchronize()
+  assert got.shape == (b, n) and got.dtype == torch.bfloat16
+  torch.testing.assert_close(got, ref.lowrank_gemm(x, u, v), rtol=1e-2,
+                             atol=1e-2)
+  p = lowrank_plan(b, m, r, n)
+  assert p.split2 == 1 and p.tiles[1] == -(-n // p.cols)
+
+
+def test_ds2_decode_window_through_kernels_matches_plain_steps(cuda):
+  """DS2's `api_decode_window` on the card under the "cuda" policy (a
+  4-frame window at 2 slots: the non-recurrent and FC GEMMs through
+  decode_matvec at 8 rows, the recurrence through gru_cell) against 4
+  `api_decode_step`s under the plain policy, in f32 within 1e-4."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.models.api import get_model
+  from repro_torch.models.deepspeech import init_model
+  cfg = configs.get_smoke("deepspeech2-wsj").with_(
+      gru_dims=(128, 128, 256), fc_dim=128, d_model=256, dtype=torch.float32)
+  api, b, w = get_model(cfg), 2, 4
+  params = init_model(cfg, generator=torch.Generator().manual_seed(0),
+                      device=cuda)
+  f = params.grus["gru0"].nonrec.in_dim
+  state = api.init_decode_state(cfg, b, device=cuda)
+  pos = torch.zeros(b, dtype=torch.int64, device=cuda)
+  for t in range(2):                            # a streaming carry
+    x = torch.from_numpy(rnd(t, (b, 1, f))).to(cuda)
+    _, state = api.decode_step(params, state, x, pos, cfg)
+  frames = torch.from_numpy(rnd(5, (b, w, f))).to(cuda)
+  ops.reset_launches()
+  got, new = api.decode_window(params, state, frames, pos, cfg,
+                               dispatch.resolve_policy("cuda", b, window=w))
+  launches = dict(ops.LAUNCHES)
+  want, want_state = api.decode_window_sequential(
+      params, state, frames, pos, cfg, dispatch.resolve_policy("plain"))
+  torch.cuda.synchronize()
+  layers = len(cfg.gru_dims)
+  assert launches == dict(launches, decode_matvec=layers + 1,
+                          gru_cell=layers * w)
+  assert not any(n for k, n in launches.items()
+                 if k not in ("decode_matvec", "gru_cell"))
+  torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+  for k in want_state:
+    torch.testing.assert_close(new[k], want_state[k], rtol=0, atol=1e-4)

@@ -28,7 +28,8 @@ def test_port_imports_neither_jax_nor_reference():
   assert {"models/ctc.py", "core/tracenorm.py", "core/svd.py",
           "core/schedule.py", "optim/adamw.py", "training/trainer.py",
           "checkpoint/manager.py", "runtime/supervisor.py",
-          "launch/train.py"} <= names
+          "launch/train.py", "serving/speculative.py",
+          "serving/engine.py", "models/api.py", "launch/serve.py"} <= names
   bad = [(f.relative_to(PORT), mod) for f in files
          for mod in _imported_modules(f)
          if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]

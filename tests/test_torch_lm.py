@@ -304,9 +304,9 @@ def test_engine_static_surface_and_limits(tparams):
   logits = eng.prefill(prompts)
   assert logits.shape == (2, 1, cfg.vocab_size)
   np.testing.assert_array_equal(eng.positions, [4, 4])
-  with pytest.raises(NotImplementedError, match="speculation"):
+  with pytest.raises(NotImplementedError, match="the prefix cache"):
     LMEngine(cfg, tparams, batch_size=2, max_len=10, device="cpu",
-             speculate=2)
+             prefix_cache=object())
 
 
 def test_quantized_engine_is_policy_invariant(tparams):

@@ -84,6 +84,37 @@ def test_truncate_leaf_matches_reference(form):
                              np.asarray(want.product()), atol=ATOL)
 
 
+@pytest.mark.parametrize("form", ["2d", "stacked"])
+@pytest.mark.parametrize("spec", [dict(fixed_rank=12), dict(fixed_rank=13),
+                                  dict(fixed_rank=99),
+                                  dict(fixed_rank=30, max_rank=20)])
+def test_truncate_leaf_fixed_rank_reads_no_singular_values(monkeypatch,
+                                                           form, spec):
+  """Under fixed_rank the rank rule reads only min(m, n): truncate_leaf
+  computes no singular values for it, and returns the rank and factors
+  that picking from the singular values gave (rounding to 8, max_rank,
+  the min(m, n) cap), equal to the reference's."""
+  shape = (40, 56) if form == "2d" else (3, 40, 56)
+  w = rnd(8, shape)
+  tspec = svd.TruncationSpec(**spec)
+  flat = t(w).reshape(-1, 40, 56)
+  want_rank = max(tspec.pick(svd._svals(m)) for m in flat)
+  want = [svd.balanced_split(m, want_rank) for m in flat]
+  jwant = jsvd.truncate_leaf(JLeaf(w=jnp.asarray(w), u=None, v=None,
+                                   name="x"), jsvd.TruncationSpec(**spec))
+
+  def no_svals(_):
+    raise AssertionError("singular values computed under fixed_rank")
+  monkeypatch.setattr(svd, "_svals", no_svals)
+  got = svd.truncate_leaf(FactoredLinear(w=t(w), name="x"), tspec)
+  assert got.rank == want_rank == jwant.rank
+  u, v = (got.u, got.v) if form == "stacked" else (got.u[None], got.v[None])
+  for i, (wu, wv) in enumerate(want):
+    assert torch.equal(u[i], wu) and torch.equal(v[i], wv)
+  np.testing.assert_allclose(got.product().numpy(),
+                             np.asarray(jwant.product()), atol=ATOL)
+
+
 def test_activation_split_matches_reference():
   w = rnd(6, (24, 30))
   x = rnd(7, (200, 24)) * np.linspace(0.1, 3, 24, dtype=np.float32)
