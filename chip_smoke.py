@@ -117,10 +117,33 @@
    weights the accept rate is near 0. A speculative engine under the
    "plain" policy launches nothing (`launches_by_path` key
    `lm_speculative`).
-8. Prints `{"kernels": [...]}` with each kernel's numbers, all measured
-   in this run but the computed bounds, then, as the last line,
-   `{"ok": true, "device": {...}}`. Any failure raises: the script exits
-   non-zero and prints no result line.
+8. The rest of the dense family at full width, after phase 6: `qwen3-4b`
+   (36 layers, qk-norm, bf16, seeded random weights) has `decode_matvec`
+   held and timed, warm and cold, at its decode step's shapes (batch 4),
+   then runs phase 4's 4096-token prefill (exactly 36 `flash_attention`
+   launches) and phase 5's serving (exactly 253 `decode_matvec` launches
+   a step) under both policies with their tolerances; `stablelm-3b` at
+   full width (head width 80) cut to `STABLELM_LAYERS` layers runs the
+   prefill through the d = 80 kernel, one launch a layer, so a decline
+   to the plain path fails the phase. Phase 2 holds the d = 80 kernel
+   at stablelm's prefill shape (timed, against SDPA) and at ragged
+   lengths in bf16 and f32, causal and not.
+9. The two-stage recipe on the transformer: first phase 6's f32 card
+   vs CPU step at the `qwen3-4b` smoke width; then `qwen3-4b` at full
+   width cut to `LM_TRAIN_LAYERS` layers (bf16, remat "full", random
+   weights from a seeded CUDA generator) trained `TRAIN_STEPS` steps of
+   `data/lm.py` batches of `LM_TRAIN_BATCH` x `LM_TRAIN_SEQ` tokens,
+   transition at `TRAIN_TRANSITION`, with phase 6's checks on losses,
+   stages and ranks; prints ms a step by stage (one step a stage under
+   `torch.profiler`, as in phase 6), the transition's ms, the ranks and
+   the parameters against the dense model. The trained model,
+   frozen, has `lowrank_gemm` held and timed at its shapes, and is served
+   as in phase 5 with every GEMM through `lowrank_gemm` (15 launches a
+   step).
+10. Prints each phase's seconds, the card line, `{"kernels": [...]}`
+   with each kernel's numbers, all measured in this run but the computed
+   bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
+   failure raises: the script exits non-zero and prints no result line.
 
 On an H100 the build takes about 30 s (nvcc, the five sources in
 parallel) and phases 2-6 about a minute and a half; phase 7's draft
@@ -187,12 +210,20 @@ LM_SERVE_ATOL = 0.25
 #: (llama3-8b's 8 kv heads, read in place), the same with repeated heads
 #: (the shape of the kernel's first version), then the reference's
 #: prefill_32k length (its plain version by row chunks)
+#: (the qwen3-4b prefill's shape is llama3-8b's), then stablelm-3b's
+#: prefill at head width 80 and ragged d = 80 cases in both types and
+#: modes
 FLASH_CASES = [(1, PREFILL_LEN, 32, 8, 128, True, torch.bfloat16, True),
                (1, PREFILL_LEN, 32, 32, 128, True, torch.bfloat16, True),
                (1, 32768, 32, 32, 128, True, torch.bfloat16, True),
                (1, 1024, 32, 32, 128, True, torch.bfloat16, True),
                (1, 1500, 12, 12, 64, False, torch.bfloat16, True),
-               (1, 512, 8, 8, 128, True, torch.float32, False)]
+               (1, 512, 8, 8, 128, True, torch.float32, False),
+               (1, PREFILL_LEN, 32, 32, 80, True, torch.bfloat16, True),
+               (1, 1000, 32, 32, 80, True, torch.bfloat16, False),
+               (1, 1500, 32, 8, 80, False, torch.bfloat16, False),
+               (1, 700, 8, 8, 80, True, torch.float32, False),
+               (1, 500, 8, 2, 80, False, torch.float32, False)]
 #: (m, n) and (m, r, n) off every tile and vector width, at RAGGED_BATCHES
 RAGGED_MATVEC = [(1000, 700), (4100, 1030), (333, 130)]
 RAGGED_LOWRANK = [(1000, 130, 700), (333, 72, 1030)]
@@ -220,6 +251,14 @@ TRAIN_LAMBDA = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_UPDATE_RTOL = 1e-2
+#: phase 9: the transformer's training batch (data/lm.py) and, at full
+#: qwen3-4b width, the depth it is cut to
+LM_TRAIN_BATCH = 4
+LM_TRAIN_SEQ = 256
+LM_TRAIN_LAYERS = 2
+#: phase 8: stablelm-3b's depth for its full-width prefill through the
+#: d = 80 flash kernel (every layer has the same shapes)
+STABLELM_LAYERS = 4
 #: phase 7: draft tokens an iteration and the draft's truncated-SVD rank
 #: (at or above the 128-lane gate, so every draft GEMM reaches
 #: lowrank_gemm)
@@ -427,25 +466,8 @@ def kernel_cases(dense, fact, quant, lm, gen):
                         exact=True, path=path,
                         yardstick=("int_mm_padded",
                                    lambda a=xq32, w=wq: torch._int_mm(a, w))))
-  # decode_matvec at the LM's decode shapes: layer 0's GEMMs (the other 31
-  # layers have the same shapes) and the head, at the engine's batch
-  b = SERVE_BATCH
-  layers = lm.dense_layers.layers()
-  n_layers = len(layers)
-  layer0 = [layers[0]["attn"][k] for k in ("wq", "wk", "wv", "wo")] + [
-      layers[0]["ffn"][k] for k in ("w_gate", "w_up", "w_down")]
-  lm_leaves = [(f"layers/{g}", leaf.w, n_layers)
-               for g, leaf in zip(LM_GEMMS, layer0)]
-  lm_leaves.append(("lm_head", lm.embedding.head.w, 1))
-  for name, w, weight in lm_leaves:
-    m, n = w.shape
-    x = randn((b, m), gen, bf16)
-    cases.append(case("decode_matvec", f"{name} {m}x{n}", b, bf16,
-                      lambda x=x, w=w: decode_matvec(x, w),
-                      lambda x=x, w=w: ref.decode_matvec(x, w),
-                      lambda x=x, w=w: torch.matmul(x, w),
-                      2 * (b * m + m * n + b * n), 2 * b * m * n,
-                      path="lm_decode", weight=weight, cold=True))
+  cases += lm_decode_cases(lm, gen, "lm_decode")
+  n_layers = lm.dense_layers.ln1.shape[0]
   # ragged shapes (not timed): every lane width, tile edge and batch tile
   for dtype in (bf16, torch.float32):
     for b in RAGGED_BATCHES:
@@ -527,7 +549,8 @@ def kernel_cases(dense, fact, quant, lm, gen):
         F.scaled_dot_product_attention(*a, is_causal=c, enable_gqa=g),
         2 * b * s * (h + h_kv) * d * size if timed else 0,
         4 * b * h * d * pairs,
-        path="lm_prefill" if s == PREFILL_LEN and h_kv < h else None,
+        path=("lm_prefill" if s == PREFILL_LEN and h_kv < h else
+              "stablelm_prefill" if s == PREFILL_LEN and d == 80 else None),
         weight=n_layers, reps=5 if long else 20))
   # f32 once per GEMM kernel: the kernels take f32 as well as bf16
   f32 = torch.float32
@@ -543,6 +566,32 @@ def kernel_cases(dense, fact, quant, lm, gen):
       case("gru_cell", "f32 768x2304", 4, f32, lambda: gru_cell(*g),
            lambda: ref.gru_cell(*g), stable=True),
   ]
+  return cases
+
+
+def lm_decode_cases(lm, gen, path: str, prefix: str = "") -> list[dict]:
+  """decode_matvec at an LM's decode-step shapes: layer 0's GEMMs (the
+  other layers' have the same shapes) and the head, at the engine's
+  batch, warm and cold; `weight` is each shape's launches a step."""
+  from repro_torch.kernels import ref
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  b, bf16 = SERVE_BATCH, torch.bfloat16
+  layers = lm.dense_layers.layers()
+  layer0 = [layers[0]["attn"][k] for k in ("wq", "wk", "wv", "wo")] + [
+      layers[0]["ffn"][k] for k in ("w_gate", "w_up", "w_down")]
+  lm_leaves = [(f"layers/{g}", leaf.w, len(layers))
+               for g, leaf in zip(LM_GEMMS, layer0)]
+  lm_leaves.append(("lm_head", lm.embedding.head.w, 1))
+  cases = []
+  for name, w, weight in lm_leaves:
+    m, n = w.shape
+    x = randn((b, m), gen, bf16)
+    cases.append(case("decode_matvec", f"{prefix}{name} {m}x{n}", b, bf16,
+                      lambda x=x, w=w: decode_matvec(x, w),
+                      lambda x=x, w=w: ref.decode_matvec(x, w),
+                      lambda x=x, w=w: torch.matmul(x, w),
+                      2 * (b * m + m * n + b * n), 2 * b * m * n,
+                      path=path, weight=weight, cold=True))
   return cases
 
 
@@ -831,7 +880,8 @@ def check_prefill(lm, cfg, card) -> dict:
     fail(f"prefill: greedy tokens {tok_k} != {tok_p} at a top-2 gap of "
          f"{gap:.3g}")
   print(json.dumps(dict(
-      prefill=cfg.name, card=card, tokens=PREFILL_LEN, launches=launches,
+      prefill=cfg.name, card=card, layers=cfg.num_layers,
+      head_dim=cfg.resolved_head_dim, tokens=PREFILL_LEN, launches=launches,
       cuda_prefill_s=dt_k, cuda_prefill_tokens_per_s=PREFILL_LEN / dt_k,
       plain_prefill_s=dt_p, plain_prefill_tokens_per_s=PREFILL_LEN / dt_p,
       max_logprob_diff=diff, plain_top2_gap=gap, greedy_cuda=tok_k,
@@ -944,10 +994,13 @@ def time_layer_views(lm, cfg, reps: int = 10) -> dict:
   return {f"{k}_ms": statistics.median(v) for k, v in out.items()}
 
 
-def check_lm_serving(lm, cfg, card) -> dict:
+def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec") -> dict:
   """Correctness: a recorded plain run, and a recorded kernel run fed the
   plain run's tokens, compared call by call. Throughput: one run of each
-  policy with no hooks. Returns the hook-free kernel run's launches."""
+  policy with no hooks. Every GEMM of the kernel runs must route to
+  `kernel` (`decode_matvec` for unfactored weights, `lowrank_gemm` for a
+  stage-2 model), num_layers x 7 + 1 launches a step. Returns the
+  hook-free kernel run's launches."""
   reqs = lm_requests(cfg)
   eng_k, eng_p = lm_engine(lm, cfg, "cuda"), lm_engine(lm, cfg, "plain")
   calls_p, sampled_p, plain_launches, plain_routes = recorded_run(eng_p, reqs)
@@ -956,13 +1009,13 @@ def check_lm_serving(lm, cfg, card) -> dict:
   fin_k, dt_k, launches = timed_run(eng_k, reqs)
   fin_p, dt_p, plain_launches_t = timed_run(eng_p, reqs)
   names = {f"layers/{g}" for g in LM_GEMMS} | {"lm_head"}
-  if routes != {(n, "decode_matvec") for n in names}:
+  if routes != {(n, kernel) for n in names}:
     fail(f"LM serving: routing {sorted(routes)}")
   if plain_routes != {(n, "jnp") for n in names}:
     fail(f"LM serving: plain routing {sorted(plain_routes)}")
   per_step = cfg.num_layers * len(LM_GEMMS) + 1
   for what, got in (("recorded", forced_launches), ("timed", launches)):
-    want = {k: per_step * len(calls_p) if k == "decode_matvec" else 0
+    want = {k: per_step * len(calls_p) if k == kernel else 0
             for k in got}
     if got != want:
       fail(f"LM serving ({what}): launches {got} != {want} "
@@ -974,7 +1027,7 @@ def check_lm_serving(lm, cfg, card) -> dict:
   # argmax may differ only at a near-tie of the plain run
   if len(calls_k) != len(calls_p):
     fail(f"LM serving: {len(calls_k)} vs {len(calls_p)} calls")
-  max_diff, flips = 0.0, 0
+  max_diff, flips, flip_gap = 0.0, 0, 0.0
   for i, ((tk, pk, lk), (tp, pp, lp)) in enumerate(zip(calls_k, calls_p)):
     if not (torch.equal(tk, tp) and torch.equal(pk, pp)):
       fail(f"LM serving: call {i} was fed other tokens or positions")
@@ -995,6 +1048,7 @@ def check_lm_serving(lm, cfg, card) -> dict:
         fail(f"LM serving: argmax differs at call {i} at a top-2 gap of "
              f"{gap:.3g}")
       flips += int(flip.sum())
+      flip_gap = max(flip_gap, gap)
   toks_k = {f.uid: f.tokens.tolist() for f in fin_k}
   toks_p = {f.uid: f.tokens.tolist() for f in fin_p}
   if len(fin_k) != len(reqs) or sorted(toks_k) != sorted(toks_p):
@@ -1014,7 +1068,7 @@ def check_lm_serving(lm, cfg, card) -> dict:
       cuda_ttft_p50_ms=ttft_p50(fin_k), plain_tokens=n_p,
       plain_tok_per_s=n_p / dt_p, plain_ttft_p50_ms=ttft_p50(fin_p),
       max_logprob_diff=max_diff, argmax_flips=flips,
-      tokens_equal=f"{same}/{len(toks_k)}",
+      flip_max_top2_gap=flip_gap, tokens_equal=f"{same}/{len(toks_k)}",
       **time_layer_views(lm, cfg))), flush=True)
   return launches
 
@@ -1309,10 +1363,10 @@ def check_lm_speculative(lm, cfg, card) -> tuple[dict, list[dict], dict]:
 # Phase 6: training — the two-stage recipe at full width, then served.
 # ---------------------------------------------------------------------------
 
-def make_trainer(cfg, device, ckpt_dir, lr=None):
+def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None):
   """`launch/train.py`'s trainer: two stages (trace norm, transition at
   TRAIN_TRANSITION), its plan, cosine LR (or a constant `lr`), random
-  weights from seed 0."""
+  weights from seed 0 (a CPU generator's, unless `generator`)."""
   from repro_torch.core.compress import FactorizationPlan
   from repro_torch.core.schedule import TwoStageSchedule, cosine_schedule
   from repro_torch.core.svd import TruncationSpec
@@ -1329,10 +1383,18 @@ def make_trainer(cfg, device, ckpt_dir, lr=None):
                                   async_checkpoint=False),
                  schedule=sched,
                  plan=FactorizationPlan(min_dim=32, exclude=("*embed*",)),
-                 generator=torch.Generator().manual_seed(0), device=device)
+                 generator=generator or torch.Generator().manual_seed(0),
+                 device=device)
 
 
 def train_batch(cfg, step: int) -> dict:
+  """Step `step`'s batch of the synthetic speech (TRAIN_BATCH
+  utterances) or LM stream (LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens)."""
+  if cfg.family == "transformer":
+    from repro_torch.data import lm as lm_data
+    return lm_data.batch_at(lm_data.LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+        global_batch=LM_TRAIN_BATCH), step)
   from repro_torch.data.speech import SpeechDataConfig, batch_at
   return batch_at(SpeechDataConfig(vocab_size=cfg.vocab_size,
                                    feat_dim=cfg.feat_dim,
@@ -1343,13 +1405,13 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
   return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def check_training_card_vs_cpu(card) -> dict:
-  """One f32 stage-1 step at the smoke width on the CPU and on the card,
-  the card's trainer restored from the CPU trainer's step-0 checkpoint
-  (each device's own stage-1 SVD would pick other signs)."""
+def check_training_card_vs_cpu(card, arch: str = "deepspeech2-wsj") -> dict:
+  """One f32 stage-1 step at `arch`'s smoke width on the CPU and on the
+  card, the card's trainer restored from the CPU trainer's step-0
+  checkpoint (each device's own stage-1 SVD would pick other signs)."""
   from repro_torch import configs
-  cfg = configs.get_smoke("deepspeech2-wsj").with_(dtype=torch.float32)
-  ckpt = ROOT / "build" / "train_smoke_ckpt"
+  cfg = configs.get_smoke(arch).with_(dtype=torch.float32)
+  ckpt = ROOT / "build" / f"train_smoke_ckpt_{arch}"
   shutil.rmtree(ckpt, ignore_errors=True)
   batch = train_batch(cfg, 0)
   runs = []
@@ -1370,7 +1432,8 @@ def check_training_card_vs_cpu(card) -> dict:
   loss_rel = abs(l_g - l_c) / abs(l_c)
   grad_rel = max(_rel(g_g[k], g_c[k]) for k in g_c)
   update_rel = max(_rel(d_g[k], d_c[k]) for k in d_c)
-  out = dict(train_card_vs_cpu=cfg.name, card=card, batch=TRAIN_BATCH,
+  out = dict(train_card_vs_cpu=cfg.name, card=card,
+             batch={k: list(np.shape(v)) for k, v in batch.items()},
              loss_cpu=l_c, loss_cuda=l_g, loss_rel=loss_rel,
              max_grad_rel=grad_rel, max_update_rel=update_rel)
   print(json.dumps(out), flush=True)
@@ -1545,6 +1608,169 @@ def check_training(cfg, card) -> tuple[dict, list[dict], dict]:
   return launches, rows, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the rest of the dense family at full width — qwen3-4b served,
+# stablelm-3b's prefill through the d = 80 flash kernel.
+# ---------------------------------------------------------------------------
+
+def check_dense_family(card) -> tuple[dict, list[dict]]:
+  """qwen3-4b (all 36 layers, qk-norm): decode_matvec held and timed at
+  its decode step's shapes, the 4096-token prefill under both policies
+  (36 flash routes) and LMEngine's 8 requests (253 launches a step);
+  then stablelm-3b at full width, STABLELM_LAYERS layers, its prefill
+  through the d = 80 kernel (one flash route a layer). Returns (launches
+  by path, kernel rows)."""
+  from repro_torch import configs
+  by_path = {}
+  qcfg = configs.get_config("qwen3-4b")
+  lm = build_lm(qcfg)
+  rows = check_cases(lm_decode_cases(lm, torch.Generator().manual_seed(5),
+                                     "qwen3_decode", prefix="qwen3-4b "))
+  by_path["qwen3_prefill"] = check_prefill(lm, qcfg, card)
+  by_path["qwen3_serving"] = check_lm_serving(lm, qcfg, card)
+  del lm
+  gc.collect()
+  torch.cuda.empty_cache()
+  scfg = configs.get_config("stablelm-3b").with_(num_layers=STABLELM_LAYERS)
+  if scfg.resolved_head_dim != 80:
+    fail(f"stablelm-3b: head width {scfg.resolved_head_dim}")
+  lm = build_lm(scfg)
+  by_path["stablelm_prefill"] = check_prefill(lm, scfg, card)
+  del lm
+  gc.collect()
+  torch.cuda.empty_cache()
+  return by_path, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the two-stage recipe on the transformer — qwen3-4b at full
+# width, depth cut, trained and then served through lowrank_gemm.
+# ---------------------------------------------------------------------------
+
+def dense_param_count(model) -> int:
+  """Parameters of `model` with every factored GEMM counted unfactored."""
+  from repro_torch.core.factored import count_params, iter_factored_leaves
+  total = count_params(model)
+  for leaf in iter_factored_leaves(model):
+    if leaf.is_factored:
+      total += math.prod(leaf.u.shape[:-1]) * leaf.v.shape[-1] - \
+          leaf.num_params
+  return total
+
+
+def lm_trained_cases(fact, gen) -> list[dict]:
+  """lowrank_gemm at the trained model's decode-step shapes (layer 0 of
+  each stacked leaf and the head, batch SERVE_BATCH), timed against two
+  `torch.matmul` calls and the bound; `weight` is each shape's launches
+  a step."""
+  from repro_torch.kernels import ref
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  b, bf16 = SERVE_BATCH, torch.bfloat16
+  stack = fact.dense_layers
+  n_layers = stack.ln1.shape[0]
+  leaves = [(f"layers/{g}", leaf, n_layers) for g, leaf in zip(
+      LM_GEMMS, [getattr(stack.attn, k) for k in ("wq", "wk", "wv", "wo")] +
+      [getattr(stack.ffn, k) for k in ("w_gate", "w_up", "w_down")])]
+  leaves.append(("lm_head", fact.embedding.head, 1))
+  cases = []
+  for name, leaf, weight in leaves:
+    u, v = (leaf.u[0], leaf.v[0]) if leaf.u.ndim == 3 else (leaf.u, leaf.v)
+    (m, r), n = u.shape, v.shape[1]
+    x = randn((b, m), gen, bf16)
+    cases.append(case("lowrank_gemm", f"trained qwen3-4b {name} {m}x{r}x{n}",
+                      b, bf16, lambda a=(x, u, v): lowrank_gemm(*a),
+                      lambda a=(x, u, v): ref.lowrank_gemm(*a),
+                      lambda x=x, u=u, v=v: torch.matmul(torch.matmul(x, u),
+                                                         v),
+                      2 * (b * m + m * r + r * n + b * n), 2 * b * r * (m + n),
+                      path="qwen3_trained", weight=weight, cold=True))
+  return cases
+
+
+def check_lm_training(card) -> tuple[dict, list[dict], dict]:
+  """Full-width qwen3-4b cut to LM_TRAIN_LAYERS layers, bf16, trained
+  TRAIN_STEPS steps of `data/lm.py` batches through both stages
+  (transition at TRAIN_TRANSITION), then frozen and served through
+  LMEngine: lowrank_gemm held at its trained shapes, every GEMM of the
+  "cuda" run through it. Returns (the serving run's launches, the kernel
+  rows, the training summary)."""
+  from repro_torch import configs
+  from repro_torch.core.factored import count_params, frozen, \
+      iter_factored_leaves
+  cfg = configs.get_config("qwen3-4b").with_(num_layers=LM_TRAIN_LAYERS)
+  ckpt = ROOT / "build" / "lm_train_ckpt"
+  shutil.rmtree(ckpt, ignore_errors=True)
+  t0 = time.perf_counter()
+  tr = make_trainer(cfg, "cuda", ckpt,
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  dense_params = dense_param_count(tr.params)
+  steps, profiles = [], {}
+  for i in range(TRAIN_STEPS):
+    batch = train_batch(cfg, i)
+    if i == TRAIN_TRANSITION:
+      params_before = count_params(tr.params)
+    t0 = time.perf_counter()
+    if i in (1, TRAIN_TRANSITION + 1):      # one profiled step a stage
+      profiles[f"stage{tr.stage}"] = profile_step(
+          lambda b=batch: steps.append(tr.train_step(b)), f"lm_train_step{i}")
+    else:
+      steps.append(tr.train_step(batch))
+    steps[-1]["call_s"] = time.perf_counter() - t0
+  params_after = count_params(tr.params)
+  losses = [m["loss"] for m in steps]
+  if not all(math.isfinite(x) for x in losses):
+    fail(f"LM training: non-finite loss {losses}")
+  stages = [m["stage"] for m in steps]
+  if stages != [1] * TRAIN_TRANSITION + [2] * (TRAIN_STEPS - TRAIN_TRANSITION):
+    fail(f"LM training: stages {stages}")
+  if not params_after < params_before:
+    fail(f"LM training: {params_after} params after the transition, "
+         f"{params_before} before")
+  ranks = {}
+  for leaf in iter_factored_leaves(tr.params):
+    if not leaf.is_factored or leaf.rank % 8 or \
+        leaf.rank > min(leaf.in_dim, leaf.out_dim):
+      fail(f"LM training: leaf {leaf.name} rank "
+           f"{leaf.rank if leaf.is_factored else None}")
+    ranks[leaf.name] = leaf.rank
+  # each stage's median leaves out its first step (warm-up, new shapes)
+  # and its profiled one
+  median_ms = {f"stage{s}": statistics.median(
+      m["wall_s"] * 1e3 for i, m in enumerate(steps)
+      if m["stage"] == s and i not in (0, 1, TRAIN_TRANSITION,
+                                       TRAIN_TRANSITION + 1))
+      for s in (1, 2)}
+  for s, prof in profiles.items():     # idle share of an unprofiled step
+    prof["device_idle_share"] = 1.0 - prof["device_kernel_ms"] / median_ms[s]
+  transition_ms = (steps[TRAIN_TRANSITION]["call_s"]
+                   - steps[TRAIN_TRANSITION]["wall_s"]) * 1e3
+  summary = dict(
+      train=cfg.name, card=card, layers=cfg.num_layers,
+      batch=[LM_TRAIN_BATCH, LM_TRAIN_SEQ], remat=cfg.remat,
+      steps=TRAIN_STEPS, transition_step=TRAIN_TRANSITION, init_s=init_s,
+      losses=losses, xent=[m["xent"] for m in steps], stages=stages,
+      wall_ms=[m["wall_s"] * 1e3 for m in steps],
+      median_step_ms=median_ms, transition_ms=transition_ms,
+      dense_params=dense_params, stage1_params=params_before,
+      stage2_params=params_after,
+      stage2_over_dense=params_after / dense_params, ranks=ranks,
+      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+      profiles=profiles)
+  print(json.dumps(summary), flush=True)
+  fact = frozen(copy.deepcopy(tr.params))
+  del tr
+  gc.collect()
+  torch.cuda.empty_cache()
+  rows = check_cases(lm_trained_cases(fact, torch.Generator().manual_seed(6)))
+  launches = check_lm_serving(fact, cfg, card, kernel="lowrank_gemm")
+  del fact
+  gc.collect()
+  torch.cuda.empty_cache()
+  return launches, rows, summary
+
+
 def _sums(rows: list[dict]) -> dict:
   """Per-step sums of timed rows, each row counted `weight` times (and
   the cold times' sums where every row has them)."""
@@ -1614,6 +1840,8 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
       mha = [r for r in mine if r["shape"] == f"causal (1, {PREFILL_LEN}, "
              "32, 128)"]
       entry["repeated_heads_ms"] = mha[0]["kernel_ms"]
+      entry["stablelm_3b_prefill_call"] = _sums(
+          [dict(r, weight=1) for r in mine if r["path"] == "stablelm_prefill"])
     else:
       entry["ms_by_batch"] = ds2_step_ms_by_batch(rows, name)
       for y in sorted({r["yardstick"] for r in mine if "yardstick" in r}):
@@ -1622,7 +1850,9 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
     for path, key in (("lm_decode", "llama3_8b_decode_step"),
                       ("lm_draft", "llama3_8b_draft_step"),
                       ("lm_draft_prefill", "llama3_8b_draft_prefill_token"),
-                      ("lm_verify", "llama3_8b_verify_window")):
+                      ("lm_verify", "llama3_8b_verify_window"),
+                      ("qwen3_decode", "qwen3_4b_decode_step"),
+                      ("qwen3_trained", "qwen3_4b_trained_step")):
       on_path = [r for r in mine if r["path"] == path]
       if on_path:
         entry[key] = _sums(on_path)
@@ -1692,6 +1922,20 @@ def main() -> int:
   by_path["ds2_trained"], trained_rows, _ = check_training(cfg, card)
   rows += trained_rows
   phases["6_training"] = time.perf_counter() - t0
+  del forms
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  dense_paths, dense_rows = check_dense_family(card)
+  by_path.update(dense_paths)
+  rows += dense_rows
+  phases["8_dense_family"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  check_training_card_vs_cpu(card, "qwen3-4b")
+  by_path["qwen3_trained_serving"], lm_trained_rows, _ = check_lm_training(
+      card)
+  rows += lm_trained_rows
+  phases["9_lm_training"] = time.perf_counter() - t0
   launches = {k: sum(n[k] for n in by_path.values()) for k in KERNELS}
   if not all(n > 0 for n in launches.values()):
     fail(f"a kernel never launched on the main paths: {launches}")

@@ -8,7 +8,8 @@ checkpoint path strings (`repro.checkpoint.manager`):
   transformer: "embedding/table", "embedding/head/w", "final_norm",
                "dense_layers/ln1", "dense_layers/attn/wq/w",
                "dense_layers/ffn/w_gate/w", ... (layer-stacked, as the
-               reference stores them)
+               reference stores them), with qk-norm (qwen3) also
+               "dense_layers/attn/q_norm" and ".../k_norm"
 The leaf type comes from the field names (w -> dense, u/v -> factored,
 w_q/u_q/... -> quantized); `name` and `group` are rebuilt from the path
 as the model's init sets them. Conv weights stay HWIO, the reference's
@@ -120,8 +121,10 @@ def _transformer(a: _Arrays, cfg: ModelConfig) -> TransformerLM:
   head = None if cfg.tie_embeddings else gemm_leaf("embedding/head",
                                                    "lm_head")
   p = "dense_layers"
+  norms = ({k: a.pop(f"{p}/attn/{k}") for k in ("q_norm", "k_norm")}
+           if cfg.qk_norm else {})
   attn = Attention(*(gemm_leaf(f"{p}/attn/w{x}", f"layers/attn_{x}")
-                     for x in "qkvo"))
+                     for x in "qkvo"), **norms)
   ffn = SwiGLU(*(gemm_leaf(f"{p}/ffn/w_{x}", f"layers/ffn_{x}")
                  for x in ("gate", "up", "down")))
   layers = LayerStack(a.pop(f"{p}/ln1"), a.pop(f"{p}/ln2"), attn, ffn)

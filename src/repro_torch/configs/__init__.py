@@ -1,16 +1,23 @@
-"""Architecture registry of the port (deepspeech2-wsj and llama3-8b).
+"""Architecture registry of the port: the paper's deepspeech2-wsj and
+the dense transformers (chameleon-34b, llama3-8b, glm4-9b, stablelm-3b,
+qwen3-4b), in the reference's order.
 
   get_config(name)  — full config
   get_smoke(name)   — reduced same-family config (CPU-runnable)
 """
 from __future__ import annotations
 
-from repro_torch.configs import deepspeech2_wsj, llama3_8b
+from repro_torch.configs import (chameleon_34b, deepspeech2_wsj, glm4_9b,
+                                 llama3_8b, qwen3_4b, stablelm_3b)
 from repro_torch.layers.common import ModelConfig
 
 _MODULES = {
-    "deepspeech2-wsj": deepspeech2_wsj,
+    "chameleon-34b": chameleon_34b,
     "llama3-8b": llama3_8b,
+    "glm4-9b": glm4_9b,
+    "stablelm-3b": stablelm_3b,
+    "qwen3-4b": qwen3_4b,
+    "deepspeech2-wsj": deepspeech2_wsj,
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -50,13 +50,17 @@ class FactoredLinear(nn.Module):
   def __init__(self, w: Optional[torch.Tensor] = None,
                u: Optional[torch.Tensor] = None,
                v: Optional[torch.Tensor] = None, *, name: str = "gemm",
-               group: str = "nonrec"):
+               group: str = "nonrec", view: bool = False):
     super().__init__()
     if (w is None) == (u is None) or (u is None) != (v is None):
       raise ValueError("FactoredLinear holds either w, or both u and v")
-    self.w = _param(w)
-    self.u = _param(u)
-    self.v = _param(v)
+    # a view (`layer`) keeps its tensors as they are, plain attributes:
+    # a Parameter made of a slice would cut it from the stacked leaf's
+    # autograd graph
+    wrap = (lambda t: t) if view else _param
+    self.w = wrap(w)
+    self.u = wrap(u)
+    self.v = wrap(v)
     self.name = name
     self.group = group
 
@@ -120,11 +124,14 @@ class FactoredLinear(nn.Module):
     return self.apply(x)
 
   def layer(self, i: int) -> "FactoredLinear":
-    """Layer i of a layer-stacked leaf, as a 2-D leaf sharing storage."""
+    """Layer i of a layer-stacked leaf, as a 2-D leaf sharing storage: a
+    view whose tensors are the stack's slices, so gradients reach the
+    stacked parameters through it."""
     if self.is_factored:
       return FactoredLinear(u=self.u[i], v=self.v[i], name=self.name,
-                            group=self.group)
-    return FactoredLinear(w=self.w[i], name=self.name, group=self.group)
+                            group=self.group, view=True)
+    return FactoredLinear(w=self.w[i], name=self.name, group=self.group,
+                          view=True)
 
 
 # ----------------------------------------------------------------------------

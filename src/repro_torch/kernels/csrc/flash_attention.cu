@@ -35,18 +35,26 @@
 //     next stage's 64 KB are in flight. K of a tile arrives (and S starts)
 //     before its V. setmaxnreg moves registers from the producer (24 a
 //     thread) to the consumers (240), whose S and O accumulators take 128.
-//   * Layout: (b, s, h, d) is read in place through 3-D tensor maps
-//     (h*d, s, b), one box a (64 columns = 128 bytes, 128 rows, 1 batch)
-//     panel at the head's column offset, with 128-byte swizzle: no
-//     transpose, and rows past s (ragged tiles) are zero-filled by TMA.
-//     The maps are encoded on the host (cuTensorMapEncodeTiled, libcuda)
-//     and passed as __grid_constant__ parameters.
+//   * Layout: (b, s, h, d) is read in place through 4-D tensor maps
+//     (d, h, s, b), one box a (64 columns = 128 bytes, 1 head, 128 rows,
+//     1 batch) panel at a column offset inside the head, with 128-byte
+//     swizzle: no transpose, and rows past s (ragged tiles) and columns
+//     past d are zero-filled by TMA. The head is a dimension of its own so
+//     that a head width off the 64-column panel (stablelm's d = 80) reads
+//     zeros past its last column, not the next head's: a d = 80 head is
+//     staged as two panels, columns 80..127 zero. The maps are encoded on
+//     the host (cuTensorMapEncodeTiled, libcuda) and passed as
+//     __grid_constant__ parameters.
 //   * Products: S = Q K^T is wgmma.mma_async m64n128k16 (bf16 in, f32
 //     sums) with A (Q) and B (K) both K-major in swizzled shared memory;
 //     the S accumulator is re-packed in registers to bf16 A fragments of P
 //     (its layout per 8 columns is that of mma.sync), and O += P V is
 //     wgmma with A from registers and V as an MN-major B (transpose bit).
 //     P is rounded to bf16 for that product (l sums the f32 values).
+//     Q K^T takes d/16 k-steps (5 at d = 80: the zero columns are
+//     skipped); P V runs at the panels' width (N = 128 at d = 80, the
+//     zero columns of V giving zero columns of O), and the store writes
+//     the d columns of each head.
 //   * Softmax in base 2 (scores pre-multiplied by log2(e)/sqrt(d),
 //     exp2f), as before. The causal and ragged mask is evaluated only on
 //     the tiles that need it (the diagonal one and a ragged last one).
@@ -62,6 +70,8 @@
 // f32 (the tests' exact checks): CUDA cores, a 16 x 16 thread grid with a
 // 4 x 4 score tile each, tiles staged as f32 in shared memory (113 KB at
 // d = 128), 64-row q and kv tiles.
+//
+// Head widths: 64, 80 (stablelm-3b) and 128, both types.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,10 +106,12 @@ constexpr int kPanel = 64;     // bf16 columns of one 128-byte swizzled panel
 
 // Shared memory, in bytes from a 1024-byte aligned base (128-byte swizzle
 // atoms are 8 rows x 128 bytes): Q, then the K stages, then the V stages,
-// each a run of d/64 panels of (rows x 128 bytes); then the mbarriers.
+// each a run of ceil(d/64) panels of (rows x 128 bytes); then the
+// mbarriers.
 template <int D>
 struct Layout {
-  static constexpr int kPanels = D / kPanel;
+  static constexpr int kPanels = (D + kPanel - 1) / kPanel;
+  static constexpr int kWidth = kPanels * kPanel;  // P V's N: d padded to panels
   static constexpr int kPanelQ = kBQ * 128;
   static constexpr int kPanelKV = kBK * 128;
   static constexpr int kQBytes = kPanels * kPanelQ;
@@ -155,13 +167,13 @@ __device__ __forceinline__ uint32_t bar_empty(uint32_t bar_q, int st) {
   return bar_q + 8u * (1 + 2 * kStages + st);
 }
 
-// one box of a 3-D tensor map into shared memory, completion on `bar`
+// one box of a 4-D tensor map into shared memory, completion on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -315,14 +327,15 @@ __device__ __forceinline__ void consume(uint32_t sq, uint32_t sk, uint32_t sv, u
                                         int bi, int q0, int n_tiles, int causal,
                                         float scale_log2) {
   using L = Layout<D>;
+  constexpr int kN = L::kWidth;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
   const int wg_row0 = q0 + 64 * wg;
   const int row_a = wg_row0 + 16 * (warp % 4) + g, row_b = row_a + 8;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 2];
+  float acc[kN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_q, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -389,7 +402,7 @@ __device__ __forceinline__ void consume(uint32_t sq, uint32_t sk, uint32_t sv, u
       pf[tt][3] = pack_floats(sc[8 * tt + 6], sc[8 * tt + 7]);
     }
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+    for (int j = 0; j < kN / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
 
     // O += P V: V (kv rows x d) is an MN-major B; a k-step is 16 kv rows
     // (2 KB) further, the d panels are kPanelKV apart (the leading offset)
@@ -399,7 +412,7 @@ __device__ __forceinline__ void consume(uint32_t sq, uint32_t sk, uint32_t sv, u
 #pragma unroll
     for (int tt = 0; tt < kBK / 16; ++tt) {
       const uint32_t b = sv + st * L::kKVBytes + tt * 16 * 128;
-      Wgmma<D>::rs(acc, pf[tt], desc(b, L::kPanelKV, 1024), 1);
+      Wgmma<kN>::rs(acc, pf[tt], desc(b, L::kPanelKV, 1024), 1);
     }
     wg_commit();
     wg_wait_all();
@@ -466,18 +479,18 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect_tx(bar_q, L::kQBytes);
       for (int p = 0; p < L::kPanels; ++p)
-        tma_load(sq + p * L::kPanelQ, &map_q, bar_q, hi * D + p * kPanel, q0, bi);
+        tma_load(sq + p * L::kPanelQ, &map_q, bar_q, p * kPanel, hi, q0, bi);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
         mbar_wait(bar_empty(bar_q, st), ((i / kStages) & 1) ^ 1);  // passes at once on the first round
         mbar_expect_tx(bar_full_k(bar_q, st), L::kKVBytes);
         for (int p = 0; p < L::kPanels; ++p)
           tma_load(sk + st * L::kKVBytes + p * L::kPanelKV, &map_k, bar_full_k(bar_q, st),
-                   hk * D + p * kPanel, i * kBK, bi);
+                   p * kPanel, hk, i * kBK, bi);
         mbar_expect_tx(bar_full_v(bar_q, st), L::kKVBytes);
         for (int p = 0; p < L::kPanels; ++p)
           tma_load(sv + st * L::kKVBytes + p * L::kPanelKV, &map_v, bar_full_v(bar_q, st),
-                   hk * D + p * kPanel, i * kBK, bi);
+                   p * kPanel, hk, i * kBK, bi);
       }
     }
   } else {
@@ -486,15 +499,16 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// A 3-D tensor map over (b, s, heads, D) bf16 as (heads*D, s, b), one box
-// a (64 columns, `rows` rows, 1 batch) panel with 128-byte swizzle; rows
-// past s are zero-filled on load.
+// A 4-D tensor map over (b, s, heads, D) bf16 as (D, heads, s, b), one box
+// a (64 columns, 1 head, `rows` rows, 1 batch) panel with 128-byte
+// swizzle; columns past D and rows past s are zero-filled on load.
 bool encode_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)heads * d, (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[2] = {(cuuint64_t)heads * d * 2, (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)rows, 1u};
-  const cuuint32_t elem[3] = {1u, 1u, 1u};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1u, (cuuint32_t)rows, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -503,7 +517,7 @@ bool encode_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int s, int h,
                    int h_kv, int causal, cudaStream_t stream) {
-  // TMA wants 16-byte aligned bases (row pitches h*d*2 are multiples of 128)
+  // TMA wants 16-byte aligned bases (head pitches d*2 are multiples of 16)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return cudaErrorMisalignedAddress;
@@ -680,10 +694,12 @@ extern "C" int rk_flash_attention(const void* q, const void* k, const void* v, v
     if ((long long)b * h > 0x7fffffff || (s + tma::kBQ - 1) / tma::kBQ > 65535)
       return cudaErrorInvalidValue;
     if (d == 64) return tma::launch<64>(q, k, v, o, b, s, h, h_kv, causal, st);
+    if (d == 80) return tma::launch<80>(q, k, v, o, b, s, h, h_kv, causal, st);
     if (d == 128) return tma::launch<128>(q, k, v, o, b, s, h, h_kv, causal, st);
   } else if (dtype == rk::kF32) {
     if (b * h > 65535) return cudaErrorInvalidValue;
     if (d == 64) return launch_simt<64>(q, k, v, o, b, s, h, h_kv, causal, st);
+    if (d == 80) return launch_simt<80>(q, k, v, o, b, s, h, h_kv, causal, st);
     if (d == 128) return launch_simt<128>(q, k, v, o, b, s, h, h_kv, causal, st);
   }
   return cudaErrorInvalidValue;

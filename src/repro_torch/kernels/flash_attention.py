@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head widths the kernel is instantiated for
-HEAD_DIMS = (64, 128)
+#: head widths the kernel is instantiated for (80: stablelm-3b)
+HEAD_DIMS = (64, 80, 128)
 
 
 def flash_supported(q: torch.Tensor, k: torch.Tensor,

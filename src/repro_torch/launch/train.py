@@ -1,9 +1,11 @@
-"""Training entry point of the port: the deepspeech branch of
-`repro.launch.train`, with its flags (but `--seq`, which only LM
-training reads: ROADMAP A8) and `--device`.
+"""Training entry point of the port: the deepspeech and dense
+transformer branches of `repro.launch.train`, with its flags and
+`--device` (Whisper's branch comes with Whisper).
 
 Examples (on a machine with a GPU; `--device cpu` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepspeech2-wsj \
+      --device cpu --steps 6 --two-stage --transition 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepspeech2-wsj \
       --full --steps 8 --batch 16 --two-stage --transition 4
@@ -20,6 +22,7 @@ from repro_torch.core.compress import FactorizationPlan
 from repro_torch.core.schedule import TwoStageSchedule, cosine_schedule
 from repro_torch.core.svd import TruncationSpec
 from repro_torch.core.tracenorm import RegularizerConfig
+from repro_torch.data import lm as lm_data
 from repro_torch.data import speech as speech_data
 from repro_torch.training import TrainConfig, Trainer
 
@@ -29,6 +32,7 @@ def main(argv=None) -> dict:
   ap.add_argument("--arch", required=True, choices=configs.ARCH_NAMES)
   ap.add_argument("--steps", type=int, default=30)
   ap.add_argument("--batch", type=int, default=8)
+  ap.add_argument("--seq", type=int, default=64)
   ap.add_argument("--lr", type=float, default=1e-3)
   ap.add_argument("--microbatches", type=int, default=1)
   ap.add_argument("--full", action="store_true",
@@ -46,9 +50,6 @@ def main(argv=None) -> dict:
 
   cfg = (configs.get_config(args.arch) if args.full
          else configs.get_smoke(args.arch))
-  if cfg.family != "deepspeech":
-    raise NotImplementedError(
-        f"training the {cfg.family} family is not ported yet: ROADMAP A8")
 
   schedule = None
   plan = FactorizationPlan(min_dim=32, exclude=("*embed*",))
@@ -73,11 +74,17 @@ def main(argv=None) -> dict:
                     generator=torch.Generator().manual_seed(args.seed),
                     device=args.device)
 
-  dc = speech_data.SpeechDataConfig(vocab_size=cfg.vocab_size,
-                                    feat_dim=cfg.feat_dim,
-                                    global_batch=args.batch, seed=args.seed)
+  if cfg.family == "deepspeech":
+    dc = speech_data.SpeechDataConfig(vocab_size=cfg.vocab_size,
+                                      feat_dim=cfg.feat_dim,
+                                      global_batch=args.batch, seed=args.seed)
+    gen = lambda i: speech_data.batch_at(dc, i)  # noqa: E731
+  else:
+    dcl = lm_data.LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                               global_batch=args.batch, seed=args.seed)
+    gen = lambda i: lm_data.batch_at(dcl, i)  # noqa: E731
   for i in range(args.steps):
-    m = trainer.train_step(speech_data.batch_at(dc, i))
+    m = trainer.train_step(gen(i))
     if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
       print(f"step {m['step']:4d} stage {m['stage']} "
             f"loss {m['loss']:.4f} wall {m['wall_s']:.2f}s", flush=True)

@@ -1,6 +1,8 @@
 """GQA attention: blockwise causal prefill and cached decode.
 
-Counterpart of `repro.layers.attention` for the dense transformer.
+Counterpart of `repro.layers.attention` for the dense transformer,
+qwen3's qk-norm included (a per-head RMSNorm of q and k after their
+projections and before RoPE, on every path).
 `flash_attention` keeps the reference's contract (causal; head j reads
 kv head j // rep). Under a kernel policy it launches the hand-written
 CUDA kernel (`kernels/csrc/flash_attention.cu`, through
@@ -18,12 +20,15 @@ past max_len is dropped, as the reference's scatter drops it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from repro_torch.core.factored import dense
 from repro_torch.kernels import dispatch
 from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.layers.norms import init_rms, rms_norm
 from repro_torch.layers.rope import apply_rope
 
 NEG_INF = -2.0 ** 30  # large-negative in f32: exp never sees inf - inf
@@ -31,12 +36,20 @@ NEG_INF = -2.0 ** 30  # large-negative in f32: exp never sees inf - inf
 
 class Attention(nn.Module):
   """wq (d, h*hd), wk/wv (d, kv*hd), wo (h*hd, d); layer-stacked in a
-  model."""
+  model. With qwen3's qk-norm also `q_norm`, `k_norm`: per-head RMSNorm
+  scales (hd,) in f32, (L, hd) stacked."""
 
   def __init__(self, wq: nn.Module, wk: nn.Module, wv: nn.Module,
-               wo: nn.Module):
+               wo: nn.Module, q_norm: Optional[torch.Tensor] = None,
+               k_norm: Optional[torch.Tensor] = None):
     super().__init__()
+    if (q_norm is None) != (k_norm is None):
+      raise ValueError("Attention takes both q_norm and k_norm, or neither")
     self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+    self.q_norm = None if q_norm is None else nn.Parameter(
+        q_norm, requires_grad=False)
+    self.k_norm = None if k_norm is None else nn.Parameter(
+        k_norm, requires_grad=False)
 
 
 def init_attention(cfg: ModelConfig, *, layer_prefix: str, stack: tuple = (),
@@ -44,10 +57,15 @@ def init_attention(cfg: ModelConfig, *, layer_prefix: str, stack: tuple = (),
   d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
   hd = cfg.resolved_head_dim
   kw = dict(dtype=cfg.dtype, stack=stack, generator=generator, device=device)
+  norms = {}
+  if cfg.qk_norm:
+    norms = {k: init_rms(hd, stack=stack, device=device)
+             for k in ("q_norm", "k_norm")}
   return Attention(dense(d, h * hd, name=f"{layer_prefix}/attn_q", **kw),
                    dense(d, kv * hd, name=f"{layer_prefix}/attn_k", **kw),
                    dense(d, kv * hd, name=f"{layer_prefix}/attn_v", **kw),
-                   dense(h * hd, d, name=f"{layer_prefix}/attn_o", **kw))
+                   dense(h * hd, d, name=f"{layer_prefix}/attn_o", **kw),
+                   **norms)
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
@@ -57,6 +75,9 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
   q = gemm(p["wq"], x, policy).reshape(b, s, h, hd)
   k = gemm(p["wk"], x, policy).reshape(b, s, kv, hd)
   v = gemm(p["wv"], x, policy).reshape(b, s, kv, hd)
+  if cfg.qk_norm:             # per head, before RoPE, as the reference
+    q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k = rms_norm(k, p["k_norm"], cfg.norm_eps)
   q = apply_rope(q, positions, cfg.rope_theta)
   k = apply_rope(k, positions, cfg.rope_theta)
   return q, k, v
@@ -117,8 +138,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       policy=None) -> torch.Tensor:
-  """Full-sequence causal self-attention (prefill). `p` maps "wq", "wk",
-  "wv", "wo" to 2-D leaves."""
+  """Full-sequence causal self-attention (prefill, training). `p` maps
+  "wq", "wk", "wv", "wo" to 2-D leaves (and, with qk-norm, "q_norm",
+  "k_norm" to (hd,) scales)."""
   b, s, _ = x.shape
   positions = torch.arange(s, device=x.device)[None].expand(b, s)
   q, k, v = _project_qkv(p, x, cfg, positions, policy)

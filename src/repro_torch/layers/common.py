@@ -35,8 +35,9 @@ def gemm(leaf, x: torch.Tensor, policy=None) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
   """The reference's `ModelConfig`, cut to the fields the ported
-  families read: the dense GQA transformer and DS2 (the MoE, MLA, SSM
-  and encoder fields come with their families)."""
+  families read: the dense GQA transformer (qwen3's `qk_norm` included)
+  and DS2 (the MoE, MLA, SSM and encoder fields come with their
+  families)."""
   name: str
   family: str                   # transformer | deepspeech
   num_layers: int
@@ -46,6 +47,7 @@ class ModelConfig:
   d_ff: int
   vocab_size: int
   head_dim: Optional[int] = None          # default d_model // num_heads
+  qk_norm: bool = False                   # qwen3
   rope_theta: float = 10000.0
   tie_embeddings: bool = False
   norm_eps: float = 1e-5

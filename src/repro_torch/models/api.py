@@ -1,10 +1,10 @@
 """One dispatch surface over the ported model families — counterpart of
-`repro.models.api`, as far as serving and DS2 training need it.
+`repro.models.api`, as far as serving and training need it.
 
 `get_model(cfg)` returns a `ModelApi` for the `transformer` and
-`deepspeech` families with `init`, `forward`, `loss_fn` (deepspeech;
-the transformer's comes with its training slice), `init_decode_state`,
-`decode_step`, `decode_state_batch_axes`, the speculative-rewind
+`deepspeech` families with `init`, `forward`, `loss_fn`,
+`init_decode_state`, `decode_step`, `decode_state_batch_axes`, the
+speculative-rewind
 contract `decode_state_carry`, the batched window `decode_window` (and
 its oracle `decode_window_sequential`) and the slot surgery
 `insert_slot`. Decode states are nested dicts of tensors; `insert_slot`
@@ -133,7 +133,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
   fam = cfg.family
   if fam == "transformer":
     return ModelApi(
-        family=fam, init=transformer.init_lm, forward=transformer.forward,
+        family=fam, init=transformer.init_lm, loss_fn=transformer.loss_fn,
+        forward=transformer.forward,
         init_decode_state=transformer.init_decode_state,
         decode_step=transformer.decode_step,
         decode_state_batch_axes=transformer.decode_state_batch_axes,

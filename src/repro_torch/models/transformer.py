@@ -1,21 +1,27 @@
 """Decoder-only transformer LM — the dense GQA part of
-`repro.models.transformer` (llama3 and its kin).
+`repro.models.transformer` (chameleon, llama3, glm4, stablelm and
+qwen3's qk-norm).
 
 Params keep the reference's layer-stacked layout: one `LayerStack`
 whose leaves carry a leading layer axis (`ln1` (L, d), `attn.wq.w`
 (L, d, h*hd), ...), so `state_dict()` keys are the checkpoint paths
 (`dense_layers.attn.wq.w` for `dense_layers/attn/wq/w`). The reference
 scans over that axis; here a Python loop walks the layers and takes
-layer i's 2-D leaves from `LayerStack.layers()`. Training
-(`loss_fn`, remat) and the MoE/MLA/MTP variants come with later slices.
+layer i's 2-D leaves from `LayerStack.layers()`. `loss_fn` is the
+reference's next-token cross-entropy; `cfg.remat` checkpoints each
+layer of a training forward as the reference's `jax.remat` does. The
+MoE, MLA and MTP variants come with later slices.
 
 `decode_step` and `decode_window` update the decode state in place and
 return it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn_lib
@@ -27,7 +33,7 @@ from repro_torch.layers.norms import init_rms, rms_norm
 
 #: reference config features this slice does not port, and where they go
 _LATER = {"moe": "the MoE slice", "mla": "the MLA (DeepSeek) slice",
-          "mtp": "the DeepSeek MTP slice", "qk_norm": "the qwen3 slice"}
+          "mtp": "the DeepSeek MTP slice"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -44,6 +50,7 @@ class LayerStack(nn.Module):
   """The L layers' params, stacked on a leading axis."""
 
   _ATTN = ("wq", "wk", "wv", "wo")
+  _NORMS = ("q_norm", "k_norm")
   _FFN = ("w_gate", "w_up", "w_down")
 
   def __init__(self, ln1: torch.Tensor, ln2: torch.Tensor,
@@ -57,6 +64,7 @@ class LayerStack(nn.Module):
 
   def _leaves(self) -> tuple:
     return (self.ln1, self.ln2, *(getattr(self.attn, k) for k in self._ATTN),
+            *(getattr(self.attn, k) for k in self._NORMS),
             *(getattr(self.ffn, k) for k in self._FFN))
 
   def _apply(self, fn, *args, **kwargs):
@@ -67,21 +75,37 @@ class LayerStack(nn.Module):
     # copies and pickles rebuild the views on their own storage
     return {**self.__dict__, "_views": None}
 
+  def _build_views(self) -> list[dict]:
+    def attn(i):
+      out = {k: getattr(self.attn, k).layer(i) for k in self._ATTN}
+      if self.attn.q_norm is not None:
+        out.update(q_norm=self.attn.q_norm[i], k_norm=self.attn.k_norm[i])
+      return out
+    return [{"ln1": self.ln1[i], "ln2": self.ln2[i], "attn": attn(i),
+             "ffn": {k: getattr(self.ffn, k).layer(i) for k in self._FFN}}
+            for i in range(self.ln1.shape[0])]
+
   def layers(self) -> list[dict]:
     """Per-layer views, in the reference's dict shape: [{"ln1", "ln2",
-    "attn": {"wq", ...}, "ffn": {"w_gate", ...}}] for each layer, each
-    leaf sharing storage with layer i of its stack. Built once and kept
-    until a leaf is replaced or `_apply` (`.to()`, ...) moves the params:
-    a step would otherwise build 7 L leaf modules."""
+    "attn": {"wq", ..., ["q_norm", "k_norm"]}, "ffn": {"w_gate", ...}}]
+    for each layer, each leaf sharing storage with layer i of its stack.
+
+    Where autograd could record them (grad mode on and a leaf that
+    requires grad) the views are built anew on each call, so each
+    forward's graph reaches the stacked leaves through its own views. A
+    kept view would carry an earlier step's graph, or, built while the
+    params were frozen, none at all. Otherwise (serving) they are built
+    once and kept until a leaf is replaced or `_apply` (`.to()`, ...)
+    moves the params: a step would otherwise build 7 L leaf modules."""
     leaves = self._leaves()
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for leaf in leaves if leaf is not None
+        for t in ([leaf] if isinstance(leaf, torch.Tensor)
+                  else leaf.parameters())):
+      return self._build_views()
     if self._views is None or any(
         a is not b for a, b in zip(self._views[0], leaves)):
-      n = self.ln1.shape[0]
-      self._views = (leaves, [
-          {"ln1": self.ln1[i], "ln2": self.ln2[i],
-           "attn": {k: getattr(self.attn, k).layer(i) for k in self._ATTN},
-           "ffn": {k: getattr(self.ffn, k).layer(i) for k in self._FFN}}
-          for i in range(n)])
+      self._views = (leaves, self._build_views())
     return self._views[1]
 
 
@@ -126,6 +150,35 @@ def _layer_fwd(x: torch.Tensor, lp: dict, cfg: ModelConfig,
   return x + swiglu_forward(lp["ffn"], h, policy)
 
 
+#: the matmul ops whose outputs remat="dots" keeps (the reference's
+#: `dots_with_no_batch_dims_saveable`: the GEMMs, not the batched einsums
+#: of the attention)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+  return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+          else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(cfg: ModelConfig, policy, recorded: bool):
+  """The layer body under `cfg.remat`, as the reference wraps its scanned
+  body: "full" recomputes the whole layer in the backward pass, "dots"
+  keeps the GEMM outputs and recomputes the rest, "none" keeps all. Only
+  a forward that autograd records (`recorded`) is checkpointed."""
+  body = functools.partial(_layer_fwd, cfg=cfg, policy=policy)
+  if cfg.remat == "none" or not recorded:
+    return body
+  if cfg.remat == "full":
+    return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
+  if cfg.remat == "dots":
+    return functools.partial(
+        ckpt.checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _save_dots))
+  raise ValueError(f"{cfg.name}: unknown remat policy {cfg.remat!r}")
+
+
 def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ModelConfig,
             *, last_only: bool = False, policy=None) -> torch.Tensor:
   """tokens (b, s) -> logits (b, s, v). The reference also returns the
@@ -134,12 +187,35 @@ def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ModelConfig,
   last_only=True (serving prefill) narrows to the final position before
   the vocab projection, so the (b, s, v) logits never exist."""
   x = embed(params.embedding, tokens)
+  layer = _remat_layer(cfg, policy, torch.is_grad_enabled() and any(
+      p.requires_grad for p in params.parameters()))
   for lp in params.dense_layers.layers():
-    x = _layer_fwd(x, lp, cfg, policy)
+    x = layer(x, lp)
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   if last_only:
     x = x[:, -1:]
   return lm_logits(params.embedding, x, policy)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+  """Mean next-token cross-entropy, log-softmax in f32."""
+  lp = torch.log_softmax(logits.float(), dim=-1)
+  return -lp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+
+def loss_fn(params: TransformerLM, batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, dict]:
+  """The cross-entropy of a batch {"tokens", "targets"} (b, s), tensors
+  or numpy arrays, through the full forward with no kernel policy (no
+  kernel has a backward). Returns (loss, {"xent", "moe_aux"}); a dense
+  model's MoE aux loss is 0, as the reference's."""
+  check_supported(cfg)
+  dev = params.final_norm.device
+  tokens, targets = (torch.as_tensor(batch[k], device=dev).long()
+                     for k in ("tokens", "targets"))
+  loss = _xent(forward(params, tokens, cfg), targets)
+  return loss, {"xent": loss,
+                "moe_aux": torch.zeros((), dtype=torch.float32, device=dev)}
 
 
 # ----------------------------------------------------------------------------

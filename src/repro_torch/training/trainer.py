@@ -2,12 +2,14 @@
 schedule (stage-1 trace-norm training -> truncated-SVD warmstart ->
 stage-2 fine-tune), trace-norm diagnostics, checkpoint and restart.
 
-Counterpart of `repro.training.trainer`. A step is the forward and
-backward of every microbatch (autograd, with no kernel policy: no kernel
-has a backward), the regularizer, and an in-place AdamW update. The
-transition replaces the factored leaves (full rank -> truncated), so it
-makes new parameters, turns their gradients on, and starts new
-optimizer moments.
+Counterpart of `repro.training.trainer`, for the deepspeech and the
+dense transformer families. A step is the forward and backward of every
+microbatch (autograd, with no kernel policy: no kernel has a backward),
+the regularizer, and an in-place AdamW update. A transformer batch
+{tokens, targets} goes to the trainer's device as int64 tensors before
+the step. The transition replaces the factored leaves (full rank ->
+truncated), so it makes new parameters, turns their gradients on, and
+starts new optimizer moments.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core.factored import FactoredLinear, param_tree, trainable
 from repro_torch.core.schedule import TwoStageSchedule
 from repro_torch.core.tracenorm import (RegularizerConfig, regularization_loss,
                                         trace_norm_metrics)
+from repro_torch.data.lm import shard_batch
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import ModelConfig
 from repro_torch.models.api import ModelApi, get_model
@@ -215,6 +218,8 @@ class Trainer:
   def train_step(self, batch: dict) -> dict:
     self.maybe_transition()
     t0 = time.perf_counter()
+    if self.api.family == "transformer":
+      batch = shard_batch(batch, self.device)
     self.params, self.opt_state, metrics = self._step_fn(
         self.params, self.opt_state, batch, self.step)
     metrics = {k: float(v) for k, v in metrics.items()}

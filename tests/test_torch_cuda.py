@@ -575,3 +575,117 @@ def test_ds2_decode_window_through_kernels_matches_plain_steps(cuda):
   torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
   for k in want_state:
     torch.testing.assert_close(new[k], want_state[k], rtol=0, atol=1e-4)
+
+
+#: (b, s, h, h_kv, d, causal) at stablelm-3b's head width 80 (two 64-column
+#: panels of TMA, the second zero past column 16): ragged lengths off the
+#: 64- and 128-row tiles, one row, grouped kv heads, both modes
+FLASH_80 = [(1, 300, 4, 4, 80, True), (2, 129, 3, 3, 80, False),
+            (1, 1, 2, 2, 80, True), (1, 520, 8, 2, 80, True),
+            (1, 200, 4, 4, 80, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_head_width_80(cuda, dtype):
+  """The d = 80 instantiation against the plain version (scale 1/sqrt(80)),
+  f32 within 1e-4 and bf16 within 1e-2; each output head holds exactly
+  its own 80 columns (a wrong panel would read the next head's)."""
+  from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+  assert 80 in HEAD_DIMS
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  for b, s, h, h_kv, d, causal in FLASH_80:
+    q = torch.from_numpy(rnd(1, (b, s, h, d))).to(cuda, dt)
+    k, v = (torch.from_numpy(rnd(i, (b, s, h_kv, d))).to(cuda, dt)
+            for i in (2, 3))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    rep = h // h_kv
+    want = ref.flash_attention(q, torch.repeat_interleave(k, rep, dim=2),
+                               torch.repeat_interleave(v, rep, dim=2),
+                               causal=causal)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_qwen3_smoke_decode_through_kernels_matches_plain(cuda):
+  """qwen3-4b's smoke config (qk-norm) in f32 on the card: 6 batch-2
+  decode steps under the "cuda" policy (the GEMMs of 128 lanes or more
+  through decode_matvec) against the plain policy, logits within 1e-4 at
+  every step, and a 4-token decode window against its steps."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.models import transformer
+  cfg = configs.get_smoke("qwen3-4b").with_(dtype=torch.float32)
+  params = transformer.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                               device=cuda)
+  b = 2
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(b, 10))).to(cuda)
+  states = {p: transformer.init_decode_state(cfg, b, 16, device=cuda)
+            for p in ("cuda", "plain")}
+  pos = torch.tensor([0, 2], device=cuda)
+  ops.reset_launches()
+  for t in range(6):
+    out = {p: transformer.decode_step(
+        params, states[p], toks[:, t:t + 1], pos + t, cfg,
+        dispatch.resolve_policy(p, b))[0] for p in states}
+    torch.testing.assert_close(out["cuda"], out["plain"], rtol=1e-4,
+                               atol=1e-4)
+  assert ops.LAUNCHES["decode_matvec"] > 0
+  got, _ = transformer.decode_window(params, states["cuda"], toks[:, 6:],
+                                     pos + 6, cfg,
+                                     dispatch.resolve_policy("cuda", b, window=4))
+  steps = []
+  for t in range(4):
+    lg, _ = transformer.decode_step(params, states["plain"],
+                                    toks[:, 6 + t:7 + t], pos + 6 + t, cfg)
+    steps.append(lg[:, 0])
+  torch.testing.assert_close(got, torch.stack(steps, 1), rtol=1e-4, atol=1e-4)
+
+
+def test_transformer_training_step_on_the_card_matches_the_cpu(cuda,
+                                                               tmp_path):
+  """One f32 stage-1 step (trace norm on, qwen3-4b smoke config, batches
+  of `data/lm.py`) on the card and on the CPU from the same weights (the
+  CPU trainer's, through a checkpoint): the loss within 1e-4 relative and
+  each gradient within 1e-3 relative in norm (f32 sums in another
+  order)."""
+  from repro_torch import configs
+  from repro_torch.core.compress import FactorizationPlan
+  from repro_torch.core.schedule import TwoStageSchedule
+  from repro_torch.core.svd import TruncationSpec
+  from repro_torch.core.tracenorm import RegularizerConfig
+  from repro_torch.data.lm import LMDataConfig, batch_at
+  from repro_torch.training import TrainConfig, Trainer
+  cfg = configs.get_smoke("qwen3-4b").with_(dtype=torch.float32)
+  sched = TwoStageSchedule(
+      total_steps=4, transition_step=2,
+      regularizer=RegularizerConfig(kind="trace", lambda_rec=1e-4,
+                                    lambda_nonrec=1e-4),
+      truncation=TruncationSpec())
+  batch = batch_at(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                global_batch=4), 0)
+  runs = []
+  for dev in ("cpu", cuda):
+    tr = Trainer(cfg, TrainConfig(lr=1e-3, checkpoint_dir=str(tmp_path)),
+                 schedule=sched, device=dev,
+                 plan=FactorizationPlan(min_dim=32, exclude=("*embed*",)),
+                 generator=torch.Generator().manual_seed(0))
+    if runs:
+      tr.restore()
+    else:
+      tr.save(blocking=True)
+    _, _, grads = tr._step_fn.grads_of(tr.params, tr_batch(tr, batch))
+    m = tr.train_step(batch)
+    runs.append((m["loss"], {k: g.cpu() for k, g in grads.items()}))
+  (l_c, g_c), (l_g, g_g) = runs
+  np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+  assert sorted(g_g) == sorted(g_c)
+  for k in g_c:
+    assert float((g_g[k] - g_c[k]).norm() / g_c[k].norm()) < 1e-3, k
+
+
+def tr_batch(trainer, batch):
+  from repro_torch.data.lm import shard_batch
+  return shard_batch(batch, trainer.device)

@@ -124,12 +124,13 @@ def test_port_quantize_leaf_matches_reference_bitwise():
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [16, 64, 80, 128])
 def test_flash_predicate_declines_where_the_kernel_refuses(d, dtype):
-  """The routing predicate beside HEAD_DIMS: head widths 64 and 128 only.
+  """The routing predicate beside HEAD_DIMS: head widths 64, 80
+  (stablelm-3b) and 128 only.
   Where an operand starts does not enter it: the wrapper copies a bf16
   operand off a 16-byte boundary (here one element into its storage) and
   a non-contiguous one into a fresh buffer."""
   from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_supported
-  assert HEAD_DIMS == (64, 128)
+  assert HEAD_DIMS == (64, 80, 128)
   want = d in HEAD_DIMS
   n = 2 * 8 * 2 * d
   q = torch.zeros(n + 1, dtype=dtype)[1:].view(2, 8, 2, d)
@@ -140,7 +141,7 @@ def test_flash_predicate_declines_where_the_kernel_refuses(d, dtype):
   assert flash_supported(q.transpose(1, 2), k, v) is want
 
 
-@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("d", [16, 96])
 def test_maybe_flash_attention_records_nothing_when_it_declines(d):
   q = torch.zeros((1, 8, 4, d), dtype=torch.bfloat16)
   k = v = torch.zeros((1, 8, 2, d), dtype=torch.bfloat16)

@@ -81,8 +81,8 @@ def test_lm_entry_points_default_to_the_gpu(monkeypatch):
 def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
   """`Trainer` and `launch.train` run on the GPU unless asked for the
   CPU; with no GPU they raise. On the CPU the launcher trains the DS2
-  smoke model through both stages; other families and a mesh are not
-  ported yet and say so."""
+  smoke model through both stages and a transformer's; a family without
+  a port (Whisper) and a mesh are not ported yet and say so."""
   from repro_torch import configs
   from repro_torch.launch import train
   from repro_torch.training import TrainConfig, Trainer
@@ -94,8 +94,11 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
     train.main(["--arch", "deepspeech2-wsj", "--steps", "1"])
   with pytest.raises(NotImplementedError, match="A10"):
     Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
-  with pytest.raises(NotImplementedError, match="A8"):
-    train.main(["--arch", "llama3-8b", "--device", "cpu"])
+  with pytest.raises(ValueError, match="not ported yet"):
+    Trainer(cfg.with_(family="whisper"), TrainConfig(), device="cpu")
+  lm_out = train.main(["--arch", "llama3-8b", "--device", "cpu", "--steps",
+                       "1", "--batch", "2", "--seq", "8"])
+  assert lm_out["final_loss"] > 0
   out = train.main(["--arch", "deepspeech2-wsj", "--device", "cpu",
                     "--steps", "3", "--batch", "2", "--two-stage",
                     "--transition", "2"])

@@ -32,6 +32,15 @@ from repro_torch.quant import QuantizedLinear, quantize_params  # noqa: E402
 ATOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jparams():
   return jds.init_model(jax.random.PRNGKey(0), jax_cfg())

@@ -37,6 +37,15 @@ SLOTS = 2
 CHUNK = 7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def forms():
   params = jds.init_model(jax.random.PRNGKey(0), jax_cfg())

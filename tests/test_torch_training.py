@@ -45,6 +45,15 @@ STEPS, TRANSITION, BATCH = 6, 3, 8
 LAMBDA = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 def jcfg():
   return jconfigs.get_smoke("deepspeech2-wsj").with_(dtype=jnp.float32)
 
