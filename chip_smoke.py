@@ -140,7 +140,37 @@
    frozen, has `lowrank_gemm` held and timed at its shapes, and is served
    as in phase 5 with every GEMM through `lowrank_gemm` (15 launches a
    step).
-10. Prints each phase's seconds, the card line, `{"kernels": [...]}`
+10. Whisper, after phase 9: full-width `whisper-small` (12 + 12 layers,
+   bf16, random weights from a seeded CUDA generator; `attn_block_kv`
+   500, the block the reference needs for 1500 frames), 4 streams of
+   1500 frames of seeded random features (the frontend is a stub, as in
+   the reference). (a) `encode` under "cuda" and "plain": exactly 12
+   non-causal `flash_attention` launches and no other (every GEMM has
+   6000 rows) and none under "plain", memories within `WHISPER_ATOL`.
+   (b) A teacher-forced greedy loop of `api.decode_step` from the plain
+   memory, 4 slots, `WHISPER_STEPS` steps: exactly 96 `decode_matvec`
+   launches a step (12 layers x self q/k/v/o, cross q/o, ffn in/out;
+   the cross k/v over 6000 rows and the tied head stay plain),
+   log-probs within `LM_SERVE_ATOL`, argmax flips only at near-ties;
+   ms an encode and a step under both policies. (c) LiteASR:
+   `calibrate_activation_stats` over `encode_unrolled` (plain policy)
+   for `WHISPER_CALIB_BATCHES` batches, `to_stage2` over "enc/*" at rank
+   `WHISPER_RANK` with those stats and without (the weight spectrum);
+   the calibrated model encodes with exactly 72 `lowrank_gemm` + 12
+   flash launches, within `WHISPER_ATOL` of "plain", and its
+   activation-weighted error sum over the 72 layer GEMMs,
+   sum_i tr((W - UV)^T C_i (W - UV)), must not exceed the spectrum-only
+   truncation's. (d) Calibrated PTQ: `calibrate_activation_ranges`,
+   `quantize_params(calib=)` (encoder leaves static scales, decoder
+   leaves dynamic, as the reference), an encode with exactly 72
+   `int8_gemm` + 12 flash launches and `WHISPER_PTQ_STEPS` decode steps
+   with exactly 120 `int8_gemm` launches each, both within tolerance of
+   "plain". (e) Kernel rows: non-causal flash at (4, 1500, 12, 64)
+   against SDPA, `decode_matvec` at the decode step's shapes (cold and
+   warm) against `torch.matmul`, `lowrank_gemm` and `int8_gemm` at the
+   encoder's 6000-row shapes against two `torch.matmul` / `torch._int_mm`
+   (a yardstick: no dequant).
+11. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
    failure raises: the script exits non-zero and prints no result line.
@@ -266,6 +296,27 @@ SPEC_K = 3
 DRAFT_RANK = 128
 LM_GEMMS = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
             "ffn_down")
+#: phase 10: whisper-small's streams, frames (the reference's 30 s
+#: window) and the kv block its encoder needs for them, decode steps,
+#: calibration batches and the truncation rank (above the 128-lane gate,
+#: so every factored encoder GEMM reaches lowrank_gemm)
+WHISPER_BATCH = 4
+WHISPER_FRAMES = 1500
+WHISPER_BLOCK_KV = 500
+WHISPER_STEPS = 32
+WHISPER_PTQ_STEPS = 8
+WHISPER_CALIB_BATCHES = 2
+WHISPER_RANK = 256
+#: memory agreement of an encode under the "cuda" and "plain" policies in
+#: bf16 (flash rounds P to bf16 for the PV product; lowrank_gemm keeps
+#: the rank intermediate in f32 where the plain path rounds it to bf16;
+#: both travel through 12 layers)
+WHISPER_ATOL = 0.25
+#: the per-layer GEMMs of whisper's encoder and decoder, by leaf
+WHISPER_ENC = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "ffn/w_in",
+               "ffn/w_out")
+WHISPER_DEC_STEP = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "xattn/wq",
+                    "xattn/wo", "ffn/w_in", "ffn/w_out")
 KERNELS = {
     # name: (CUDA source, the TPU kernel it replaces)
     "gru_cell": ("src/repro_torch/kernels/csrc/gru_cell.cu",
@@ -1771,6 +1822,328 @@ def check_lm_training(card) -> tuple[dict, list[dict], dict]:
   return launches, rows, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: whisper-small — the encoder through non-causal flash, the
+# decoder through decode_matvec, LiteASR-calibrated truncation through
+# lowrank_gemm, calibrated PTQ through int8_gemm.
+# ---------------------------------------------------------------------------
+
+def _leaf(stack, path: str):
+  mod = stack
+  for part in path.split("/"):
+    mod = getattr(mod, part)
+  return mod
+
+
+def whisper_frames(cfg, seed: int) -> torch.Tensor:
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  return torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model),
+                     generator=gen, device="cuda")
+
+
+def counted(fn):
+  """(fn(), seconds, launches, routing log): counts zeroed just before,
+  read just after."""
+  from repro_torch.kernels import dispatch, ops
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  with dispatch.record_dispatch() as log:
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+  return out, dt, dict(ops.LAUNCHES), set(log)
+
+
+def only(launches: dict, want: dict, what: str) -> None:
+  full = {k: want.get(k, 0) for k in launches}
+  if launches != full:
+    fail(f"{what}: launches {launches} != {full}")
+
+
+def check_encode(model, cfg, frames, want: dict, what: str) -> dict:
+  """encode under both policies: `want` launches under "cuda", none under
+  "plain", memories within WHISPER_ATOL. Returns the numbers."""
+  from repro_torch.kernels import dispatch
+  from repro_torch.models import whisper
+  runs = {}
+  for policy in ("cuda", "plain"):
+    pol = dispatch.resolve_policy(policy, WHISPER_BATCH)
+    whisper.encode(model, frames, cfg, pol)     # warm-up: cuBLAS, allocator
+    runs[policy] = counted(lambda p=pol: whisper.encode(model, frames, cfg, p))
+  (mem_k, dt_k, launches, _), (mem_p, dt_p, plain, _) = \
+      runs["cuda"], runs["plain"]
+  only(launches, want, f"{what} encode")
+  only(plain, {}, f"{what} plain encode")
+  if mem_k.shape != (WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model) or \
+      not bool(torch.isfinite(mem_k).all()):
+    fail(f"{what}: memory of the wrong shape or not finite")
+  diff = float((mem_k.float() - mem_p.float()).abs().max())
+  if diff > WHISPER_ATOL:
+    fail(f"{what}: memories differ by {diff:.3g} > {WHISPER_ATOL}")
+  return dict(launches=launches, cuda_encode_ms=dt_k * 1e3,
+              plain_encode_ms=dt_p * 1e3, max_memory_diff=diff,
+              memory=mem_p)
+
+
+def whisper_decode(model, cfg, mem, policy: str, steps: int, forced=None):
+  """A greedy loop of `api.decode_step` over WHISPER_BATCH slots from the
+  memory, or fed `forced` (another run's tokens). Returns (log-probs a
+  step, tokens fed, ms a step, launches a step, routing log)."""
+  from repro_torch.kernels import dispatch
+  from repro_torch.models.api import get_model
+  api = get_model(cfg)
+  pol = dispatch.resolve_policy(policy, WHISPER_BATCH)
+  state = api.init_decode_state(cfg, WHISPER_BATCH, steps + 1,
+                                enc_len=mem.shape[1], device="cuda")
+  state["mem"].copy_(mem)
+  tok = torch.ones((WHISPER_BATCH, 1), dtype=torch.int64, device="cuda")
+  logps, fed, ms, launches, routes = [], [], [], [], set()
+  for i in range(steps):
+    pos = torch.full((WHISPER_BATCH,), i, dtype=torch.int64, device="cuda")
+    (logits, state), dt, n, log = counted(
+        lambda t=tok, p=pos, st=state: api.decode_step(model, st, t, p, cfg,
+                                                       pol))
+    lp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    logps.append(lp)
+    fed.append(tok)
+    ms.append(dt * 1e3)
+    launches.append(n)
+    routes |= log
+    if forced is None:
+      tok = lp.argmax(-1, keepdim=True)
+    elif i + 1 < len(forced):
+      tok = forced[i + 1]
+  return logps, fed, ms, launches, routes
+
+
+def check_decode(model, cfg, mem, want_step: dict, what: str,
+                 steps: int) -> dict:
+  """Teacher-forced decode under both policies: `want_step` launches each
+  step under "cuda", none under "plain", log-probs within LM_SERVE_ATOL,
+  argmax flips only at near-ties."""
+  lp_p, fed, ms_p, n_p, routes_p = whisper_decode(model, cfg, mem, "plain",
+                                                   steps)
+  lp_k, fed_k, ms_k, n_k, routes = whisper_decode(model, cfg, mem, "cuda",
+                                                  steps, forced=fed)
+  for i, n in enumerate(n_k):
+    only(n, want_step, f"{what} decode step {i}")
+  for n in n_p:
+    only(n, {}, f"{what} plain decode step")
+  if any(r != "jnp" for _, r in routes_p):
+    fail(f"{what}: plain routing {sorted(routes_p)}")
+  max_diff, flips, flip_gap = 0.0, 0, 0.0
+  for i, (a, b, ta, tb) in enumerate(zip(lp_k, lp_p, fed_k, fed)):
+    if not torch.equal(ta, tb):
+      fail(f"{what}: step {i} was fed other tokens")
+    if a.shape != (WHISPER_BATCH, cfg.vocab_size) or \
+        not bool(torch.isfinite(a).all()):
+      fail(f"{what}: step {i} log-probs of the wrong shape or not finite")
+    max_diff = max(max_diff, float((a - b).abs().max()))
+    flip = a.argmax(-1) != b.argmax(-1)
+    if bool(flip.any()):
+      top2 = torch.topk(b[flip], 2, dim=-1).values
+      gap = float((top2[:, 0] - top2[:, 1]).max())
+      if gap >= LM_SERVE_ATOL:
+        fail(f"{what}: argmax differs at step {i} at a top-2 gap of "
+             f"{gap:.3g}")
+      flips += int(flip.sum())
+      flip_gap = max(flip_gap, gap)
+  if max_diff > LM_SERVE_ATOL:
+    fail(f"{what}: decode log-probs differ by {max_diff:.3g}")
+  total = {k: sum(n[k] for n in n_k) for k in n_k[0]}
+  return dict(launches=total, steps=steps, routes=sorted(routes),
+              cuda_step_ms=statistics.median(ms_k[1:]),
+              plain_step_ms=statistics.median(ms_p[1:]),
+              max_logprob_diff=max_diff, argmax_flips=flips,
+              flip_max_top2_gap=flip_gap)
+
+
+def weighted_error(model, trunc, stats) -> float:
+  """sum over the encoder's 72 layer GEMMs of tr((W - UV)^T C (W - UV)),
+  C the layer's calibrated E[x x^T]: the activation-weighted output
+  error E||xW - xUV||^2 that the calibrated truncation minimises; f64 on
+  the card."""
+  total = 0.0
+  for path in WHISPER_ENC:
+    dense, fact = _leaf(model.enc_layers, path), _leaf(trunc.enc_layers, path)
+    cov = torch.from_numpy(stats[fact.name].second_moment).to("cuda")
+    for i in range(dense.w.shape[0]):
+      d = dense.w[i].double() - fact.u[i].double() @ fact.v[i].double()
+      total += float((d * (cov[i] @ d)).sum())
+  return total
+
+
+def whisper_cases(model, trunc, quant_model, gen) -> list[dict]:
+  """The phase's kernels at its shapes (layer 0 of each stacked leaf; the
+  other layers have the same shapes), each row's `weight` its launches
+  an encode or a decode step."""
+  from repro_torch.kernels import ref
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  from repro_torch.kernels.flash_attention import flash_attention
+  from repro_torch.kernels.int8_gemm import int8_gemm
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  bf16, b = torch.bfloat16, WHISPER_BATCH
+  rows_n = WHISPER_BATCH * WHISPER_FRAMES
+  n_enc, n_dec = model.enc_layers.ln1.scale.shape[0], \
+      model.dec_layers.ln1.scale.shape[0]
+  cases = []
+  h, d = 12, 64
+  q, k, v = (randn((b, WHISPER_FRAMES, h, d), gen, bf16) for _ in range(3))
+  qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+  cases.append(case(
+      "flash_attention", f"whisper encoder non-causal ({b}, "
+      f"{WHISPER_FRAMES}, {h}, {d})", b, bf16,
+      lambda a=(q, k, v): flash_attention(*a, causal=False),
+      lambda a=(q, k, v): ref.flash_attention(*a, causal=False),
+      lambda a=(qt, kt, vt): F.scaled_dot_product_attention(*a),
+      4 * b * WHISPER_FRAMES * h * d * 2,
+      4 * b * h * d * WHISPER_FRAMES * WHISPER_FRAMES,
+      path="whisper_encode", weight=n_enc, reps=20))
+  for path in WHISPER_DEC_STEP:
+    w = _leaf(model.dec_layers, path).w[0]
+    m, n = w.shape
+    x = randn((b, m), gen, bf16)
+    cases.append(case("decode_matvec", f"whisper dec/{path} {m}x{n}", b, bf16,
+                      lambda x=x, w=w: decode_matvec(x, w),
+                      lambda x=x, w=w: ref.decode_matvec(x, w),
+                      lambda x=x, w=w: torch.matmul(x, w),
+                      2 * (b * m + m * n + b * n), 2 * b * m * n,
+                      path="whisper_decode", weight=n_dec, cold=True))
+  for path in WHISPER_ENC:
+    leaf = _leaf(trunc.enc_layers, path)
+    u, v = leaf.u[0], leaf.v[0]
+    (m, r), n = u.shape, v.shape[1]
+    x = randn((rows_n, m), gen, bf16)
+    cases.append(case("lowrank_gemm", f"whisper enc/{path} {m}x{r}x{n}",
+                      rows_n, bf16, lambda a=(x, u, v): lowrank_gemm(*a),
+                      lambda a=(x, u, v): ref.lowrank_gemm(*a),
+                      lambda x=x, u=u, v=v: torch.matmul(torch.matmul(x, u),
+                                                         v),
+                      2 * (rows_n * m + m * r + r * n + rows_n * n),
+                      2 * rows_n * r * (m + n), path="whisper_lowrank",
+                      weight=n_enc, reps=10))
+  for path in WHISPER_ENC:
+    leaf = _leaf(quant_model.enc_layers, path)
+    wq, ws = leaf.w_q[0], leaf.w_scale[0]
+    m, n = wq.shape
+    xq, xs = ref.quantize_rowwise(randn((rows_n, m), gen, bf16))
+    cases.append(case("int8_gemm", f"whisper enc/{path} {m}x{n}", rows_n,
+                      torch.int8, lambda a=(xq, wq, xs, ws): int8_gemm(*a),
+                      lambda a=(xq, wq, xs, ws): ref.int8_gemm(*a), None,
+                      rows_n * m + m * n + 4 * (rows_n + n + rows_n * n),
+                      2 * rows_n * m * n, exact=True, path="whisper_int8",
+                      weight=n_enc, reps=10,
+                      yardstick=("int_mm", lambda a=xq, w=wq:
+                                 torch._int_mm(a, w))))
+  return cases
+
+
+def check_whisper(card) -> tuple[dict, list[dict], dict]:
+  """Full-width whisper-small: encode, decode, LiteASR-calibrated
+  truncation and calibrated PTQ, each under both policies with exact
+  launch counts; then the kernel rows at the phase's shapes. Returns
+  (launches by path, kernel rows, summary)."""
+  from repro_torch import configs
+  from repro_torch.core.compress import (FactorizationPlan,
+                                         compression_report, to_stage2)
+  from repro_torch.core.svd import TruncationSpec
+  from repro_torch.kernels import dispatch
+  from repro_torch.models import whisper
+  from repro_torch.quant import (QuantizedLinear, calibrate_activation_ranges,
+                                 calibrate_activation_stats, quantize_params)
+  cfg = configs.get_config("whisper-small").with_(
+      attn_block_kv=WHISPER_BLOCK_KV)
+  n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+  model = whisper.init_model(cfg, generator=torch.Generator(
+      device="cuda").manual_seed(0), device="cuda")
+  frames = whisper_frames(cfg, 0)
+  by_path, out = {}, dict(whisper=cfg.name, card=card, streams=WHISPER_BATCH,
+                          frames=WHISPER_FRAMES,
+                          attn_block_kv=WHISPER_BLOCK_KV)
+  # (a) encode, (b) decode
+  enc = check_encode(model, cfg, frames, {"flash_attention": n_enc},
+                     "whisper")
+  mem = enc.pop("memory")
+  by_path["whisper_encode"] = enc["launches"]
+  dec = check_decode(model, cfg, mem,
+                     {"decode_matvec": len(WHISPER_DEC_STEP) * n_dec},
+                     "whisper", WHISPER_STEPS)
+  by_path["whisper_decode"] = dec["launches"]
+  out.update(encode=enc, decode=dec)
+  # (c) LiteASR: calibrated truncation of the encoder
+  batches = [frames] + [whisper_frames(cfg, i + 1)
+                        for i in range(WHISPER_CALIB_BATCHES - 1)]
+
+  def calib_fwd(f):
+    return whisper.encode_unrolled(model, f, cfg, policy=dispatch.JNP_ONLY)
+  t0 = time.perf_counter()
+  stats = calibrate_activation_stats(calib_fwd, batches)
+  calib_s = time.perf_counter() - t0
+  want_keys = {f"enc/{g}" for g in ("attn_q", "attn_k", "attn_v", "attn_o",
+                                    "ffn_in", "ffn_out")}
+  if set(stats) != want_keys or any(
+      st.second_moment.shape[0] != n_enc for st in stats.values()):
+    fail(f"whisper calibration: stats keys {sorted(stats)}")
+  plan = FactorizationPlan(include=("enc/*",), truncation=TruncationSpec(
+      fixed_rank=WHISPER_RANK))
+  t0 = time.perf_counter()
+  trunc = to_stage2(model, plan, calib=stats)
+  trunc_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  spectral = to_stage2(model, plan)
+  spectral_s = time.perf_counter() - t0
+  err_cal = weighted_error(model, trunc, stats)
+  err_spec = weighted_error(model, spectral, stats)
+  if not err_cal <= err_spec:
+    fail(f"whisper: calibrated truncation's weighted error {err_cal:.6g} > "
+         f"the spectrum-only one's {err_spec:.6g}")
+  del spectral
+  report = compression_report(model, trunc, calib=stats)
+  tenc = check_encode(trunc, cfg, frames, {"flash_attention": n_enc,
+                                           "lowrank_gemm": 6 * n_enc},
+                      "whisper truncated")
+  tenc.pop("memory")
+  by_path["whisper_truncated_encode"] = tenc["launches"]
+  out["calibrated_truncation"] = dict(
+      rank=WHISPER_RANK, calibration_batches=len(batches),
+      calibrate_s=calib_s, to_stage2_calibrated_s=trunc_s,
+      to_stage2_spectrum_s=spectral_s, weighted_error_calibrated=err_cal,
+      weighted_error_spectrum=err_spec,
+      error_ratio=err_cal / err_spec if err_spec else None,
+      total_params_before=report["total_params_before"],
+      total_params_after=report["total_params_after"],
+      calibrated_gemms=report["calibrated_gemms"], encode=tenc)
+  # (d) calibrated PTQ
+  t0 = time.perf_counter()
+  ranges = calibrate_activation_ranges(calib_fwd, batches)
+  ranges_s = time.perf_counter() - t0
+  qmodel = quantize_params(model, calib=ranges)
+  leaves = [m for m in qmodel.modules() if isinstance(m, QuantizedLinear)]
+  static = {m.name for m in leaves if m.act_scale is not None}
+  if static != want_keys or len(leaves) != 16:
+    fail(f"whisper PTQ: static scales on {sorted(static)} of "
+         f"{len(leaves)} leaves")
+  qenc = check_encode(qmodel, cfg, frames, {"flash_attention": n_enc,
+                                            "int8_gemm": 6 * n_enc},
+                      "whisper PTQ")
+  qmem = qenc.pop("memory")
+  qdec = check_decode(qmodel, cfg, qmem, {"int8_gemm": 10 * n_dec},
+                      "whisper PTQ", WHISPER_PTQ_STEPS)
+  by_path["whisper_ptq"] = {k: qenc["launches"][k] + qdec["launches"][k]
+                            for k in qenc["launches"]}
+  out["calibrated_ptq"] = dict(calibrate_s=ranges_s, encode=qenc,
+                               decode=qdec)
+  print(json.dumps(out), flush=True)
+  del mem, qmem
+  rows = check_cases(whisper_cases(model, trunc, qmodel,
+                                   torch.Generator().manual_seed(7)))
+  del model, trunc, qmodel
+  gc.collect()
+  torch.cuda.empty_cache()
+  return by_path, rows, out
+
+
 def _sums(rows: list[dict]) -> dict:
   """Per-step sums of timed rows, each row counted `weight` times (and
   the cold times' sums where every row has them)."""
@@ -1844,7 +2217,8 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
           [dict(r, weight=1) for r in mine if r["path"] == "stablelm_prefill"])
     else:
       entry["ms_by_batch"] = ds2_step_ms_by_batch(rows, name)
-      for y in sorted({r["yardstick"] for r in mine if "yardstick" in r}):
+      for y in sorted({r["yardstick"] for r in mine if "yardstick" in r
+                       and r["path"] in (None, "ds2")}):
         entry[f"{y}_ms_by_batch"] = ds2_step_ms_by_batch(rows, name,
                                                          f"{y}_ms")
     for path, key in (("lm_decode", "llama3_8b_decode_step"),
@@ -1852,7 +2226,11 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
                       ("lm_draft_prefill", "llama3_8b_draft_prefill_token"),
                       ("lm_verify", "llama3_8b_verify_window"),
                       ("qwen3_decode", "qwen3_4b_decode_step"),
-                      ("qwen3_trained", "qwen3_4b_trained_step")):
+                      ("qwen3_trained", "qwen3_4b_trained_step"),
+                      ("whisper_encode", "whisper_small_encode"),
+                      ("whisper_decode", "whisper_small_decode_step"),
+                      ("whisper_lowrank", "whisper_small_truncated_encode"),
+                      ("whisper_int8", "whisper_small_ptq_encode")):
       on_path = [r for r in mine if r["path"] == path]
       if on_path:
         entry[key] = _sums(on_path)
@@ -1936,6 +2314,11 @@ def main() -> int:
       card)
   rows += lm_trained_rows
   phases["9_lm_training"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  whisper_paths, whisper_rows, _ = check_whisper(card)
+  by_path.update(whisper_paths)
+  rows += whisper_rows
+  phases["10_whisper"] = time.perf_counter() - t0
   launches = {k: sum(n[k] for n in by_path.values()) for k in KERNELS}
   if not all(n > 0 for n in launches.values()):
     fail(f"a kernel never launched on the main paths: {launches}")

@@ -10,6 +10,10 @@ checkpoint path strings (`repro.checkpoint.manager`):
                "dense_layers/ffn/w_gate/w", ... (layer-stacked, as the
                reference stores them), with qk-norm (qwen3) also
                "dense_layers/attn/q_norm" and ".../k_norm"
+  whisper:     "embedding/table" (tied), "pos_dec", "enc_layers/ln1/scale",
+               "enc_layers/attn/wq/w", "enc_layers/ffn/w_in/w",
+               "enc_layers/ffn/b_in", "enc_ln/bias", "dec_layers/xattn/wk/w",
+               "dec_layers/ln3/scale", "dec_ln/scale", ... (layer-stacked)
 The leaf type comes from the field names (w -> dense, u/v -> factored,
 w_q/u_q/... -> quantized); `name` and `group` are rebuilt from the path
 as the model's init sets them. Conv weights stay HWIO, the reference's
@@ -40,10 +44,12 @@ from repro_torch.device import resolve_device
 from repro_torch.layers.attention import Attention
 from repro_torch.layers.common import ModelConfig
 from repro_torch.layers.embedding import Embedding
-from repro_torch.layers.ffn import SwiGLU
+from repro_torch.layers.ffn import GeluFFN, SwiGLU
+from repro_torch.layers.norms import LayerNorm
 from repro_torch.layers.gru import GRU
 from repro_torch.models.deepspeech import DeepSpeech2
 from repro_torch.models.transformer import LayerStack, TransformerLM
+from repro_torch.models.whisper import Whisper, WhisperLayers
 from repro_torch.quant.leaf import QuantizedLinear
 
 _FLOAT_FIELDS = {"w", "u", "v"}
@@ -131,14 +137,43 @@ def _transformer(a: _Arrays, cfg: ModelConfig) -> TransformerLM:
   return TransformerLM(Embedding(table, head), a.pop("final_norm"), layers)
 
 
-_FAMILIES = {"deepspeech": _deepspeech, "transformer": _transformer}
+def _whisper(a: _Arrays, cfg: ModelConfig) -> Whisper:
+  def ln(path: str) -> LayerNorm:
+    return LayerNorm(a.pop(f"{path}/scale"), a.pop(f"{path}/bias"))
+
+  def attn(path: str, prefix: str, kind: str) -> Attention:
+    return Attention(*(_leaf(a.take(f"{path}/w{x}"),
+                             name=f"{prefix}/{kind}_{x}", group="nonrec",
+                             cfg=cfg) for x in "qkvo"))
+
+  def stack(path: str, prefix: str, decoder: bool) -> WhisperLayers:
+    ffn = GeluFFN(*(_leaf(a.take(f"{path}/ffn/w_{x}"),
+                          name=f"{prefix}/ffn_{x}", group="nonrec", cfg=cfg)
+                    for x in ("in", "out")),
+                  a.pop(f"{path}/ffn/b_in"), a.pop(f"{path}/ffn/b_out"))
+    extra = {}
+    if decoder:
+      extra = dict(xattn=attn(f"{path}/xattn", prefix, "xattn"),
+                   ln3=ln(f"{path}/ln3"))
+    return WhisperLayers(ln(f"{path}/ln1"), attn(f"{path}/attn", prefix,
+                                                 "attn"),
+                         ln(f"{path}/ln2"), ffn, **extra)
+
+  return Whisper(Embedding(a.pop("embedding/table")), a.pop("pos_dec"),
+                 stack("enc_layers", "enc", False), ln("enc_ln"),
+                 stack("dec_layers", "dec", True), ln("dec_ln"))
+
+
+_FAMILIES = {"deepspeech": _deepspeech, "transformer": _transformer,
+             "whisper": _whisper}
 
 
 def from_reference(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, *,
                    dtypes: Optional[Mapping[str, str]] = None,
                    device=None) -> nn.Module:
-  """Build the `cfg.family` model (a `DeepSpeech2` or a `TransformerLM`)
-  on `device` (default: the GPU) from the reference's path-keyed arrays.
+  """Build the `cfg.family` model (a `DeepSpeech2`, a `TransformerLM` or
+  a `Whisper`) on `device` (default: the GPU) from the reference's
+  path-keyed arrays.
   `dtypes` maps paths to dtype strings where an array is a raw view
   (bf16 as uint16). Every key must be used: an unknown or missing one
   raises."""

@@ -1,6 +1,6 @@
-"""Architecture registry of the port: the paper's deepspeech2-wsj and
-the dense transformers (chameleon-34b, llama3-8b, glm4-9b, stablelm-3b,
-qwen3-4b), in the reference's order.
+"""Architecture registry of the port: the paper's deepspeech2-wsj, the
+dense transformers (chameleon-34b, llama3-8b, glm4-9b, stablelm-3b,
+qwen3-4b) and whisper-small, in the reference's order.
 
   get_config(name)  — full config
   get_smoke(name)   — reduced same-family config (CPU-runnable)
@@ -8,7 +8,8 @@ qwen3-4b), in the reference's order.
 from __future__ import annotations
 
 from repro_torch.configs import (chameleon_34b, deepspeech2_wsj, glm4_9b,
-                                 llama3_8b, qwen3_4b, stablelm_3b)
+                                 llama3_8b, qwen3_4b, stablelm_3b,
+                                 whisper_small)
 from repro_torch.layers.common import ModelConfig
 
 _MODULES = {
@@ -17,6 +18,7 @@ _MODULES = {
     "glm4-9b": glm4_9b,
     "stablelm-3b": stablelm_3b,
     "qwen3-4b": qwen3_4b,
+    "whisper-small": whisper_small,
     "deepspeech2-wsj": deepspeech2_wsj,
 }
 

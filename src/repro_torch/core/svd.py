@@ -162,10 +162,12 @@ def truncate_leaf(leaf: FactoredLinear, spec: TruncationSpec,
             f"leaf {leaf.name!r}: {flat.shape[0]} stacked layers but "
             f"calibration has {covs.shape[0]} Gram matrices — per-layer "
             f"stats are required")
-      whitened = [np.linalg.svd(_whitener(c).T @ _numpy(m),
-                                compute_uv=False)
-                  for m, c in zip(flat, covs)]
-      r = max(spec.pick(s) for s in whitened)
+      if spec.fixed_rank is not None:     # no spectrum needed for it
+        r = spec.clamp(spec.fixed_rank, min(flat.shape[-2:]))
+      else:
+        r = max(spec.pick(np.linalg.svd(_whitener(c).T @ _numpy(m),
+                                        compute_uv=False))
+                for m, c in zip(flat, covs))
       fixed = dataclasses.replace(spec, fixed_rank=r, round_to=1)
       uvs = [activation_split(m, c, fixed)[:2] for m, c in zip(flat, covs)]
     else:

@@ -9,7 +9,8 @@ regime names, so the two packages' routing logs compare by equality:
                   (stored int8 weights and scales consumed directly); an
                   override on a float leaf re-quantizes per call
   gru_cell      — the fused recurrent step, routed by `maybe_gru_cell`
-  flash_attention — the prefill's causal attention, routed by
+  flash_attention — the prefill's causal attention and Whisper's
+                  non-causal encoder attention, routed by
                   `maybe_flash_attention`
   jnp           — everything else and degenerate shapes: the plain
                   PyTorch path (`torch.matmul`), named after the
@@ -29,8 +30,16 @@ Classification keeps the reference's 128-lane gate (no dimension below
 gate is part of the routing contract the two packages share.
 
 PyTorch runs eagerly, so a decision is made — and recorded by
-`record_dispatch()` — at every call, not once per trace. The
-calibration observers of the reference come with a later slice.
+`record_dispatch()` — at every call, not once per trace.
+
+The calibration observers (`observe_gemm_inputs`, `observe_gemm_moments`,
+`calibration_layer`) see every GEMM routed through `gemm()`, under any
+policy. The reference's observers skip traced activations, which in an
+eager calibration forward means every GEMM inside a `lax.scan`: the GRU
+time loop, the layer stacks of the transformer and of Whisper's
+`encode`/`decode_*`. The port runs those loops in Python, so each of
+them is marked with `scanned()`, inside which the observers see nothing:
+the two packages' calibration dicts then hold the same keys.
 """
 from __future__ import annotations
 
@@ -135,16 +144,122 @@ def record_dispatch():
   try:
     yield log
   finally:
-    # by identity: two empty logs compare equal
-    for i in range(len(_RECORDERS) - 1, -1, -1):
-      if _RECORDERS[i] is log:
-        del _RECORDERS[i]
-        break
+    _remove(_RECORDERS, log)
 
 
 def _record(name: Optional[str], regime: str) -> None:
   for log in _RECORDERS:
     log.append((name or "<unnamed>", regime))
+
+
+def _remove(stack: list, item) -> None:
+  # by identity: two empty logs compare equal
+  for i in range(len(stack) - 1, -1, -1):
+    if stack[i] is item:
+      del stack[i]
+      return
+
+
+# ---------------------------------------------------------------------------
+# Calibration observers.
+# ---------------------------------------------------------------------------
+
+_OBSERVERS: list = []
+_MOMENT_OBSERVERS: list = []
+_CAL_LAYER: list = []
+_SCANNED: list = []
+
+
+@contextlib.contextmanager
+def observe_gemm_inputs():
+  """Capture {logical name: max |x| seen} (amax in f32) for every GEMM
+  routed through `gemm()` inside the context, the tap
+  `quant.calibrate_activation_ranges` builds on. Under
+  `calibration_layer(i)` the key is "name@L{i}"; inside `scanned()`
+  nothing is observed."""
+  log: dict = {}
+  _OBSERVERS.append(log)
+  try:
+    yield log
+  finally:
+    _remove(_OBSERVERS, log)
+
+
+@contextlib.contextmanager
+def calibration_layer(index: int):
+  """Tag every GEMM observed inside as belonging to layer `index` of a
+  stacked leaf: observers key it "name@L{index}" (the innermost index
+  wins). `models.whisper.encode_unrolled` wraps each encoder layer in
+  it."""
+  _CAL_LAYER.append(int(index))
+  try:
+    yield
+  finally:
+    _CAL_LAYER.pop()
+
+
+@contextlib.contextmanager
+def scanned():
+  """Mark a loop that the reference runs as a `lax.scan`. Its GEMMs'
+  activations are tracers there, which the reference's observers skip;
+  inside this context the port's observers skip them too."""
+  _SCANNED.append(True)
+  try:
+    yield
+  finally:
+    _SCANNED.pop()
+
+
+@contextlib.contextmanager
+def observe_gemm_moments():
+  """Capture per-GEMM input second moments for activation-calibrated
+  low-rank truncation (LiteASR): for every observed input x (rows
+  flattened to (N, m))
+
+      {key: {"xtx": sum_n x_n x_n^T (m, m) float64, "count": N rows,
+             "amax": max |x|}}
+
+  keyed as `observe_gemm_inputs` keys. The Gram matrix accumulates in
+  float64 on x's device; when the context closes each "xtx" becomes a
+  numpy array (what `core.svd.activation_split` takes)."""
+  log: dict = {}
+  _MOMENT_OBSERVERS.append(log)
+  try:
+    yield log
+  finally:
+    _remove(_MOMENT_OBSERVERS, log)
+    for ent in log.values():
+      if isinstance(ent["xtx"], torch.Tensor):
+        ent["xtx"] = ent["xtx"].cpu().numpy()
+
+
+def _obs_key(name: Optional[str]) -> str:
+  key = name or "<unnamed>"
+  if _CAL_LAYER:
+    key = f"{key}@L{_CAL_LAYER[-1]}"
+  return key
+
+
+def _observe(name: Optional[str], x: torch.Tensor) -> None:
+  if (not _OBSERVERS and not _MOMENT_OBSERVERS) or _SCANNED:
+    return
+  key = _obs_key(name)
+  with torch.no_grad():
+    amax = float(x.detach().float().abs().max())
+    for log in _OBSERVERS:
+      log[key] = max(log.get(key, 0.0), amax)
+    if _MOMENT_OBSERVERS:
+      rows = x.detach().reshape(-1, x.shape[-1]).double()
+      xtx = rows.T @ rows
+      for log in _MOMENT_OBSERVERS:
+        ent = log.get(key)
+        if ent is None:
+          log[key] = {"xtx": xtx.clone(), "count": rows.shape[0],
+                      "amax": amax}
+        else:
+          ent["xtx"] += xtx
+          ent["count"] += rows.shape[0]
+          ent["amax"] = max(ent["amax"], amax)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +322,7 @@ def gemm(leaf, x: torch.Tensor, policy: Optional[KernelPolicy],
   """y[..., n] = x[..., m] @ W(m, n), routed by `policy`."""
   regime = classify(leaf, x, policy, name)
   _record(name or getattr(leaf, "name", None), regime)
+  _observe(name or getattr(leaf, "name", None), x)
   if regime == "jnp":
     return _plain_gemm(leaf, x)
   lead = x.shape[:-1]
@@ -257,12 +373,14 @@ def maybe_gru_cell(xw: torch.Tensor, h: torch.Tensor, rec,
 # ---------------------------------------------------------------------------
 
 def maybe_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          policy: Optional[KernelPolicy],
-                          name: str) -> Optional[torch.Tensor]:
-  """Route one causal attention (q: (b, s, h, d); k, v: (b, s, h_kv, d),
-  kv heads not repeated) to the flash_attention kernel, or return None to
-  decline (the caller then repeats the kv heads and runs the plain
-  blockwise body). It declines, recording nothing, wherever the kernel
+                          policy: Optional[KernelPolicy], name: str, *,
+                          causal: bool = True) -> Optional[torch.Tensor]:
+  """Route one attention (q: (b, s, h, d); k, v: (b, s, h_kv, d), kv
+  heads not repeated), causal or not, to the flash_attention kernel, or
+  return None to decline (the caller then runs its plain blockwise
+  body). The decision is recorded under `name` ("layers/attn": the
+  causal prefill; "enc/attn": Whisper's non-causal encoder), which an
+  override can also pin. It declines, recording nothing, wherever the kernel
   would refuse the operands (`flash_attention.flash_supported`: a head
   width it is not built for), as the reference's wrapper declines below
   its block sizes; a direct call of the kernel's wrapper still raises
@@ -275,4 +393,4 @@ def maybe_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   if not flash_supported(q, k, v):
     return None
   _record(name, "flash_attention")
-  return ops.flash_attention(q, k, v, causal=True)
+  return ops.flash_attention(q, k, v, causal=causal)

@@ -1,11 +1,13 @@
-"""Training entry point of the port: the deepspeech and dense
-transformer branches of `repro.launch.train`, with its flags and
-`--device` (Whisper's branch comes with Whisper).
+"""Training entry point of the port: the deepspeech, dense transformer
+and whisper branches of `repro.launch.train`, with its flags and
+`--device`.
 
 Examples (on a machine with a GPU; `--device cpu` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepspeech2-wsj \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+      --device cpu --steps 6 --two-stage --transition 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepspeech2-wsj \
       --full --steps 8 --batch 16 --two-stage --transition 4
@@ -15,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -79,6 +82,18 @@ def main(argv=None) -> dict:
                                       feat_dim=cfg.feat_dim,
                                       global_batch=args.batch, seed=args.seed)
     gen = lambda i: speech_data.batch_at(dc, i)  # noqa: E731
+  elif cfg.family == "whisper":
+    dcl = lm_data.LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                               global_batch=args.batch, seed=args.seed)
+
+    def gen(i):
+      # the frontend is a stub: seeded random frame embeddings, as the
+      # reference's launch/train.py draws them
+      b = lm_data.batch_at(dcl, i)
+      frames = np.random.RandomState(i).randn(
+          args.batch, args.seq, cfg.d_model).astype(np.float32)
+      return {"frames": frames, "tokens": b["tokens"],
+              "targets": b["targets"]}
   else:
     dcl = lm_data.LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch, seed=args.seed)

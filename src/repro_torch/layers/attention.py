@@ -12,6 +12,13 @@ the reference does, and runs the plain blockwise online softmax over
 `cfg.attn_block_q` x `cfg.attn_block_kv` tiles, which never builds the
 S x S score matrix.
 
+`bidir_attention_forward` is Whisper's encoder self-attention, the
+reference's `_bidir_attention`: non-causal, no RoPE, under a kernel
+policy the same kernel in its non-causal mode (recorded as "enc/attn"),
+otherwise the plain online softmax over kv blocks of
+min(cfg.attn_block_kv, s), which must divide s (the reference reshapes
+k and v into blocks; both routes raise where it would fail).
+
 `attention_decode` and `attention_decode_window` (speculative
 verification: W tokens a slot in one pass) write the new K/V rows into
 the cache in place (the reference returns a new cache; a copy per step
@@ -146,6 +153,64 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
   q, k, v = _project_qkv(p, x, cfg, positions, policy)
   out = flash_attention(q, k, v, cfg, policy)
   h, hd = cfg.num_heads, cfg.resolved_head_dim
+  return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
+
+
+def _bidir_block(s: int, block_kv: int) -> int:
+  """The kv block of a non-causal attention over s positions:
+  min(block_kv, s), which must divide s."""
+  bkv = min(block_kv, s)
+  if s % bkv:
+    raise ValueError(
+        f"non-causal attention over {s} positions with attn_block_kv="
+        f"{block_kv}: the kv block {bkv} does not divide {s} (the "
+        "reference reshapes k and v into s // block blocks); pick an "
+        f"attn_block_kv that divides {s}")
+  return bkv
+
+
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, block_kv: int) -> torch.Tensor:
+  """Plain non-causal online-softmax attention over kv blocks of
+  `block_kv` rows (dividing s); every query row whole. q, k, v:
+  (b, s, h, hd). Scores, running max, sum and accumulator are f32;
+  output in q.dtype."""
+  b, s, h, hd = q.shape
+  scale = 1.0 / (hd ** 0.5)
+  f32 = torch.float32
+  qf = q.to(f32)
+  m = torch.full((b, h, s), NEG_INF, dtype=f32, device=q.device)
+  l = torch.zeros((b, h, s), dtype=f32, device=q.device)
+  o = torch.zeros((b, s, h, hd), dtype=f32, device=q.device)
+  for k0 in range(0, s, block_kv):
+    kj = k[:, k0:k0 + block_kv].to(f32)
+    vj = v[:, k0:k0 + block_kv].to(f32)
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kj) * scale
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    p = torch.exp(sc - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    o = o * alpha.transpose(1, 2)[..., None] + torch.einsum(
+        "bhqk,bkhd->bqhd", p, vj)
+    m = m_new
+  o = o / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
+  return o.to(q.dtype)
+
+
+def bidir_attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                            policy=None) -> torch.Tensor:
+  """Whisper's encoder self-attention over x (b, s, d): non-causal, no
+  RoPE, q, k and v at cfg.num_heads heads. `p` maps "wq", "wk", "wv",
+  "wo" to 2-D leaves."""
+  b, s, _ = x.shape
+  bkv = _bidir_block(s, cfg.attn_block_kv)
+  h, hd = cfg.num_heads, cfg.resolved_head_dim
+  q, k, v = (gemm(p[w], x, policy).reshape(b, s, h, hd)
+             for w in ("wq", "wk", "wv"))
+  out = dispatch.maybe_flash_attention(q, k, v, policy, name="enc/attn",
+                                       causal=False)
+  if out is None:
+    out = bidirectional_attention(q, k, v, bkv)
   return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
 
 

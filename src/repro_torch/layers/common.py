@@ -35,11 +35,11 @@ def gemm(leaf, x: torch.Tensor, policy=None) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
   """The reference's `ModelConfig`, cut to the fields the ported
-  families read: the dense GQA transformer (qwen3's `qk_norm` included)
-  and DS2 (the MoE, MLA, SSM and encoder fields come with their
-  families)."""
+  families read: the dense GQA transformer (qwen3's `qk_norm` included),
+  Whisper's encoder-decoder and DS2 (the MoE, MLA and SSM fields come
+  with their families)."""
   name: str
-  family: str                   # transformer | deepspeech
+  family: str                   # transformer | whisper | deepspeech
   num_layers: int
   d_model: int
   num_heads: int
@@ -52,6 +52,9 @@ class ModelConfig:
   tie_embeddings: bool = False
   norm_eps: float = 1e-5
   dtype: torch.dtype = torch.bfloat16
+  # -- enc-dec (whisper) --
+  encoder_layers: int = 0
+  max_source_positions: int = 1500
   # -- speech (deepspeech2) --
   feat_dim: int = 80                      # mel bins (paper B.3)
   gru_dims: tuple = ()                    # growing sizes (paper B.1)

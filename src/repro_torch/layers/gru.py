@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.factored import dense
+from repro_torch.kernels import dispatch
 from repro_torch.layers.common import gemm
 
 
@@ -55,7 +56,6 @@ def gru_cell(xw: torch.Tensor, h: torch.Tensor, rec: nn.Module,
   kernel; where it declines (factored or quantized `rec`, hidden < 128)
   the plain gate math below runs, its recurrent GEMM still routed."""
   if policy is not None:
-    from repro_torch.kernels import dispatch
     fused = dispatch.maybe_gru_cell(xw, h, rec, bias, policy)
     if fused is not None:
       return fused
@@ -77,9 +77,10 @@ def gru_forward(p: GRU, x: torch.Tensor, policy=None) -> torch.Tensor:
   xw = gemm(p.nonrec, x, policy)        # batched across time (paper §4)
   h = torch.zeros((b, hidden), dtype=x.dtype, device=x.device)
   hs = []
-  for i in range(t):
-    h = gru_cell(xw[:, i], h, p.rec, p.bias, hidden, policy)
-    hs.append(h)
+  with dispatch.scanned():              # the reference's time scan
+    for i in range(t):
+      h = gru_cell(xw[:, i], h, p.rec, p.bias, hidden, policy)
+      hs.append(h)
   return torch.stack(hs, dim=1)
 
 

@@ -1,8 +1,9 @@
 """One dispatch surface over the ported model families — counterpart of
 `repro.models.api`, as far as serving and training need it.
 
-`get_model(cfg)` returns a `ModelApi` for the `transformer` and
-`deepspeech` families with `init`, `forward`, `loss_fn`,
+`get_model(cfg)` returns a `ModelApi` for the `transformer`, `whisper`
+and `deepspeech` families with `init`, `forward`, `encode` (whisper's
+encoder), `loss_fn`,
 `init_decode_state`, `decode_step`, `decode_state_batch_axes`, the
 speculative-rewind
 contract `decode_state_carry`, the batched window `decode_window` (and
@@ -20,7 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.layers.common import ModelConfig
-from repro_torch.models import deepspeech, transformer
+from repro_torch.models import deepspeech, transformer, whisper
 
 __all__ = ["KV_CACHE_KEYS", "ModelApi", "cast_kv_cache", "get_model"]
 
@@ -76,6 +77,9 @@ class ModelApi:
   # `decode_step`s' to f32 summation order (the port's GEMMs block b*W
   # rows differently from b rows, so not bit for bit as on the reference)
   decode_window_batched: Optional[Callable] = None
+  # encoder-decoder families: (params, frames (b, t, d), cfg, policy) ->
+  # memory (b, t, d), which the decode state's "mem" holds
+  encode: Optional[Callable] = None
 
   @property
   def decodable(self) -> bool:
@@ -140,6 +144,14 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_state_batch_axes=transformer.decode_state_batch_axes,
         decode_state_carry=transformer.decode_state_carry,
         decode_window_batched=transformer.decode_window)
+  if fam == "whisper":
+    return ModelApi(
+        family=fam, init=whisper.init_model, loss_fn=whisper.loss_fn,
+        forward=None, init_decode_state=whisper.init_decode_state,
+        decode_step=whisper.decode_step, encode=whisper.encode,
+        decode_state_batch_axes=whisper.decode_state_batch_axes,
+        decode_state_carry=whisper.decode_state_carry,
+        decode_window_batched=whisper.decode_window)
   if fam == "deepspeech":
     return ModelApi(
         family=fam, init=deepspeech.init_model, forward=deepspeech.forward,

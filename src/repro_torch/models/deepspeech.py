@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.core.factored import dense
 from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch
 from repro_torch.layers.common import ModelConfig, gemm
 from repro_torch.layers.gru import (GRU, gru_cell, gru_decode, gru_forward,
                                    init_gru)
@@ -226,9 +227,10 @@ def api_decode_window(params: DeepSpeech2, state: dict, feat: torch.Tensor,
     p = params.grus[f"gru{i}"]
     xw = gemm(p.nonrec, h, policy)                      # (b, W, 3H)
     hc, hs = state[f"gru{i}"], []
-    for t in range(feat.shape[1]):
-      hc = gru_cell(xw[:, t], hc, p.rec, p.bias, hidden, policy)
-      hs.append(hc)
+    with dispatch.scanned():            # the reference's recurrence scan
+      for t in range(feat.shape[1]):
+        hc = gru_cell(xw[:, t], hc, p.rec, p.bias, hidden, policy)
+        hs.append(hc)
     new_state[f"gru{i}"] = hc
     h = torch.stack(hs, dim=1)
   return _head(params, h, policy), new_state

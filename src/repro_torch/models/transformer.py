@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.common import ModelConfig
 from repro_torch.layers.embedding import (Embedding, embed, init_embedding,
@@ -46,8 +47,57 @@ def check_supported(cfg: ModelConfig) -> None:
           f"{cfg.name}: {field} is not ported yet; it comes with {later}")
 
 
-class LayerStack(nn.Module):
-  """The L layers' params, stacked on a leading axis."""
+class StackedLayers(nn.Module):
+  """Base of a model's layer stacks: the L layers' params stacked on a
+  leading axis, with per-layer views (`layers()`). A subclass names its
+  stacked leaves (`_leaves`) and builds layer i's dict of 2-D views
+  (`_build_views`)."""
+
+  def __init__(self):
+    super().__init__()
+    self._views = None        # (stacked leaves, per-layer dicts)
+
+  def _leaves(self) -> tuple:
+    raise NotImplementedError
+
+  def _build_views(self) -> list[dict]:
+    raise NotImplementedError
+
+  def _apply(self, fn, *args, **kwargs):
+    self._views = None        # a move or cast gives the params new storage
+    return super()._apply(fn, *args, **kwargs)
+
+  def __getstate__(self):
+    # copies and pickles rebuild the views on their own storage
+    return {**self.__dict__, "_views": None}
+
+  def layers(self) -> list[dict]:
+    """Per-layer views in the reference's dict shape, each leaf sharing
+    storage with layer i of its stack.
+
+    Where autograd could record them (grad mode on and a leaf that
+    requires grad) the views are built anew on each call, so each
+    forward's graph reaches the stacked leaves through its own views. A
+    kept view would carry an earlier step's graph, or, built while the
+    params were frozen, none at all. Otherwise (serving) they are built
+    once and kept until a leaf is replaced or `_apply` (`.to()`, ...)
+    moves the params: a step would otherwise build a leaf module a GEMM
+    and layer."""
+    leaves = self._leaves()
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for leaf in leaves if leaf is not None
+        for t in ([leaf] if isinstance(leaf, torch.Tensor)
+                  else leaf.parameters())):
+      return self._build_views()
+    if self._views is None or any(
+        a is not b for a, b in zip(self._views[0], leaves)):
+      self._views = (leaves, self._build_views())
+    return self._views[1]
+
+
+class LayerStack(StackedLayers):
+  """The transformer's L layers: [{"ln1", "ln2", "attn": {"wq", ...,
+  ["q_norm", "k_norm"]}, "ffn": {"w_gate", ...}}] a layer."""
 
   _ATTN = ("wq", "wk", "wv", "wo")
   _NORMS = ("q_norm", "k_norm")
@@ -60,20 +110,11 @@ class LayerStack(nn.Module):
     self.ln2 = nn.Parameter(ln2, requires_grad=False)
     self.attn = attn
     self.ffn = ffn
-    self._views = None        # (stacked leaves, per-layer dicts)
 
   def _leaves(self) -> tuple:
     return (self.ln1, self.ln2, *(getattr(self.attn, k) for k in self._ATTN),
             *(getattr(self.attn, k) for k in self._NORMS),
             *(getattr(self.ffn, k) for k in self._FFN))
-
-  def _apply(self, fn, *args, **kwargs):
-    self._views = None        # a move or cast gives the params new storage
-    return super()._apply(fn, *args, **kwargs)
-
-  def __getstate__(self):
-    # copies and pickles rebuild the views on their own storage
-    return {**self.__dict__, "_views": None}
 
   def _build_views(self) -> list[dict]:
     def attn(i):
@@ -84,29 +125,6 @@ class LayerStack(nn.Module):
     return [{"ln1": self.ln1[i], "ln2": self.ln2[i], "attn": attn(i),
              "ffn": {k: getattr(self.ffn, k).layer(i) for k in self._FFN}}
             for i in range(self.ln1.shape[0])]
-
-  def layers(self) -> list[dict]:
-    """Per-layer views, in the reference's dict shape: [{"ln1", "ln2",
-    "attn": {"wq", ..., ["q_norm", "k_norm"]}, "ffn": {"w_gate", ...}}]
-    for each layer, each leaf sharing storage with layer i of its stack.
-
-    Where autograd could record them (grad mode on and a leaf that
-    requires grad) the views are built anew on each call, so each
-    forward's graph reaches the stacked leaves through its own views. A
-    kept view would carry an earlier step's graph, or, built while the
-    params were frozen, none at all. Otherwise (serving) they are built
-    once and kept until a leaf is replaced or `_apply` (`.to()`, ...)
-    moves the params: a step would otherwise build 7 L leaf modules."""
-    leaves = self._leaves()
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for leaf in leaves if leaf is not None
-        for t in ([leaf] if isinstance(leaf, torch.Tensor)
-                  else leaf.parameters())):
-      return self._build_views()
-    if self._views is None or any(
-        a is not b for a, b in zip(self._views[0], leaves)):
-      self._views = (leaves, self._build_views())
-    return self._views[1]
 
 
 class TransformerLM(nn.Module):
@@ -189,8 +207,9 @@ def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ModelConfig,
   x = embed(params.embedding, tokens)
   layer = _remat_layer(cfg, policy, torch.is_grad_enabled() and any(
       p.requires_grad for p in params.parameters()))
-  for lp in params.dense_layers.layers():
-    x = layer(x, lp)
+  with dispatch.scanned():              # the reference's layer scan
+    for lp in params.dense_layers.layers():
+      x = layer(x, lp)
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   if last_only:
     x = x[:, -1:]
@@ -251,13 +270,14 @@ def _decode_stack(params: TransformerLM, state: dict, tokens: torch.Tensor,
                   attend) -> tuple[torch.Tensor, dict]:
   x = embed(params.embedding, tokens)
   cache = state["dense"]
-  for i, lp in enumerate(params.dense_layers.layers()):
-    a = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, _ = attend(lp["attn"], a, {"k": cache["k"][i], "v": cache["v"][i]},
-                  positions, cfg, policy)
-    x = x + a
-    f = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + swiglu_forward(lp["ffn"], f, policy)
+  with dispatch.scanned():              # the reference's layer scan
+    for i, lp in enumerate(params.dense_layers.layers()):
+      a = rms_norm(x, lp["ln1"], cfg.norm_eps)
+      a, _ = attend(lp["attn"], a, {"k": cache["k"][i], "v": cache["v"][i]},
+                    positions, cfg, policy)
+      x = x + a
+      f = rms_norm(x, lp["ln2"], cfg.norm_eps)
+      x = x + swiglu_forward(lp["ffn"], f, policy)
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   return lm_logits(params.embedding, x, policy), state
 

@@ -2,14 +2,15 @@
 schedule (stage-1 trace-norm training -> truncated-SVD warmstart ->
 stage-2 fine-tune), trace-norm diagnostics, checkpoint and restart.
 
-Counterpart of `repro.training.trainer`, for the deepspeech and the
-dense transformer families. A step is the forward and backward of every
-microbatch (autograd, with no kernel policy: no kernel has a backward),
-the regularizer, and an in-place AdamW update. A transformer batch
-{tokens, targets} goes to the trainer's device as int64 tensors before
-the step. The transition replaces the factored leaves (full rank ->
-truncated), so it makes new parameters, turns their gradients on, and
-starts new optimizer moments.
+Counterpart of `repro.training.trainer`, for the deepspeech, dense
+transformer and whisper families. A step is the forward and backward of
+every microbatch (autograd, with no kernel policy: no kernel has a
+backward), the regularizer, and an in-place AdamW update. A transformer
+batch {tokens, targets} goes to the trainer's device as int64 tensors
+before the step, a whisper batch {frames, tokens, targets} as f32
+frames and int64 tokens. The transition replaces the factored leaves
+(full rank -> truncated), so it makes new parameters, turns their
+gradients on, and starts new optimizer moments.
 """
 from __future__ import annotations
 
@@ -220,6 +221,11 @@ class Trainer:
     t0 = time.perf_counter()
     if self.api.family == "transformer":
       batch = shard_batch(batch, self.device)
+    elif self.api.family == "whisper":
+      batch = {"frames": torch.as_tensor(batch["frames"], dtype=torch.float32,
+                                         device=self.device),
+               **shard_batch({k: batch[k] for k in ("tokens", "targets")},
+                             self.device)}
     self.params, self.opt_state, metrics = self._step_fn(
         self.params, self.opt_state, batch, self.step)
     metrics = {k: float(v) for k, v in metrics.items()}

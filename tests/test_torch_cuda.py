@@ -689,3 +689,43 @@ def test_transformer_training_step_on_the_card_matches_the_cpu(cuda,
 def tr_batch(trainer, batch):
   from repro_torch.data.lm import shard_batch
   return shard_batch(batch, trainer.device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_causal_flash_at_the_whisper_encoder_shape(cuda, dtype):
+  """flash_attention non-causal at whisper-small's encoder attention
+  (4, 1500, 12, 64): 1500 is off every 128-row tile."""
+  from repro_torch.kernels.flash_attention import flash_attention
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  q, k, v = (torch.from_numpy(rnd(i, (4, 1500, 12, 64))).to(cuda, dt)
+             for i in (4, 5, 6))
+  got = flash_attention(q, k, v, causal=False)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal=False),
+                             **tol)
+
+
+def test_whisper_encode_through_flash_matches_plain(cuda):
+  """A full-width whisper-small encode (12 layers, f32, 1500 frames,
+  attn_block_kv 500): the "cuda" policy launches the non-causal flash
+  kernel once a layer and nothing else (every GEMM has 1500 rows), and
+  its memory equals the plain policy's within 2e-4 (f32 summation order
+  through 12 layers)."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.models import whisper
+  cfg = configs.get_config("whisper-small").with_(dtype=torch.float32,
+                                                  attn_block_kv=500)
+  model = whisper.init_model(cfg, generator=torch.Generator(
+      device=cuda).manual_seed(0), device=cuda)
+  frames = torch.from_numpy(rnd(7, (1, 1500, cfg.d_model))).to(cuda)
+  ops.reset_launches()
+  with dispatch.record_dispatch() as log:
+    got = whisper.encode(model, frames, cfg, dispatch.resolve_policy("cuda"))
+  assert ops.LAUNCHES == {**{k: 0 for k in ops.LAUNCHES},
+                          "flash_attention": cfg.encoder_layers}
+  assert ("enc/attn", "flash_attention") in set(log)
+  want = whisper.encode(model, frames, cfg, dispatch.resolve_policy("plain"))
+  torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

@@ -29,7 +29,10 @@ def test_port_imports_neither_jax_nor_reference():
           "core/schedule.py", "optim/adamw.py", "training/trainer.py",
           "checkpoint/manager.py", "runtime/supervisor.py",
           "launch/train.py", "serving/speculative.py",
-          "serving/engine.py", "models/api.py", "launch/serve.py"} <= names
+          "serving/engine.py", "models/api.py", "launch/serve.py",
+          "models/whisper.py", "configs/whisper_small.py", "quant/ptq.py",
+          "layers/norms.py", "layers/ffn.py", "layers/attention.py",
+          "kernels/dispatch.py"} <= names
   bad = [(f.relative_to(PORT), mod) for f in files
          for mod in _imported_modules(f)
          if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
@@ -82,7 +85,7 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
   """`Trainer` and `launch.train` run on the GPU unless asked for the
   CPU; with no GPU they raise. On the CPU the launcher trains the DS2
   smoke model through both stages and a transformer's; a family without
-  a port (Whisper) and a mesh are not ported yet and say so."""
+  a port (zamba) and a mesh are not ported yet and say so."""
   from repro_torch import configs
   from repro_torch.launch import train
   from repro_torch.training import TrainConfig, Trainer
@@ -95,7 +98,7 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
   with pytest.raises(NotImplementedError, match="A10"):
     Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
   with pytest.raises(ValueError, match="not ported yet"):
-    Trainer(cfg.with_(family="whisper"), TrainConfig(), device="cpu")
+    Trainer(cfg.with_(family="zamba"), TrainConfig(), device="cpu")
   lm_out = train.main(["--arch", "llama3-8b", "--device", "cpu", "--steps",
                        "1", "--batch", "2", "--seq", "8"])
   assert lm_out["final_loss"] > 0
@@ -104,3 +107,26 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
                     "--transition", "2"])
   assert out["final_loss"] > 0
   assert "stage 2" in capsys.readouterr().out
+
+
+def test_whisper_entry_points_default_to_the_gpu(monkeypatch):
+  """Whisper's entry points too: with no GPU, not asking for the CPU
+  raises; `launch.train --arch whisper-small --device cpu` trains."""
+  from repro_torch import configs
+  from repro_torch.launch import train
+  from repro_torch.models.whisper import init_decode_state, init_model
+  from repro_torch.training import TrainConfig, Trainer
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  cfg = configs.get_smoke("whisper-small")
+  gen = torch.Generator().manual_seed(0)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_model(cfg, generator=gen)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_decode_state(cfg, 2, 16, enc_len=8)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    Trainer(cfg, TrainConfig())
+  assert init_model(cfg, generator=gen, device="cpu").pos_dec.device.type \
+      == "cpu"
+  out = train.main(["--arch", "whisper-small", "--device", "cpu", "--steps",
+                    "1", "--batch", "2", "--seq", "16"])
+  assert out["final_loss"] > 0
