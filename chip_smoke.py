@@ -69,14 +69,15 @@
    draws them, greedy. Correctness: a recorded "plain" run, and a
    recorded "cuda" run fed the plain run's sampled tokens (teacher
    forcing), so every call of both sees the same inputs; every call's
-   live log-probs must agree within `LM_SERVE_ATOL`, and their argmax may
+   live log-probs must agree within `LM_SERVE_ATOL` (a MoE model's, up to
+   its sequence's first route flip: phase 11), and their argmax may
    differ only where the plain run's top-2 gap is below it. Requires every
    GEMM of the "cuda" runs to route to `decode_matvec` (225 launches a
    step: 32 layers x 7 GEMMs and the head) and no launch under "plain".
    Then one run of each policy with no hooks prints tok/s and TTFT p50:
    smoke readings of a tiny mix, not serving metrics. Last, it times a
-   batch-4 decode step with `LayerStack.layers()`'s per-layer views kept
-   and with them rebuilt, and `layers()` alone.
+   batch-4 decode step with each stack's per-layer views (`layers()`)
+   kept and with them rebuilt, and `layers()` alone.
 6. Training: the port's two-stage recipe on the card. First one f32
    `Trainer` step at the DS2 smoke width on the card and on the CPU from
    the same weights (the CPU trainer's, through a checkpoint) and batch:
@@ -170,7 +171,37 @@
    warm) against `torch.matmul`, `lowrank_gemm` and `int8_gemm` at the
    encoder's 6000-row shapes against two `torch.matmul` / `torch._int_mm`
    (a yardstick: no dequant).
-11. Prints each phase's seconds, the card line, `{"kernels": [...]}`
+11. DeepSeek, after phase 10 (MLA, the capacity-routed MoE with shared
+   experts; MLA attention runs the reference's blockwise softmax in
+   plain PyTorch, so no flash launch). (b) `deepseek-v2-lite` at full
+   width in f32 cut to `DS_F32_LAYERS` layers: 4 prompts of
+   `DS_F32_PREFILL` tokens through one `decode_window`, then
+   `DS_F32_STEPS` teacher-forced decode steps under "plain" and "cuda",
+   under `moe.record_routes()`: routes identical, log-probs within
+   `DS_F32_ATOL`, exactly 25 `decode_matvec` launches a step. (a), (c)
+   All 27 layers in bf16: `decode_matvec` held and timed (warm and cold)
+   at the decode step's shapes; the 4096-token prefill under both
+   policies (one launch, the head; no flash; log-probs held to the
+   head's bf16 rounding, `HEAD_ONLY_RTOL`); `LMEngine` as in phase 5
+   (163 launches a step), gated on the route log: every first route
+   difference between the policies (not caused by an earlier one of its
+   sequence at a lower layer and an earlier or equal position) must be a
+   near-tie (`ROUTE_LOGIT_GAP`), log-probs are held to `LM_SERVE_ATOL`
+   up to a sequence's first flip, and a third run on the plain run's
+   routes (`moe.replay_routes`) is held to it at every call and measures
+   how far the arithmetic alone moves the router's logit gaps, which
+   must stay below `ROUTE_LOGIT_GAP`; then one decode step and one
+   prefill under `torch.profiler`. (d) The f32
+   card-vs-CPU step at `deepseek-v3-671b`'s smoke width (q-LoRA, MTP);
+   `deepseek-v2-lite` at full width cut to `DS_TRAIN_LAYERS` (1 dense +
+   1 MoE), bf16, trained as phase 9 (every GEMM of at least 32 wide
+   factored, the expert stacks included), then frozen and served with
+   exactly 13 `lowrank_gemm` launches a step. (e) `deepseek-v3-671b` at
+   full width cut to `DS3_LAYERS` (3 dense + 1 MoE of 256 experts,
+   top-8, q-LoRA 1536, MTP head built): `decode_matvec` at its shapes,
+   then as (b) in bf16 with `DS3_PREFILL` tokens and `DS3_STEPS` steps
+   (29 launches a step), gated on the route log as (c).
+12. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
    failure raises: the script exits non-zero and prints no result line.
@@ -181,6 +212,7 @@ build runs 225 exact SVDs on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -231,6 +263,15 @@ PREFILL_LEN = 4096
 #: one-ulp flip travels through 32 layers (measured: 0.086 on an H100 at
 #: full width, one 4096-token prompt)
 PREFILL_ATOL = 0.25
+#: a prefill with no flash (MLA's) runs the same plain code below the head
+#: under both policies, and only the head's one-row GEMM differs
+#: (decode_matvec against cuBLAS): each rounds its f32 logit to bf16, so a
+#: logit differs by at most one bf16 ulp, <= 2^-7 of the largest |logit|,
+#: and a log-prob (the logit less the log-sum-exp, which moves by at most
+#: the largest logit change) by twice that: the limit is HEAD_ONLY_RTOL x
+#: max |logit| (measured: 0.0156, one ulp at a logit in [2, 4), on an H100
+#: at full deepseek-v2-lite width, one 4096-token prompt)
+HEAD_ONLY_RTOL = 2.0 ** -6
 #: per-call log-prob agreement of the LMEngine under both policies in
 #: bf16, both fed the same tokens: the decode_matvec kernel sums in f32 in
 #: another order than cuBLAS, and each step's KV rows carry the difference
@@ -317,6 +358,35 @@ WHISPER_ENC = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "ffn/w_in",
                "ffn/w_out")
 WHISPER_DEC_STEP = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "xattn/wq",
                     "xattn/wo", "ffn/w_in", "ffn/w_out")
+#: phase 11: DeepSeek. deepseek-v2-lite at full width in f32 cut to
+#: DS_F32_LAYERS layers (1 dense + 3 MoE), DS_F32_PREFILL prompt tokens a
+#: row and DS_F32_STEPS decode steps, where routes must be identical and
+#: log-probs within DS_F32_ATOL (f32 sums in another order); trained at
+#: full width cut to DS_TRAIN_LAYERS (1 dense + 1 MoE); deepseek-v3-671b
+#: at full width cut to DS3_LAYERS (3 dense + 1 MoE)
+DS_ARCH = "deepseek-v2-lite"
+DS3_ARCH = "deepseek-v3-671b"
+DS_F32_LAYERS = 4
+DS_F32_PREFILL = 512
+DS_F32_STEPS = 8
+DS_F32_ATOL = 1e-3
+DS_TRAIN_LAYERS = 2
+DS3_LAYERS = 4
+DS3_PREFILL = 512
+DS3_STEPS = 4
+#: a route that differs between the "cuda" and "plain" runs in bf16 must,
+#: where it first differs, be a near-tie: a logit gap ln(p_k / p_(k+1))
+#: between the last chosen and the first unchosen expert below this. The
+#: two policies' x at the router differ by bf16 rounding summed over the
+#: layers below (decode_matvec sums in another order than cuBLAS), and a
+#: route can part only where that moves the gap between two experts'
+#: logits by more than the gap itself. `router_drift` measures the move
+#: on the same routes (the kernel run replaying the plain run's); on an
+#: H100 at 700 W it was at most 0.153 (full-depth deepseek-v2-lite
+#: serving; 0.061 for the trained 2-layer model and the 4-layer
+#: deepseek-v3, 8e-6 in f32). The bound is the next power of two above
+#: that reading, 2^-2, and the run fails if its own drift reaches it
+ROUTE_LOGIT_GAP = 2.0 ** -2
 KERNELS = {
     # name: (CUDA source, the TPU kernel it replaces)
     "gru_cell": ("src/repro_torch/kernels/csrc/gru_cell.cu",
@@ -445,6 +515,7 @@ def chunked_attention(q, k, v, rows: int = 2048):
 
 def kernel_cases(dense, fact, quant, lm, gen):
   """Every full-width shape of the paths, for each kernel."""
+  from repro_torch import configs
   from repro_torch.core.factored import iter_factored_leaves, iter_gemm_leaves
   from repro_torch.kernels import ref
   from repro_torch.kernels.decode_matvec import decode_matvec
@@ -517,7 +588,8 @@ def kernel_cases(dense, fact, quant, lm, gen):
                         exact=True, path=path,
                         yardstick=("int_mm_padded",
                                    lambda a=xq32, w=wq: torch._int_mm(a, w))))
-  cases += lm_decode_cases(lm, gen, "lm_decode")
+  cases += decode_cases(step_leaves(lm, configs.get_config(LM_ARCH)), gen,
+                        "lm_decode")
   n_layers = lm.dense_layers.ln1.shape[0]
   # ragged shapes (not timed): every lane width, tile edge and batch tile
   for dtype in (bf16, torch.float32):
@@ -620,21 +692,48 @@ def kernel_cases(dense, fact, quant, lm, gen):
   return cases
 
 
-def lm_decode_cases(lm, gen, path: str, prefix: str = "") -> list[dict]:
-  """decode_matvec at an LM's decode-step shapes: layer 0's GEMMs (the
-  other layers' have the same shapes) and the head, at the engine's
-  batch, warm and cold; `weight` is each shape's launches a step."""
+_MLA_NAMES = {"wq": "layers/mla_q", "wq_a": "layers/mla_q_a",
+              "wq_b": "layers/mla_q_b", "w_dkv": "layers/mla_dkv",
+              "wo": "layers/mla_o"}
+
+
+def step_leaves(lm, cfg) -> list[tuple]:
+  """(logical name, layer 0's leaf, launches a decode step) of every
+  GEMM a decode step routes through `gemm`: a dense LM's q, k, v and o
+  projections, or MLA's q (or q-LoRA's two), dkv and o, in every layer;
+  the dense layers' SwiGLU; the MoE layers' shared SwiGLU; and the head.
+  (MLA's w_uk and w_uv enter the absorbed attention as products and the
+  routed experts as stacked einsums: neither reaches a GEMM regime.)"""
+  from repro_torch.models.transformer import depths
+  n_dense, n_moe = depths(cfg)
+  lp = lm.dense_layers.layers()[0]
+  if cfg.mla is None:
+    out = [(f"layers/attn_{k[1:]}", lp["attn"][k], cfg.num_layers)
+           for k in ("wq", "wk", "wv", "wo")]
+  else:
+    keys = (("wq_a", "wq_b") if cfg.mla.q_lora_rank else ("wq",)) + \
+        ("w_dkv", "wo")
+    out = [(_MLA_NAMES[k], lp["attn"][k], cfg.num_layers) for k in keys]
+  out += [(f"layers/ffn_{g}", lp["ffn"][f"w_{g}"], n_dense)
+          for g in ("gate", "up", "down")]
+  if n_moe and cfg.moe.num_shared:
+    shared = lm.moe_layers.layers()[0]["moe"]["shared"]
+    out += [(f"layers/shared/ffn_{g}", shared[f"w_{g}"], n_moe)
+            for g in ("gate", "up", "down")]
+  out.append(("lm_head", lm.embedding.head, 1))
+  return out
+
+
+def decode_cases(leaves, gen, path: str, prefix: str = "") -> list[dict]:
+  """decode_matvec at each (name, 2-D leaf, launches a step) of `leaves`,
+  at the engine's batch, warm and cold; `weight` is each shape's
+  launches a step."""
   from repro_torch.kernels import ref
   from repro_torch.kernels.decode_matvec import decode_matvec
   b, bf16 = SERVE_BATCH, torch.bfloat16
-  layers = lm.dense_layers.layers()
-  layer0 = [layers[0]["attn"][k] for k in ("wq", "wk", "wv", "wo")] + [
-      layers[0]["ffn"][k] for k in ("w_gate", "w_up", "w_down")]
-  lm_leaves = [(f"layers/{g}", leaf.w, len(layers))
-               for g, leaf in zip(LM_GEMMS, layer0)]
-  lm_leaves.append(("lm_head", lm.embedding.head.w, 1))
   cases = []
-  for name, w, weight in lm_leaves:
+  for name, leaf, weight in leaves:
+    w = leaf.w
     m, n = w.shape
     x = randn((b, m), gen, bf16)
     cases.append(case("decode_matvec", f"{prefix}{name} {m}x{n}", b, bf16,
@@ -884,9 +983,13 @@ def build_lm(cfg):
   return init_lm(cfg, generator=gen, device="cuda")
 
 
-def check_prefill(lm, cfg, card) -> dict:
+def check_prefill(lm, cfg, card, gemms=None, flash: bool = True) -> dict:
   """forward(last_only=True) on one 4096-token prompt under both
-  policies; returns the kernel run's launches."""
+  policies; returns the kernel run's launches. `gemms`: the logical
+  names of the layer GEMMs (default: the dense LM's), which stay plain
+  at 4096 rows; `flash`: whether the attention launches flash_attention
+  (one call a layer), which MLA does not; without it the log-probs are
+  held to the head's rounding (HEAD_ONLY_RTOL), not PREFILL_ATOL."""
   from repro_torch.kernels import dispatch, ops
   from repro_torch.models.transformer import forward
   toks = torch.from_numpy(np.random.RandomState(0).randint(
@@ -894,7 +997,7 @@ def check_prefill(lm, cfg, card) -> dict:
   runs = {}
   for policy in ("cuda", "plain"):
     pol = dispatch.resolve_policy(policy)
-    forward(lm, toks[:, :256], cfg, last_only=True, policy=pol)  # warm-up
+    forward(lm, toks, cfg, last_only=True, policy=pol)  # warm-up, full size
     torch.cuda.synchronize()
     ops.reset_launches()
     with dispatch.record_dispatch() as log:
@@ -902,40 +1005,46 @@ def check_prefill(lm, cfg, card) -> dict:
       logits = forward(lm, toks, cfg, last_only=True, policy=pol)
       torch.cuda.synchronize()
       dt = time.perf_counter() - t0
-    runs[policy] = (torch.log_softmax(logits[0, -1].float(), dim=-1), dt,
-                    dict(ops.LAUNCHES), set(log))
-  (lp_k, dt_k, launches, routes), (lp_p, dt_p, plain_launches, _) = \
-      runs["cuda"], runs["plain"]
-  # one flash call a layer; the layer GEMMs (flat batch 4096) stay plain,
-  # and the head, narrowed to the last position, is a batch-1 GEMM
+    last = logits[0, -1].float()
+    runs[policy] = (torch.log_softmax(last, dim=-1), dt, dict(ops.LAUNCHES),
+                    set(log), float(last.abs().max()))
+  (lp_k, dt_k, launches, routes, top_k), \
+      (lp_p, dt_p, plain_launches, _, top_p) = runs["cuda"], runs["plain"]
+  atol = PREFILL_ATOL if flash else HEAD_ONLY_RTOL * max(top_k, top_p)
+  # the layer GEMMs (flat batch 4096) stay plain, and the head, narrowed
+  # to the last position, is a batch-1 GEMM
   want = {k: 0 for k in launches}
-  want.update(flash_attention=cfg.num_layers, decode_matvec=1)
+  want.update(flash_attention=cfg.num_layers if flash else 0,
+              decode_matvec=1)
   if launches != want:
-    fail(f"prefill: launches {launches} != {want}")
+    fail(f"{cfg.name} prefill: launches {launches} != {want}")
   if any(plain_launches.values()):
-    fail(f"prefill: the plain policy launched {plain_launches}")
-  want_routes = {(f"layers/{g}", "jnp") for g in LM_GEMMS} | {
-      ("lm_head", "decode_matvec"), ("layers/attn", "flash_attention")}
+    fail(f"{cfg.name} prefill: the plain policy launched {plain_launches}")
+  if gemms is None:
+    gemms = {f"layers/{g}" for g in LM_GEMMS}
+  want_routes = {(n, "jnp") for n in gemms} | {("lm_head", "decode_matvec")}
+  if flash:
+    want_routes.add(("layers/attn", "flash_attention"))
   if routes != want_routes:
-    fail(f"prefill: routing {sorted(routes)}")
+    fail(f"{cfg.name} prefill: routing {sorted(routes)}")
   if lp_k.shape != (cfg.vocab_size,) or not bool(torch.isfinite(lp_k).all()):
-    fail("prefill: log-probs of the wrong shape or not finite")
+    fail(f"{cfg.name} prefill: log-probs of the wrong shape or not finite")
   diff = float((lp_k - lp_p).abs().max())
-  if diff > PREFILL_ATOL:
-    fail(f"prefill: last-position log-probs differ by {diff:.3g} > "
-         f"{PREFILL_ATOL}")
+  if diff > atol:
+    fail(f"{cfg.name} prefill: last-position log-probs differ by {diff:.3g} "
+         f"> {atol:.3g}")
   top2 = torch.topk(lp_p, 2).values
   gap = float(top2[0] - top2[1])
   tok_k, tok_p = int(lp_k.argmax()), int(lp_p.argmax())
-  if tok_k != tok_p and gap >= PREFILL_ATOL:
-    fail(f"prefill: greedy tokens {tok_k} != {tok_p} at a top-2 gap of "
-         f"{gap:.3g}")
+  if tok_k != tok_p and gap >= atol:
+    fail(f"{cfg.name} prefill: greedy tokens {tok_k} != {tok_p} at a top-2 "
+         f"gap of {gap:.3g}")
   print(json.dumps(dict(
       prefill=cfg.name, card=card, layers=cfg.num_layers,
       head_dim=cfg.resolved_head_dim, tokens=PREFILL_LEN, launches=launches,
       cuda_prefill_s=dt_k, cuda_prefill_tokens_per_s=PREFILL_LEN / dt_k,
       plain_prefill_s=dt_p, plain_prefill_tokens_per_s=PREFILL_LEN / dt_p,
-      max_logprob_diff=diff, plain_top2_gap=gap, greedy_cuda=tok_k,
+      max_logprob_diff=diff, atol=atol, plain_top2_gap=gap, greedy_cuda=tok_k,
       greedy_plain=tok_p)), flush=True)
   return launches
 
@@ -983,15 +1092,18 @@ def timed_run(eng, reqs):
   return finished, dt, launches
 
 
-def recorded_run(eng, reqs, forced=None):
-  """One greedy run that keeps each `decode_step` call's (tokens,
-  positions, log-probs) and each sampled batch. With `forced` (another
-  run's sampled batches) the engine is fed those instead of its own
-  (teacher forcing), so every call sees the other run's inputs. Returns
-  (calls, sampled, launches, routing log)."""
+def recorded_run(eng, reqs, forced=None) -> dict:
+  """One greedy run under the route log (`moe.record_routes`) that keeps
+  each `decode_step` call's (tokens, positions, log-probs), each sampled
+  batch and each admission (calls made before it, slot). With `forced`
+  (another run's sampled batches) the engine is fed those instead of its
+  own (teacher forcing), so every call sees the other run's inputs.
+  Returns calls, sampled, admits, launches, routes (the dispatch log) and
+  route_log."""
   from repro_torch.kernels import dispatch, ops
-  calls, sampled = [], []
-  step, sample = eng._step, eng._sample
+  from repro_torch.layers import moe
+  calls, sampled, admits = [], [], []
+  step, sample, admit = eng._step, eng._sample, eng._admit
 
   def rec_step(state, tokens, positions):
     logits, state = step(state, tokens, positions)
@@ -1002,42 +1114,65 @@ def recorded_run(eng, reqs, forced=None):
   def rec_sample(logits, temperature):
     sampled.append(sample(logits, temperature))
     return sampled[-1] if forced is None else forced[len(sampled) - 1]
-  eng._step, eng._sample = rec_step, rec_sample
+
+  def rec_admit(req, slot, temperature):
+    admits.append((len(calls), slot))
+    return admit(req, slot, temperature)
+  eng._step, eng._sample, eng._admit = rec_step, rec_sample, rec_admit
   for prompt, budget in reqs:
     eng.submit(prompt, max_new_tokens=budget)
   ops.reset_launches()
   try:
-    with dispatch.record_dispatch() as log:
+    with dispatch.record_dispatch() as log, moe.record_routes() as route_log:
       eng.run(temperature=0.0)
   finally:
-    del eng._step, eng._sample
+    del eng._step, eng._sample, eng._admit
   launches = dict(ops.LAUNCHES)
   eng.reset()
-  return calls, sampled, launches, set(log)
+  return dict(calls=calls, sampled=sampled, admits=admits, launches=launches,
+              routes=set(log), route_log=route_log)
+
+
+def engine_rows(admits: list, c: int, positions) -> list:
+  """Each row of recorded call `c` as (sequence, position), a sequence
+  being its admission's index in `admits`: a batch-1 call (a prefill)
+  belongs to the latest admission, row r of a batched call to slot r's
+  latest; an idle row (position 0 in a batched call) is None."""
+  pos = positions.tolist()
+  if len(pos) == 1:
+    return [(max(j for j, (c0, _) in enumerate(admits) if c0 <= c), pos[0])]
+  out = []
+  for r, p in enumerate(pos):
+    seqs = [j for j, (c0, slot) in enumerate(admits) if slot == r and c0 <= c]
+    out.append((seqs[-1], p) if p > 0 and seqs else None)
+  return out
 
 
 def time_layer_views(lm, cfg, reps: int = 10) -> dict:
-  """Host cost of the per-layer views that `LayerStack.layers()` keeps:
+  """Host cost of the per-layer views that each stack's `layers()` keeps:
   a batch-4 decode step under the "cuda" policy with the views kept, and
-  with them dropped before the step (which then builds 7 x 32 leaf
-  modules again), alternated; and `layers()` alone. Medians, ms."""
+  with every stack's dropped before the step (which then builds each
+  layer's leaf modules again), alternated; and `layers()` alone.
+  Medians, ms."""
   from repro_torch.kernels import dispatch
   from repro_torch.models.transformer import decode_step, init_decode_state
   pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
   state = init_decode_state(cfg, SERVE_BATCH, 64, device="cuda")
   tok = torch.ones((SERVE_BATCH, 1), dtype=torch.int64, device="cuda")
   pos = torch.arange(4, 4 + SERVE_BATCH, device="cuda")
-  stack = lm.dense_layers
+  stacks = [stack for _, stack in lm.stacks()]
   out = {"step_views_kept": [], "step_views_rebuilt": [], "build_views": []}
   decode_step(lm, state, tok, pos, cfg, pol)
   for _ in range(reps):
     for key in out:
       if key != "step_views_kept":
-        stack._views = None           # as if the views were not kept
+        for stack in stacks:
+          stack._views = None         # as if the views were not kept
       torch.cuda.synchronize()
       t0 = time.perf_counter()
       if key == "build_views":
-        stack.layers()
+        for stack in stacks:
+          stack.layers()
       else:
         decode_step(lm, state, tok, pos, cfg, pol)
       torch.cuda.synchronize()
@@ -1045,81 +1180,216 @@ def time_layer_views(lm, cfg, reps: int = 10) -> dict:
   return {f"{k}_ms": statistics.median(v) for k, v in out.items()}
 
 
+def first_route_flips(entries_p: list, entries_k: list, tokens_of
+                      ) -> tuple[dict, dict]:
+  """Compare two runs' route logs (`moe.record_routes`), entry by entry.
+  `tokens_of(i)` gives entry i's (MoE layer, [(sequence, position) or
+  None per routed token]) (None: an idle row). A token whose top-k set
+  differs is a flip. A flip at (sequence, position p, layer l) is a
+  consequence of an earlier one if its sequence flipped at a layer
+  below l at a position <= p (the swapped expert's output reaches every
+  later layer of that position and, through the latent cache, of the
+  later positions); every other flip is a first difference, and its
+  logit gap in the reference ("plain") run must be below
+  ROUTE_LOGIT_GAP. Returns (stats, {sequence: its first flipped
+  position}): from that position on, the sequence's outputs carry a
+  whole swapped expert and are not held to a log-prob tolerance."""
+  if len(entries_p) != len(entries_k):
+    fail(f"route logs of {len(entries_p)} and {len(entries_k)} calls")
+  flips: dict = {}
+  routed = 0
+  for i, (ep, ek) in enumerate(zip(entries_p, entries_k)):
+    layer, toks = tokens_of(i)
+    sp, sk = np.sort(ep["experts"], -1), np.sort(ek["experts"], -1)
+    if sp.shape != sk.shape or sp.shape[0] != len(toks):
+      fail(f"route log entry {i}: shapes {sp.shape} / {sk.shape}")
+    for t in np.nonzero((sp != sk).any(-1))[0]:
+      if toks[t] is not None:
+        seq, pos = toks[t]
+        flips.setdefault(seq, []).append(
+            (layer, pos, float(ep["logit_gap"][t]), float(ek["logit_gap"][t])))
+    routed += sum(x is not None for x in toks)
+  first, caused = [], 0
+  for seq, fl in flips.items():
+    for layer, pos, gap_p, gap_k in fl:
+      if any(l0 < layer and p0 <= pos for l0, p0, _, _ in fl):
+        caused += 1
+      else:
+        first.append((seq, layer, pos, gap_p, gap_k))
+  bad = [f for f in first if not f[3] < ROUTE_LOGIT_GAP]
+  if bad:
+    fail(f"routes: {len(bad)} first route differences are not near-ties "
+         f"(logit gap >= {ROUTE_LOGIT_GAP}): {bad[:5]}")
+  stats = dict(routed_tokens=routed, route_flips=len(first) + caused,
+               first_route_flips=len(first), caused_route_flips=caused,
+               sequences_flipped=len(flips),
+               first_flip_max_logit_gap=max((f[3] for f in first),
+                                            default=None))
+  return stats, {seq: min(pos for _, pos, _, _ in fl)
+                 for seq, fl in flips.items()}
+
+
+def compare_logprobs(pairs, atol: float, what: str) -> dict:
+  """Log-probs of two teacher-forced runs, row by row: `pairs` yields
+  (call, cuda rows, plain rows, held) with `held` marking the rows held
+  to `atol` (the others follow a route flip). Held rows agree within
+  `atol` and their argmax differs only where the plain run's top-2 gap
+  is below it; every row is finite."""
+  diff, free_diff, flips, flip_gap, held_n, free_n = 0.0, 0.0, 0, 0.0, 0, 0
+  for i, a, c, held in pairs:
+    if not bool(torch.isfinite(a).all()):
+      fail(f"{what}: non-finite log-probs at call {i}")
+    if bool((~held).any()):
+      free_diff = max(free_diff, float((a[~held] - c[~held]).abs().max()))
+      free_n += int((~held).sum())
+    if not bool(held.any()):
+      continue
+    a, c = a[held], c[held]
+    held_n += a.shape[0]
+    diff = max(diff, float((a - c).abs().max()))
+    if diff > atol:
+      fail(f"{what}: call {i} log-probs differ by {diff:.3g} > {atol} "
+           "with no route flip before them")
+    flip = a.argmax(-1) != c.argmax(-1)
+    if bool(flip.any()):
+      top2 = torch.topk(c[flip], 2, dim=-1).values
+      gap = float((top2[:, 0] - top2[:, 1]).max())
+      if gap >= atol:
+        fail(f"{what}: argmax differs at call {i} at a top-2 gap of "
+             f"{gap:.3g}")
+      flips += int(flip.sum())
+      flip_gap = max(flip_gap, gap)
+  return dict(max_logprob_diff=diff, rows_held=held_n,
+              rows_after_a_route_flip=free_n,
+              max_logprob_diff_after_a_route_flip=free_diff,
+              argmax_flips=flips, flip_max_top2_gap=flip_gap)
+
+
+def router_drift(entries_p: list, entries_k: list, tokens_of,
+                 what: str) -> float:
+  """How far two runs on the same routes (identical, or one replaying
+  the other's: `moe.replay_routes`) move the router's logit gaps: the
+  largest change, over routed tokens (`tokens_of` as in
+  `first_route_flips`) and pairs of experts, of the difference of two
+  experts' logits, max_e d - min_e d for d the difference of the runs'
+  logits at a token. A route can part between two runs only where the
+  gap between its k-th and (k+1)-th expert is below that token's change,
+  so ROUTE_LOGIT_GAP, the bound `first_route_flips` holds first flips
+  to, rests on this staying below it."""
+  worst = 0.0
+  for i, (ep, ek) in enumerate(zip(entries_p, entries_k)):
+    live = np.array([t is not None for t in tokens_of(i)[1]])
+    d = ek["logits"][live] - ep["logits"][live]
+    if d.size:
+      worst = max(worst, float((d.max(-1) - d.min(-1)).max()))
+  if not worst < ROUTE_LOGIT_GAP:
+    fail(f"{what}: the router's logit gaps move by {worst:.4g} between "
+         f"runs on the same routes, not below ROUTE_LOGIT_GAP "
+         f"({ROUTE_LOGIT_GAP})")
+  return worst
+
+
 def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec") -> dict:
   """Correctness: a recorded plain run, and a recorded kernel run fed the
   plain run's tokens, compared call by call. Throughput: one run of each
   policy with no hooks. Every GEMM of the kernel runs must route to
   `kernel` (`decode_matvec` for unfactored weights, `lowrank_gemm` for a
-  stage-2 model), num_layers x 7 + 1 launches a step. Returns the
-  hook-free kernel run's launches."""
+  stage-2 model), the launches `step_leaves` counts a step. Log-probs
+  agree within LM_SERVE_ATOL at every live row up to its sequence's
+  first route flip. A MoE model's routes may differ: every first route
+  difference must be a near-tie (`first_route_flips`), and a third
+  recorded run, the kernel policy replaying the plain run's routes
+  (`moe.replay_routes`), is held at every live row and gives the
+  router's drift (`router_drift`), which must stay below
+  ROUTE_LOGIT_GAP. Returns the hook-free kernel run's launches."""
+  from repro_torch.layers import moe
+  from repro_torch.models.transformer import depths
+  what = f"{cfg.name} serving"
   reqs = lm_requests(cfg)
+  n_moe = depths(cfg)[1]
+  leaves = step_leaves(lm, cfg)
+  names = {n for n, _, _ in leaves}
+  per_step = sum(w for _, _, w in leaves)
   eng_k, eng_p = lm_engine(lm, cfg, "cuda"), lm_engine(lm, cfg, "plain")
-  calls_p, sampled_p, plain_launches, plain_routes = recorded_run(eng_p, reqs)
-  calls_k, _, forced_launches, routes = recorded_run(eng_k, reqs,
-                                                     forced=sampled_p)
+  p = recorded_run(eng_p, reqs)
+  k = recorded_run(eng_k, reqs, forced=p["sampled"])
+  runs = {"recorded": k}
+  if p["route_log"]:
+    with moe.replay_routes(p["route_log"]):
+      runs["replayed"] = recorded_run(eng_k, reqs, forced=p["sampled"])
   fin_k, dt_k, launches = timed_run(eng_k, reqs)
   fin_p, dt_p, plain_launches_t = timed_run(eng_p, reqs)
-  names = {f"layers/{g}" for g in LM_GEMMS} | {"lm_head"}
-  if routes != {(n, kernel) for n in names}:
-    fail(f"LM serving: routing {sorted(routes)}")
-  if plain_routes != {(n, "jnp") for n in names}:
-    fail(f"LM serving: plain routing {sorted(plain_routes)}")
-  per_step = cfg.num_layers * len(LM_GEMMS) + 1
-  for what, got in (("recorded", forced_launches), ("timed", launches)):
-    want = {k: per_step * len(calls_p) if k == kernel else 0
-            for k in got}
+  if k["routes"] != {(n, kernel) for n in names}:
+    fail(f"{what}: routing {sorted(k['routes'])}")
+  if p["routes"] != {(n, "jnp") for n in names}:
+    fail(f"{what}: plain routing {sorted(p['routes'])}")
+  n_calls = len(p["calls"])
+  for name, got in [(n, r["launches"]) for n, r in runs.items()] + [
+      ("timed", launches)]:
+    want = {n: per_step * n_calls if n == kernel else 0 for n in got}
     if got != want:
-      fail(f"LM serving ({what}): launches {got} != {want} "
-           f"({len(calls_p)} steps)")
-  if any(plain_launches.values()) or any(plain_launches_t.values()):
-    fail(f"LM serving: the plain policy launched "
-         f"{plain_launches} / {plain_launches_t}")
-  # every call, both runs fed the same tokens: log-probs agree, and the
-  # argmax may differ only at a near-tie of the plain run
-  if len(calls_k) != len(calls_p):
-    fail(f"LM serving: {len(calls_k)} vs {len(calls_p)} calls")
-  max_diff, flips, flip_gap = 0.0, 0, 0.0
-  for i, ((tk, pk, lk), (tp, pp, lp)) in enumerate(zip(calls_k, calls_p)):
-    if not (torch.equal(tk, tp) and torch.equal(pk, pp)):
-      fail(f"LM serving: call {i} was fed other tokens or positions")
-    # prefill steps (batch 1) are live; a decode step's idle slots sit at
-    # position 0, every live one past its prompt
-    live = pk > 0 if tk.shape[0] > 1 else torch.ones_like(pk, dtype=bool)
-    a, b = lk[live], lp[live]
-    if not bool(torch.isfinite(a).all()):
-      fail(f"LM serving: non-finite log-probs at call {i}")
-    max_diff = max(max_diff, float((a - b).abs().max()))
-    if max_diff > LM_SERVE_ATOL:
-      fail(f"LM serving: call {i} log-probs differ by {max_diff:.3g}")
-    flip = a.argmax(-1) != b.argmax(-1)
-    if bool(flip.any()):
-      top2 = torch.topk(b[flip], 2, dim=-1).values
-      gap = float((top2[:, 0] - top2[:, 1]).max())
-      if gap >= LM_SERVE_ATOL:
-        fail(f"LM serving: argmax differs at call {i} at a top-2 gap of "
-             f"{gap:.3g}")
-      flips += int(flip.sum())
-      flip_gap = max(flip_gap, gap)
-  toks_k = {f.uid: f.tokens.tolist() for f in fin_k}
-  toks_p = {f.uid: f.tokens.tolist() for f in fin_p}
-  if len(fin_k) != len(reqs) or sorted(toks_k) != sorted(toks_p):
-    fail("LM serving: not every request finished")
-  same = sum(toks_k[u] == toks_p[u] for u in toks_k)
+      fail(f"{what} ({name}): launches {got} != {want} ({n_calls} steps)")
+  if any(p["launches"].values()) or any(plain_launches_t.values()):
+    fail(f"{what}: the plain policy launched {p['launches']} / "
+         f"{plain_launches_t}")
+  for name, r in runs.items():
+    if r["admits"] != p["admits"] or len(r["calls"]) != n_calls:
+      fail(f"{what} ({name}): the runs admitted or stepped differently")
+
+  def tokens_of(i):     # route-log entry i: MoE layer i % n_moe of a call
+    c = i // n_moe
+    return i % n_moe, engine_rows(p["admits"], c, p["calls"][c][1])
+  route_stats, first_pos = {}, {}
+  if p["route_log"]:
+    route_stats, first_pos = first_route_flips(p["route_log"],
+                                               k["route_log"], tokens_of)
+
+  def pairs(run, first):
+    """(call, live rows of `run`, of the plain run, held) a call; a row
+    is held up to its sequence's first route flip in `first`."""
+    for i, ((tk, pk, lk), (tp, pp, lp)) in enumerate(zip(run["calls"],
+                                                         p["calls"])):
+      if not (torch.equal(tk, tp) and torch.equal(pk, pp)):
+        fail(f"{what}: call {i} was fed other tokens or positions")
+      rows = engine_rows(p["admits"], i, pp)
+      live = torch.tensor([r is not None for r in rows], device=lk.device)
+      held = torch.tensor([r is not None and first.get(r[0], r[1] + 1) > r[1]
+                           for r in rows], device=lk.device)
+      yield i, lk[live], lp[live], held[live]
+  lp_stats = compare_logprobs(pairs(k, first_pos), LM_SERVE_ATOL, what)
+  if "replayed" in runs:
+    r = runs["replayed"]
+    rep = compare_logprobs(pairs(r, {}), LM_SERVE_ATOL,
+                           f"{what} (routes replayed)")
+    lp_stats["replayed"] = {key: rep[key] for key in (
+        "max_logprob_diff", "rows_held", "argmax_flips", "flip_max_top2_gap")}
+    route_stats["router_drift"] = router_drift(
+        p["route_log"], r["route_log"], tokens_of, f"{what} (replayed)")
+    if lp_stats["rows_held"] == 0:
+      print(f"{what}: every sequence flipped a route before its first "
+            f"logged row, so the vanilla comparison held 0 rows; the "
+            f"replayed run held {rep['rows_held']}", flush=True)
+  # the engines' uids differ (the kernel engine may serve one run more):
+  # pair the requests by submission order
+  toks_k = [f.tokens.tolist() for f in sorted(fin_k, key=lambda f: f.uid)]
+  toks_p = [f.tokens.tolist() for f in sorted(fin_p, key=lambda f: f.uid)]
+  if len(fin_k) != len(reqs) or len(fin_p) != len(reqs):
+    fail(f"{what}: not every request finished")
+  same = sum(a == c for a, c in zip(toks_k, toks_p))
 
   def ttft_p50(fin):
     t = sorted(f.ttft_s for f in fin)
     return t[len(t) // 2] * 1e3
 
-  n_k = sum(len(t) for t in toks_k.values())
-  n_p = sum(len(t) for t in toks_p.values())
+  n_k = sum(len(t) for t in toks_k)
+  n_p = sum(len(t) for t in toks_p)
   print(json.dumps(dict(
-      serve=cfg.name, card=card, requests=len(reqs), slots=SERVE_BATCH,
-      steps=len(calls_p), launches=launches,
-      cuda_tokens=n_k, cuda_tok_per_s=n_k / dt_k,
+      serve=cfg.name, card=card, layers=cfg.num_layers, requests=len(reqs),
+      slots=SERVE_BATCH, steps=n_calls, launches_a_step=per_step,
+      launches=launches, cuda_tokens=n_k, cuda_tok_per_s=n_k / dt_k,
       cuda_ttft_p50_ms=ttft_p50(fin_k), plain_tokens=n_p,
       plain_tok_per_s=n_p / dt_p, plain_ttft_p50_ms=ttft_p50(fin_p),
-      max_logprob_diff=max_diff, argmax_flips=flips,
-      flip_max_top2_gap=flip_gap, tokens_equal=f"{same}/{len(toks_k)}",
+      tokens_equal=f"{same}/{len(toks_k)}", **lp_stats, **route_stats,
       **time_layer_views(lm, cfg))), flush=True)
   return launches
 
@@ -1675,8 +1945,9 @@ def check_dense_family(card) -> tuple[dict, list[dict]]:
   by_path = {}
   qcfg = configs.get_config("qwen3-4b")
   lm = build_lm(qcfg)
-  rows = check_cases(lm_decode_cases(lm, torch.Generator().manual_seed(5),
-                                     "qwen3_decode", prefix="qwen3-4b "))
+  rows = check_cases(decode_cases(step_leaves(lm, qcfg),
+                                  torch.Generator().manual_seed(5),
+                                  "qwen3_decode", prefix="qwen3-4b "))
   by_path["qwen3_prefill"] = check_prefill(lm, qcfg, card)
   by_path["qwen3_serving"] = check_lm_serving(lm, qcfg, card)
   del lm
@@ -1709,32 +1980,25 @@ def dense_param_count(model) -> int:
   return total
 
 
-def lm_trained_cases(fact, gen) -> list[dict]:
-  """lowrank_gemm at the trained model's decode-step shapes (layer 0 of
-  each stacked leaf and the head, batch SERVE_BATCH), timed against two
-  `torch.matmul` calls and the bound; `weight` is each shape's launches
-  a step."""
+def lowrank_cases(leaves, gen, path: str, prefix: str) -> list[dict]:
+  """lowrank_gemm at each (name, 2-D factored leaf, launches a step) of
+  `leaves`, batch SERVE_BATCH, timed against two `torch.matmul` calls and
+  the bound; `weight` is each shape's launches a step."""
   from repro_torch.kernels import ref
   from repro_torch.kernels.lowrank_gemm import lowrank_gemm
   b, bf16 = SERVE_BATCH, torch.bfloat16
-  stack = fact.dense_layers
-  n_layers = stack.ln1.shape[0]
-  leaves = [(f"layers/{g}", leaf, n_layers) for g, leaf in zip(
-      LM_GEMMS, [getattr(stack.attn, k) for k in ("wq", "wk", "wv", "wo")] +
-      [getattr(stack.ffn, k) for k in ("w_gate", "w_up", "w_down")])]
-  leaves.append(("lm_head", fact.embedding.head, 1))
   cases = []
   for name, leaf, weight in leaves:
-    u, v = (leaf.u[0], leaf.v[0]) if leaf.u.ndim == 3 else (leaf.u, leaf.v)
+    u, v = leaf.u, leaf.v
     (m, r), n = u.shape, v.shape[1]
     x = randn((b, m), gen, bf16)
-    cases.append(case("lowrank_gemm", f"trained qwen3-4b {name} {m}x{r}x{n}",
+    cases.append(case("lowrank_gemm", f"{prefix}{name} {m}x{r}x{n}",
                       b, bf16, lambda a=(x, u, v): lowrank_gemm(*a),
                       lambda a=(x, u, v): ref.lowrank_gemm(*a),
                       lambda x=x, u=u, v=v: torch.matmul(torch.matmul(x, u),
                                                          v),
                       2 * (b * m + m * r + r * n + b * n), 2 * b * r * (m + n),
-                      path="qwen3_trained", weight=weight, cold=True))
+                      path=path, weight=weight, cold=True))
   return cases
 
 
@@ -1814,7 +2078,9 @@ def check_lm_training(card) -> tuple[dict, list[dict], dict]:
   del tr
   gc.collect()
   torch.cuda.empty_cache()
-  rows = check_cases(lm_trained_cases(fact, torch.Generator().manual_seed(6)))
+  rows = check_cases(lowrank_cases(step_leaves(fact, cfg),
+                                   torch.Generator().manual_seed(6),
+                                   "qwen3_trained", "trained qwen3-4b "))
   launches = check_lm_serving(fact, cfg, card, kernel="lowrank_gemm")
   del fact
   gc.collect()
@@ -2144,6 +2410,336 @@ def check_whisper(card) -> tuple[dict, list[dict], dict]:
   return by_path, rows, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: DeepSeek — MLA and the capacity-routed MoE, served through
+# decode_matvec, trained through both stages and served through
+# lowrank_gemm.
+# ---------------------------------------------------------------------------
+
+def ds_prefill_gemms(cfg) -> set:
+  """The logical names of a DeepSeek prefill's GEMMs below the head."""
+  q = ("mla_q_a", "mla_q_b") if cfg.mla.q_lora_rank else ("mla_q",)
+  names = {f"layers/{n}" for n in q + ("mla_dkv", "mla_uk", "mla_uv",
+                                       "mla_o")}
+  names |= {f"layers/{p}ffn_{g}" for p in ("", "shared/")
+            for g in ("gate", "up", "down")}
+  return names
+
+
+def window_tokens(n_moe: int, batch: int, prompt_len: int, steps: int):
+  """`first_route_flips`' token map of a decode_window prefill of
+  `prompt_len` tokens a row followed by `steps` decode steps: entry i is
+  MoE layer i % n_moe of call i // n_moe; row r is sequence r."""
+  def tokens_of(i):
+    call, layer = divmod(i, n_moe)
+    if call == 0:
+      return layer, [(r, p) for r in range(batch) for p in range(prompt_len)]
+    return layer, [(r, prompt_len + call - 1) for r in range(batch)]
+  return tokens_of
+
+
+def ds_teacher_forced(lm, cfg, card, prompt_len: int, steps: int,
+                      exact_routes: bool, atol: float, what: str) -> dict:
+  """SERVE_BATCH seeded prompts of `prompt_len` tokens prefilled through
+  one `decode_window` (which fills the latent cache), then `steps` decode
+  steps, under "plain" and then under "cuda" fed the plain run's greedy
+  tokens, both under the route log. The decode steps must launch exactly
+  the decode_matvec calls `step_leaves` counts (none under "plain");
+  the prefill's (b * prompt_len)-row GEMMs stay plain. Routes are
+  identical (`exact_routes`; then log-probs agree within `atol` at every
+  call), or differ only by first differences at near-ties
+  (`first_route_flips`; then log-probs agree within `atol` up to a
+  sequence's first flip, and a third run, "cuda" replaying the plain
+  run's routes (`moe.replay_routes`), agrees within `atol` at every
+  call)."""
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.layers import moe
+  from repro_torch.models import transformer as tf
+  b = SERVE_BATCH
+  n_moe = tf.depths(cfg)[1]
+  per_step = sum(w for _, _, w in step_leaves(lm, cfg))
+  prompts = torch.from_numpy(np.random.RandomState(3).randint(
+      1, cfg.vocab_size, size=(b, prompt_len))).to("cuda")
+  runs, forced = {}, None
+  for name in ("plain", "cuda") + (() if exact_routes else ("replayed",)):
+    policy = "plain" if name == "plain" else "cuda"
+    pol = dispatch.resolve_policy(policy, b)
+    state = tf.init_decode_state(cfg, b, prompt_len + steps, device="cuda")
+    lps, toks = [], []
+    replay = (moe.replay_routes(runs["plain"]["routes"])
+              if name == "replayed" else contextlib.nullcontext())
+    with moe.record_routes() as routes, replay:
+      torch.cuda.synchronize()
+      ops.reset_launches()
+      t0 = time.perf_counter()
+      logits, state = tf.decode_window(
+          lm, state, prompts, torch.zeros(b, dtype=torch.int64,
+                                          device="cuda"), cfg, pol)
+      torch.cuda.synchronize()
+      prefill_s = time.perf_counter() - t0
+      prefill_launches = dict(ops.LAUNCHES)
+      lps.append(torch.log_softmax(logits[:, -1].float(), -1))
+      ops.reset_launches()
+      t0 = time.perf_counter()
+      for t in range(steps):
+        tok = (lps[-1].argmax(-1) if forced is None else forced[t])
+        toks.append(tok)
+        pos = torch.full((b,), prompt_len + t, dtype=torch.int64,
+                         device="cuda")
+        logits, state = tf.decode_step(lm, state, tok.view(b, 1), pos, cfg,
+                                       pol)
+        lps.append(torch.log_softmax(logits[:, -1].float(), -1))
+      torch.cuda.synchronize()
+      step_s = (time.perf_counter() - t0) / steps
+      launches = dict(ops.LAUNCHES)
+    runs[name] = dict(lps=lps, routes=routes, prefill_s=prefill_s,
+                      step_ms=step_s * 1e3, launches=launches,
+                      prefill_launches=prefill_launches)
+    forced = forced or toks
+    del state
+  p, k = runs["plain"], runs["cuda"]
+  for name, got in (("plain prefill", p["prefill_launches"]),
+                    ("plain steps", p["launches"]),
+                    ("cuda prefill", k["prefill_launches"])):
+    if any(got.values()):
+      fail(f"{what}: the {name} launched {got}")
+  want = {n: per_step * steps if n == "decode_matvec" else 0
+          for n in k["launches"]}
+  if k["launches"] != want:
+    fail(f"{what}: launches {k['launches']} != {want}")
+  tokens_of = window_tokens(n_moe, b, prompt_len, steps)
+  if exact_routes:
+    for i, (ep, ek) in enumerate(zip(p["routes"], k["routes"])):
+      if not np.array_equal(np.sort(ep["experts"], -1),
+                            np.sort(ek["experts"], -1)):
+        fail(f"{what}: routes differ in MoE call {i}")
+    route_stats = dict(routed_tokens=sum(len(e["experts"])
+                                         for e in p["routes"]),
+                       route_flips=0,
+                       router_drift=router_drift(p["routes"], k["routes"],
+                                                 tokens_of, what))
+    first_pos = {}
+  else:
+    route_stats, first_pos = first_route_flips(p["routes"], k["routes"],
+                                               tokens_of)
+  for i, a in enumerate(k["lps"]):
+    if a.shape != (b, cfg.vocab_size):
+      fail(f"{what}: call {i}: log-probs of shape {tuple(a.shape)}")
+  held = [torch.tensor([not (r in first_pos and first_pos[r] <= prompt_len
+                             - 1 + i) for r in range(b)], device="cuda")
+          for i in range(steps + 1)]
+  lp_stats = compare_logprobs(
+      ((i, a, c, h) for i, (a, c, h) in enumerate(zip(k["lps"], p["lps"],
+                                                      held))), atol, what)
+  if not exact_routes:
+    r = runs["replayed"]
+    if r["launches"] != want:
+      fail(f"{what}: replayed launches {r['launches']} != {want}")
+    every = torch.ones(b, dtype=torch.bool, device="cuda")
+    replayed = compare_logprobs(
+        ((i, a, c, every) for i, (a, c) in enumerate(zip(r["lps"],
+                                                         p["lps"]))),
+        atol, f"{what} (routes replayed)")
+    lp_stats["replayed"] = {key: replayed[key] for key in (
+        "max_logprob_diff", "rows_held", "argmax_flips",
+        "flip_max_top2_gap")}
+    route_stats["router_drift"] = router_drift(
+        p["routes"], r["routes"], tokens_of, f"{what} (replayed)")
+  out = dict(
+      teacher_forced=what, card=card, dtype=str(cfg.dtype),
+      layers=cfg.num_layers, batch=b, prompt_len=prompt_len, steps=steps,
+      launches_a_step=per_step, launches=k["launches"],
+      cuda_prefill_s=k["prefill_s"], plain_prefill_s=p["prefill_s"],
+      cuda_step_ms=k["step_ms"], plain_step_ms=p["step_ms"],
+      min_logit_gap=float(min(e["logit_gap"].min() for e in p["routes"])),
+      **lp_stats, **route_stats)
+  print(json.dumps(out), flush=True)
+  return out
+
+
+def free() -> None:
+  gc.collect()
+  torch.cuda.empty_cache()
+
+
+def check_ds_training(card) -> tuple[dict, list[dict], dict]:
+  """Full-width deepseek-v2-lite cut to DS_TRAIN_LAYERS layers (1 dense +
+  1 MoE), bf16, trained TRAIN_STEPS steps of `data/lm.py` batches through
+  both stages (every GEMM of at least 32 wide factored, the expert stacks
+  included; transition at TRAIN_TRANSITION), then frozen and served
+  through LMEngine with every GEMM through lowrank_gemm. Returns (the
+  serving run's launches, the kernel rows, the training summary)."""
+  from repro_torch import configs
+  from repro_torch.core.factored import count_params, frozen, \
+      iter_factored_leaves
+  cfg = configs.get_config(DS_ARCH).with_(num_layers=DS_TRAIN_LAYERS)
+  ckpt = ROOT / "build" / "ds_train_ckpt"
+  shutil.rmtree(ckpt, ignore_errors=True)
+  t0 = time.perf_counter()
+  tr = make_trainer(cfg, "cuda", ckpt,
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  dense_params = dense_param_count(tr.params)
+  steps = []
+  for i in range(TRAIN_STEPS):
+    if i == TRAIN_TRANSITION:
+      params_before = count_params(tr.params)
+    t0 = time.perf_counter()
+    steps.append(tr.train_step(train_batch(cfg, i)))
+    torch.cuda.synchronize()
+    steps[-1]["call_s"] = time.perf_counter() - t0
+  params_after = count_params(tr.params)
+  losses = [m["loss"] for m in steps]
+  if not all(math.isfinite(x) for x in losses + [m["moe_aux"]
+                                                  for m in steps]):
+    fail(f"{cfg.name} training: non-finite loss {losses}")
+  stages = [m["stage"] for m in steps]
+  if stages != [1] * TRAIN_TRANSITION + [2] * (TRAIN_STEPS - TRAIN_TRANSITION):
+    fail(f"{cfg.name} training: stages {stages}")
+  if not params_after < params_before:
+    fail(f"{cfg.name} training: {params_after} params after the "
+         f"transition, {params_before} before")
+  ranks = {}
+  for leaf in iter_factored_leaves(tr.params):
+    if not leaf.is_factored or leaf.rank % 8 or \
+        leaf.rank > min(leaf.in_dim, leaf.out_dim):
+      fail(f"{cfg.name} training: leaf {leaf.name} rank "
+           f"{leaf.rank if leaf.is_factored else None}")
+    ranks[leaf.name] = leaf.rank
+  if "layers/expert_gate" not in ranks:
+    fail(f"{cfg.name} training: the expert stacks were not factored")
+  median_ms = {f"stage{s}": statistics.median(
+      m["wall_s"] * 1e3 for i, m in enumerate(steps)
+      if m["stage"] == s and i not in (0, TRAIN_TRANSITION))
+      for s in (1, 2)}
+  transition_ms = (steps[TRAIN_TRANSITION]["call_s"]
+                   - steps[TRAIN_TRANSITION]["wall_s"]) * 1e3
+  summary = dict(
+      train=cfg.name, card=card, layers=cfg.num_layers,
+      batch=[LM_TRAIN_BATCH, LM_TRAIN_SEQ], remat=cfg.remat,
+      steps=TRAIN_STEPS, transition_step=TRAIN_TRANSITION, init_s=init_s,
+      losses=losses, xent=[m["xent"] for m in steps],
+      moe_aux=[m["moe_aux"] for m in steps], stages=stages,
+      wall_ms=[m["wall_s"] * 1e3 for m in steps],
+      median_step_ms=median_ms, transition_ms=transition_ms,
+      dense_params=dense_params, stage1_params=params_before,
+      stage2_params=params_after,
+      stage2_over_dense=params_after / dense_params, ranks=ranks,
+      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+  print(json.dumps(summary), flush=True)
+  fact = frozen(copy.deepcopy(tr.params))
+  del tr
+  free()
+  for name, leaf, _ in step_leaves(fact, cfg):
+    if not leaf.is_factored or min(leaf.u.shape[-2], leaf.rank,
+                                   leaf.v.shape[-1]) < 128:
+      fail(f"{cfg.name} trained: {name} would not reach lowrank_gemm")
+  rows = check_cases(lowrank_cases(step_leaves(fact, cfg),
+                                   torch.Generator().manual_seed(8),
+                                   "ds_trained", f"trained {cfg.name} "))
+  launches = check_lm_serving(fact, cfg, card, kernel="lowrank_gemm")
+  del fact
+  free()
+  return launches, rows, summary
+
+
+def ds_profiles(lm, cfg, card) -> dict:
+  """Where a full-depth DeepSeek step's time goes: one batch-4 decode step
+  under "cuda" (positions 64.. of a zeroed cache) timed unprofiled
+  (median of 5) and once under torch.profiler (device kernel time, the
+  device's idle share of the unprofiled step, the top kernels by name),
+  beside the routed experts' weight bytes a step (every expert at its 8
+  slots) and their bound; and the 4096-token prefill once under the
+  profiler."""
+  from repro_torch.kernels import dispatch
+  from repro_torch.models import transformer as tf
+  pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
+  state = tf.init_decode_state(cfg, SERVE_BATCH, 128, device="cuda")
+  tok = torch.ones((SERVE_BATCH, 1), dtype=torch.int64, device="cuda")
+  pos = torch.arange(64, 64 + SERVE_BATCH, device="cuda")
+
+  def step():
+    tf.decode_step(lm, state, tok, pos, cfg, pol)
+  step()
+  walls = []
+  for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+  median = statistics.median(walls)
+  prof = profile_step(step, "ds_decode_step")
+  prof["device_idle_share"] = 1.0 - prof["device_kernel_ms"] / median
+  m = cfg.moe
+  experts = tf.depths(cfg)[1] * 3 * m.num_experts * cfg.d_model * \
+      m.d_expert * cfg.dtype.itemsize
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
+  prefill = profile_step(
+      lambda: tf.forward(lm, toks, cfg, last_only=True,
+                         policy=dispatch.resolve_policy("cuda")),
+      "ds_prefill")
+  out = dict(ds_profile=cfg.name, card=card, decode_step_ms=median,
+             decode_step_walls_ms=walls, decode_step=prof,
+             routed_expert_bytes=experts,
+             routed_expert_bound_ms=experts / HBM_BYTES_PER_S * 1e3,
+             prefill=prefill)
+  print(json.dumps(out), flush=True)
+  del state
+  return out
+
+
+def check_deepseek(card) -> tuple[dict, list[dict]]:
+  """Phase 11. Returns (launches by path, kernel rows)."""
+  from repro_torch import configs
+  from repro_torch.models.transformer import depths
+  by_path, rows = {}, []
+  v2 = configs.get_config(DS_ARCH)
+  # (b) f32 at full width, depth cut: routes identical
+  cfg = v2.with_(num_layers=DS_F32_LAYERS, dtype=torch.float32)
+  lm = build_lm(cfg)
+  f32 = ds_teacher_forced(lm, cfg, card, DS_F32_PREFILL, DS_F32_STEPS,
+                          exact_routes=True, atol=DS_F32_ATOL,
+                          what=f"{cfg.name} f32 {DS_F32_LAYERS} layers")
+  by_path["ds_f32"] = f32["launches"]
+  del lm
+  free()
+  # (a), (c) full depth in bf16
+  lm = build_lm(v2)
+  if depths(v2) != (1, 26):
+    fail(f"{v2.name}: stacks {depths(v2)}")
+  rows += check_cases(decode_cases(step_leaves(lm, v2),
+                                   torch.Generator().manual_seed(9),
+                                   "ds_decode", f"{v2.name} "))
+  by_path["ds_prefill"] = check_prefill(lm, v2, card,
+                                        ds_prefill_gemms(v2), flash=False)
+  by_path["ds_serving"] = check_lm_serving(lm, v2, card)
+  ds_profiles(lm, v2, card)
+  del lm
+  free()
+  # (d) training
+  check_training_card_vs_cpu(card, DS3_ARCH)
+  by_path["ds_trained_serving"], trained_rows, _ = check_ds_training(card)
+  rows += trained_rows
+  # (e) deepseek-v3 at full width, depth cut
+  v3 = configs.get_config(DS3_ARCH).with_(num_layers=DS3_LAYERS)
+  lm = build_lm(v3)
+  if depths(v3) != (3, 1) or lm.mtp is None:
+    fail(f"{v3.name}: stacks {depths(v3)}, MTP head {lm.mtp is not None}")
+  rows += check_cases(decode_cases(step_leaves(lm, v3),
+                                   torch.Generator().manual_seed(10),
+                                   "ds3_decode", f"{v3.name} "))
+  v3_run = ds_teacher_forced(lm, v3, card, DS3_PREFILL, DS3_STEPS,
+                             exact_routes=False, atol=LM_SERVE_ATOL,
+                             what=f"{v3.name} bf16 {DS3_LAYERS} layers")
+  by_path["ds3_teacher_forced"] = v3_run["launches"]
+  del lm
+  free()
+  return by_path, rows
+
+
 def _sums(rows: list[dict]) -> dict:
   """Per-step sums of timed rows, each row counted `weight` times (and
   the cold times' sums where every row has them)."""
@@ -2230,7 +2826,10 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
                       ("whisper_encode", "whisper_small_encode"),
                       ("whisper_decode", "whisper_small_decode_step"),
                       ("whisper_lowrank", "whisper_small_truncated_encode"),
-                      ("whisper_int8", "whisper_small_ptq_encode")):
+                      ("whisper_int8", "whisper_small_ptq_encode"),
+                      ("ds_decode", "deepseek_v2_lite_decode_step"),
+                      ("ds3_decode", "deepseek_v3_671b_4_layer_decode_step"),
+                      ("ds_trained", "deepseek_v2_lite_trained_step")):
       on_path = [r for r in mine if r["path"] == path]
       if on_path:
         entry[key] = _sums(on_path)
@@ -2319,6 +2918,11 @@ def main() -> int:
   by_path.update(whisper_paths)
   rows += whisper_rows
   phases["10_whisper"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  ds_paths, ds_rows = check_deepseek(card)
+  by_path.update(ds_paths)
+  rows += ds_rows
+  phases["11_deepseek"] = time.perf_counter() - t0
   launches = {k: sum(n[k] for n in by_path.values()) for k in KERNELS}
   if not all(n > 0 for n in launches.values()):
     fail(f"a kernel never launched on the main paths: {launches}")

@@ -9,7 +9,15 @@ checkpoint path strings (`repro.checkpoint.manager`):
                "dense_layers/ln1", "dense_layers/attn/wq/w",
                "dense_layers/ffn/w_gate/w", ... (layer-stacked, as the
                reference stores them), with qk-norm (qwen3) also
-               "dense_layers/attn/q_norm" and ".../k_norm"
+               "dense_layers/attn/q_norm" and ".../k_norm"; DeepSeek's
+               MLA "*/attn/wq/w" or "*/attn/wq_a/w", "*/attn/q_a_norm",
+               "*/attn/wq_b/w", then "*/attn/w_dkv/w", "*/attn/kv_a_norm",
+               "*/attn/w_uk/w", "*/attn/w_uv/w", "*/attn/wo/w"; the MoE
+               stack's "moe_layers/ln1", "moe_layers/moe/router" (a raw
+               f32 (L, d, E) array), "moe_layers/moe/w_gate/w" (L, E, d,
+               f), "moe_layers/moe/shared/w_gate/w", ...; the MTP head's
+               "mtp/proj/w", "mtp/layer/attn/...", "mtp/layer/ffn/...",
+               "mtp/layer/ln1" and "mtp/norm" (unstacked)
   whisper:     "embedding/table" (tied), "pos_dec", "enc_layers/ln1/scale",
                "enc_layers/attn/wq/w", "enc_layers/ffn/w_in/w",
                "enc_layers/ffn/b_in", "enc_ln/bias", "dec_layers/xattn/wk/w",
@@ -45,10 +53,14 @@ from repro_torch.layers.attention import Attention
 from repro_torch.layers.common import ModelConfig
 from repro_torch.layers.embedding import Embedding
 from repro_torch.layers.ffn import GeluFFN, SwiGLU
-from repro_torch.layers.norms import LayerNorm
 from repro_torch.layers.gru import GRU
+from repro_torch.layers.mla import MLA
+from repro_torch.layers.moe import MoE
+from repro_torch.layers.norms import LayerNorm
 from repro_torch.models.deepspeech import DeepSpeech2
-from repro_torch.models.transformer import LayerStack, TransformerLM
+from repro_torch.models.transformer import (MTP, DenseLayer, LayerStack,
+                                            MoELayerStack, TransformerLM,
+                                            depths)
 from repro_torch.models.whisper import Whisper, WhisperLayers
 from repro_torch.quant.leaf import QuantizedLinear
 
@@ -123,18 +135,55 @@ def _transformer(a: _Arrays, cfg: ModelConfig) -> TransformerLM:
   def gemm_leaf(path: str, name: str):
     return _leaf(a.take(path), name=name, group="nonrec", cfg=cfg)
 
+  def attn(p: str):
+    if cfg.mla is not None:
+      if cfg.mla.q_lora_rank:
+        q = dict(wq_a=gemm_leaf(f"{p}/wq_a", "layers/mla_q_a"),
+                 q_a_norm=a.pop(f"{p}/q_a_norm"),
+                 wq_b=gemm_leaf(f"{p}/wq_b", "layers/mla_q_b"))
+      else:
+        q = dict(wq=gemm_leaf(f"{p}/wq", "layers/mla_q"))
+      return MLA(**q, w_dkv=gemm_leaf(f"{p}/w_dkv", "layers/mla_dkv"),
+                 kv_a_norm=a.pop(f"{p}/kv_a_norm"),
+                 w_uk=gemm_leaf(f"{p}/w_uk", "layers/mla_uk"),
+                 w_uv=gemm_leaf(f"{p}/w_uv", "layers/mla_uv"),
+                 wo=gemm_leaf(f"{p}/wo", "layers/mla_o"))
+    norms = ({k: a.pop(f"{p}/{k}") for k in ("q_norm", "k_norm")}
+             if cfg.qk_norm else {})
+    return Attention(*(gemm_leaf(f"{p}/w{x}", f"layers/attn_{x}")
+                       for x in "qkvo"), **norms)
+
+  def swiglu(p: str, prefix: str = "layers") -> SwiGLU:
+    return SwiGLU(*(gemm_leaf(f"{p}/w_{x}", f"{prefix}/ffn_{x}")
+                    for x in ("gate", "up", "down")))
+
+  def moe(p: str) -> MoE:
+    shared = (swiglu(f"{p}/shared", "layers/shared")
+              if cfg.moe.num_shared else None)
+    return MoE(a.pop(f"{p}/router"),
+               *(gemm_leaf(f"{p}/w_{x}", f"layers/expert_{x}")
+                 for x in ("gate", "up", "down")), shared)
+
   table = a.pop("embedding/table")
   head = None if cfg.tie_embeddings else gemm_leaf("embedding/head",
                                                    "lm_head")
-  p = "dense_layers"
-  norms = ({k: a.pop(f"{p}/attn/{k}") for k in ("q_norm", "k_norm")}
-           if cfg.qk_norm else {})
-  attn = Attention(*(gemm_leaf(f"{p}/attn/w{x}", f"layers/attn_{x}")
-                     for x in "qkvo"), **norms)
-  ffn = SwiGLU(*(gemm_leaf(f"{p}/ffn/w_{x}", f"layers/ffn_{x}")
-                 for x in ("gate", "up", "down")))
-  layers = LayerStack(a.pop(f"{p}/ln1"), a.pop(f"{p}/ln2"), attn, ffn)
-  return TransformerLM(Embedding(table, head), a.pop("final_norm"), layers)
+  n_dense, n_moe = depths(cfg)
+  dense_layers = moe_layers = mtp = None
+  if n_dense:
+    p = "dense_layers"
+    dense_layers = LayerStack(a.pop(f"{p}/ln1"), a.pop(f"{p}/ln2"),
+                              attn(f"{p}/attn"), swiglu(f"{p}/ffn"))
+  if n_moe:
+    p = "moe_layers"
+    moe_layers = MoELayerStack(a.pop(f"{p}/ln1"), a.pop(f"{p}/ln2"),
+                               attn(f"{p}/attn"), moe(f"{p}/moe"))
+  if cfg.mtp:
+    p = "mtp/layer"
+    layer = DenseLayer(a.pop(f"{p}/ln1"), a.pop(f"{p}/ln2"),
+                       attn(f"{p}/attn"), swiglu(f"{p}/ffn"))
+    mtp = MTP(gemm_leaf("mtp/proj", "mtp/proj"), layer, a.pop("mtp/norm"))
+  return TransformerLM(Embedding(table, head), a.pop("final_norm"),
+                       dense_layers, moe_layers, mtp)
 
 
 def _whisper(a: _Arrays, cfg: ModelConfig) -> Whisper:

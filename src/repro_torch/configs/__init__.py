@@ -1,13 +1,15 @@
 """Architecture registry of the port: the paper's deepspeech2-wsj, the
 dense transformers (chameleon-34b, llama3-8b, glm4-9b, stablelm-3b,
-qwen3-4b) and whisper-small, in the reference's order.
+qwen3-4b), the DeepSeek family (deepseek-v2-lite, deepseek-v3-671b) and
+whisper-small, in the reference's order.
 
   get_config(name)  — full config
   get_smoke(name)   — reduced same-family config (CPU-runnable)
 """
 from __future__ import annotations
 
-from repro_torch.configs import (chameleon_34b, deepspeech2_wsj, glm4_9b,
+from repro_torch.configs import (chameleon_34b, deepseek_v2_lite,
+                                 deepseek_v3_671b, deepspeech2_wsj, glm4_9b,
                                  llama3_8b, qwen3_4b, stablelm_3b,
                                  whisper_small)
 from repro_torch.layers.common import ModelConfig
@@ -18,6 +20,8 @@ _MODULES = {
     "glm4-9b": glm4_9b,
     "stablelm-3b": stablelm_3b,
     "qwen3-4b": qwen3_4b,
+    "deepseek-v2-lite": deepseek_v2_lite,
+    "deepseek-v3-671b": deepseek_v3_671b,
     "whisper-small": whisper_small,
     "deepspeech2-wsj": deepspeech2_wsj,
 }

@@ -9,6 +9,8 @@ Examples (on a machine with a GPU; `--device cpu` runs the plain path):
       --full --kernels cuda --batch 4 --num-requests 8 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --device cpu --speculate 3 --draft-rank 8 --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite \
+      --device cpu --speculate 3 --draft-rank 8 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepspeech2-wsj \
       --full --kernels cuda --batch 4
 """

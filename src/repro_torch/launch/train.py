@@ -1,11 +1,14 @@
-"""Training entry point of the port: the deepspeech, dense transformer
-and whisper branches of `repro.launch.train`, with its flags and
-`--device`.
+"""Training entry point of the port: the deepspeech, transformer (dense
+and DeepSeek) and whisper branches of `repro.launch.train`, with its
+flags and `--device`. A DeepSeek config's loss lines also print the MoE
+aux loss and, with MTP, the MTP head's cross-entropy.
 
 Examples (on a machine with a GPU; `--device cpu` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepspeech2-wsj \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+      --device cpu --steps 6 --two-stage --transition 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
       --device cpu --steps 6 --two-stage --transition 3
@@ -101,8 +104,11 @@ def main(argv=None) -> dict:
   for i in range(args.steps):
     m = trainer.train_step(gen(i))
     if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
+      parts = "".join(f" {k} {m[k]:.4f}" for k in ("moe_aux", "mtp")
+                      if k in m and cfg.moe is not None)
       print(f"step {m['step']:4d} stage {m['stage']} "
-            f"loss {m['loss']:.4f} wall {m['wall_s']:.2f}s", flush=True)
+            f"loss {m['loss']:.4f}{parts} wall {m['wall_s']:.2f}s",
+            flush=True)
   if trainer.ckpt is not None:
     trainer.ckpt.wait()
 

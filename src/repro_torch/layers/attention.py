@@ -227,10 +227,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
           "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _write_rows(cache: torch.Tensor, new: torch.Tensor,
+def write_rows(cache: torch.Tensor, new: torch.Tensor,
                 start: torch.Tensor, pos: torch.Tensor) -> None:
-  """cache[i, pos[i, t]] = new[i, t] in place; cache (b, S, kv, hd), new
-  (b, W, kv, hd), pos (b, W) = start[:, None] + t. A row at or past S is
+  """cache[i, pos[i, t]] = new[i, t] in place; cache (b, S, ...), new
+  (b, W, ...) (GQA's (kv, hd) rows, MLA's latent rows), pos (b, W) =
+  start[:, None] + t. A row at or past S is
   dropped (the reference's scatter drops it; an index past S would
   raise here, or assert on the device) without a host sync: it rewrites
   row clamp(start - 1, 0, S - 1) with that row's own value, a row this
@@ -241,8 +242,9 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor,
   spare = (start - 1).clamp(0, s - 1)[:, None].expand_as(pos)
   rows = torch.where(valid, pos, spare)
   bidx = torch.arange(b, device=cache.device)[:, None].expand_as(pos)
-  cache[bidx, rows] = torch.where(valid[..., None, None],
-                                  new.to(cache.dtype), cache[bidx, rows])
+  keep = valid.reshape(valid.shape + (1,) * (new.ndim - 2))
+  cache[bidx, rows] = torch.where(keep, new.to(cache.dtype),
+                                  cache[bidx, rows])
 
 
 def attention_decode(p, x: torch.Tensor, cache: dict,
@@ -254,8 +256,8 @@ def attention_decode(p, x: torch.Tensor, cache: dict,
   h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
   q, k_new, v_new = _project_qkv(p, x, cfg, positions[:, None], policy)
   k, v = cache["k"], cache["v"]
-  _write_rows(k, k_new, positions, positions[:, None])
-  _write_rows(v, v_new, positions, positions[:, None])
+  write_rows(k, k_new, positions, positions[:, None])
+  write_rows(v, v_new, positions, positions[:, None])
   f32 = torch.float32
   mask = torch.arange(k.shape[1], device=x.device)[None, :] <= \
       positions[:, None]                                   # (b, S)
@@ -295,8 +297,8 @@ def attention_decode_window(p, x: torch.Tensor, cache: dict,
   pos = positions[:, None] + torch.arange(w, device=x.device)[None, :]
   q, k_new, v_new = _project_qkv(p, x, cfg, pos, policy)
   k, v = cache["k"], cache["v"]
-  _write_rows(k, k_new, positions, pos)
-  _write_rows(v, v_new, positions, pos)
+  write_rows(k, k_new, positions, pos)
+  write_rows(v, v_new, positions, pos)
   f32 = torch.float32
   mask = torch.arange(k.shape[1], device=x.device)[None, None, :] <= \
       pos[:, :, None]                                      # (b, W, S)

@@ -1,7 +1,8 @@
 """Shared config dataclass and the GEMM application helper.
 
 Counterpart of `repro.layers.common` for the ported families:
-`ModelConfig` (its `dtype` is a `torch.dtype`) and `gemm`, which applies
+`ModelConfig` (its `dtype` is a `torch.dtype`) with DeepSeek's
+`MoEConfig` and `MLAConfig`, and `gemm`, which applies
 a GEMM leaf (`FactoredLinear`, `QuantizedLinear` or a raw weight tensor)
 and, given a `kernels.dispatch.KernelPolicy`, routes it through the CUDA
 kernels.
@@ -33,11 +34,32 @@ def gemm(leaf, x: torch.Tensor, policy=None) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+  num_experts: int = 0          # routed experts
+  num_shared: int = 0           # always-on shared experts
+  top_k: int = 2
+  d_expert: int = 0             # per-expert FFN hidden dim
+  capacity_factor: float = 1.25
+  router_aux_weight: float = 1e-3   # load-balance auxiliary loss
+  first_dense_layers: int = 0   # leading layers use dense FFN (deepseek)
+  dispatch_groups: int = 1      # token groups routed and dispatched apart
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+  kv_lora_rank: int = 512
+  q_lora_rank: int = 0          # 0 => dense q projection
+  qk_nope_dim: int = 128
+  qk_rope_dim: int = 64
+  v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
   """The reference's `ModelConfig`, cut to the fields the ported
-  families read: the dense GQA transformer (qwen3's `qk_norm` included),
-  Whisper's encoder-decoder and DS2 (the MoE, MLA and SSM fields come
-  with their families)."""
+  families read: the transformer (qwen3's `qk_norm`, DeepSeek's MoE,
+  MLA and MTP head included), Whisper's encoder-decoder and DS2 (the
+  SSM fields come with their families)."""
   name: str
   family: str                   # transformer | whisper | deepspeech
   num_layers: int
@@ -52,6 +74,10 @@ class ModelConfig:
   tie_embeddings: bool = False
   norm_eps: float = 1e-5
   dtype: torch.dtype = torch.bfloat16
+  # -- MoE / MLA (deepseek) --
+  moe: Optional[MoEConfig] = None
+  mla: Optional[MLAConfig] = None
+  mtp: bool = False                       # multi-token prediction head (dsv3)
   # -- enc-dec (whisper) --
   encoder_layers: int = 0
   max_source_positions: int = 1500

@@ -8,7 +8,8 @@ encoder), `loss_fn`,
 speculative-rewind
 contract `decode_state_carry`, the batched window `decode_window` (and
 its oracle `decode_window_sequential`) and the slot surgery
-`insert_slot`. Decode states are nested dicts of tensors; `insert_slot`
+`insert_slot` (over every stack's cache: a DeepSeek state has "dense"
+and "moe"). Decode states are nested dicts of tensors; `insert_slot`
 writes into the batched state in place (the reference returns a new
 tree). `cast_kv_cache` narrows only attention-KV leaves. The other
 families and the prefix-snapshot contract come with their slices.

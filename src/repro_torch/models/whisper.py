@@ -46,9 +46,6 @@ from repro_torch.layers.ffn import GeluFFN, gelu_ffn_forward, init_gelu_ffn
 from repro_torch.layers.norms import LayerNorm, init_ln, layer_norm
 from repro_torch.models.transformer import StackedLayers, _xent
 
-_ATTN = ("wq", "wk", "wv", "wo")
-_FFN = ("w_in", "w_out")
-
 
 class WhisperLayers(StackedLayers):
   """The encoder's stack (ln1, attn, ln2, ffn) or, with `xattn` and
@@ -67,35 +64,6 @@ class WhisperLayers(StackedLayers):
     if xattn is not None:
       self.xattn, self.ln3 = xattn, ln3
     self.ffn = ffn
-
-  @property
-  def is_decoder(self) -> bool:
-    return hasattr(self, "xattn")
-
-  def _norms(self) -> tuple:
-    return ("ln1", "ln2", "ln3") if self.is_decoder else ("ln1", "ln2")
-
-  def _attns(self) -> tuple:
-    return ("attn", "xattn") if self.is_decoder else ("attn",)
-
-  def _leaves(self) -> tuple:
-    return (*(t for n in self._norms() for t in (getattr(self, n).scale,
-                                                 getattr(self, n).bias)),
-            *(getattr(getattr(self, a), k) for a in self._attns()
-              for k in _ATTN),
-            *(getattr(self.ffn, k) for k in _FFN), self.ffn.b_in,
-            self.ffn.b_out)
-
-  def _build_views(self) -> list[dict]:
-    def layer(i):
-      out = {n: {"scale": getattr(self, n).scale[i],
-                 "bias": getattr(self, n).bias[i]} for n in self._norms()}
-      out.update({a: {k: getattr(getattr(self, a), k).layer(i)
-                      for k in _ATTN} for a in self._attns()})
-      out["ffn"] = {**{k: getattr(self.ffn, k).layer(i) for k in _FFN},
-                    "b_in": self.ffn.b_in[i], "b_out": self.ffn.b_out[i]}
-      return out
-    return [layer(i) for i in range(self.ln1.scale.shape[0])]
 
 
 class Whisper(nn.Module):

@@ -82,6 +82,16 @@ class QuantizedLinear(nn.Module):
     return f"name={self.name!r}, group={self.group!r}"
 
   # -- math -----------------------------------------------------------------
+  def product(self) -> torch.Tensor:
+    """The dequantized W (in the float type it was quantized from),
+    batched over leading dims: the float form the MoE's stacked experts
+    and MLA's absorbed w_uk / w_uv take."""
+    if self.is_factored:
+      u = self.u_q.float() * self.u_scale[..., None, :]
+      v = self.v_q.float() * self.v_scale[..., None, :]
+      return torch.matmul(u, v).to(self.orig_dtype)
+    return (self.w_q.float() * self.w_scale[..., None, :]).to(self.orig_dtype)
+
   def apply(self, x: torch.Tensor, policy=None) -> torch.Tensor:
     """y = x @ W in w8a8 arithmetic (the plain path of the int8_gemm
     regime); `policy` routes through kernels.dispatch."""

@@ -65,9 +65,11 @@ def make_draft_params(params: nn.Module, *, rank: Optional[int] = None,
   variance, the paper's truncation rule. A custom `plan` overrides both.
   The draft's factors are made from the target's weights without copying
   them first; every leaf the plan does not match (embedding, norms,
-  small GEMMs) is the target's own tensor, so the draft costs only its
-  factors. Raises if nothing matched: a "draft" that is the target
-  itself would claim a perfect accept rate.
+  small GEMMs, a MoE's router, which is not a GEMM leaf) is the target's
+  own tensor, so the draft costs only its factors. A stacked leaf (a
+  layer stack's (L, m, n), a MoE's (L, E, m, n) experts) is truncated at
+  one rank for the whole stack. Raises if nothing matched: a "draft"
+  that is the target itself would claim a perfect accept rate.
   """
   if plan is None:
     spec = TruncationSpec(

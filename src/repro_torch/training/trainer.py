@@ -2,8 +2,9 @@
 schedule (stage-1 trace-norm training -> truncated-SVD warmstart ->
 stage-2 fine-tune), trace-norm diagnostics, checkpoint and restart.
 
-Counterpart of `repro.training.trainer`, for the deepspeech, dense
-transformer and whisper families. A step is the forward and backward of
+Counterpart of `repro.training.trainer`, for the deepspeech,
+transformer (dense and DeepSeek: its loss adds the MoE aux loss and the
+MTP head's) and whisper families. A step is the forward and backward of
 every microbatch (autograd, with no kernel policy: no kernel has a
 backward), the regularizer, and an in-place AdamW update. A transformer
 batch {tokens, targets} goes to the trainer's device as int64 tensors

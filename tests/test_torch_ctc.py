@@ -20,6 +20,16 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models import ctc as jctc  # noqa: E402
 from repro_torch.models import ctc  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 T, V = 14, 6
 #: (label sequence, logit length) per batch row: length 0, repeats (a
 #: run of three, an alternation), and rows with frames past their length

@@ -729,3 +729,70 @@ def test_whisper_encode_through_flash_matches_plain(cuda):
   assert ("enc/attn", "flash_attention") in set(log)
   want = whisper.encode(model, frames, cfg, dispatch.resolve_policy("plain"))
   torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+#: (m, n) of every GEMM a DeepSeek decode step sends to decode_matvec:
+#: deepseek-v2-lite's wq, w_dkv, wo, the dense layer's SwiGLU, the shared
+#: experts' SwiGLU and the head; deepseek-v3-671b's q-LoRA wq_a and wq_b
+#: and its wo
+DEEPSEEK_DECODE = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 10944),
+                   (10944, 2048), (2048, 2816), (2816, 2048), (2048, 102400),
+                   (7168, 1536), (1536, 24576), (16384, 7168)]
+
+
+@pytest.mark.parametrize("shape", DEEPSEEK_DECODE)
+def test_decode_matvec_at_deepseek_decode_shapes(cuda, shape):
+  """decode_matvec against its plain version in bf16 at batch 4 (the
+  engine's slots), within 1e-2."""
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  m, n = shape
+  gen = torch.Generator(device=cuda).manual_seed(m + n)
+  x = torch.randn(4, m, generator=gen, device=cuda).to(torch.bfloat16)
+  w = (torch.randn(m, n, generator=gen, device=cuda) * m ** -0.5).to(
+      torch.bfloat16)
+  got = decode_matvec(x, w)
+  torch.cuda.synchronize()
+  assert got.shape == (4, n) and got.dtype == torch.bfloat16
+  torch.testing.assert_close(got, ref.decode_matvec(x, w), rtol=1e-2,
+                             atol=1e-2)
+
+
+def test_deepseek_smoke_decode_through_kernels_matches_plain(cuda):
+  """deepseek-v3-671b's smoke config (q-LoRA, MLA, MoE) in f32 on the
+  card: 4 batch-2 decode steps under the "cuda" policy against the plain
+  policy with the same routes and logits within 1e-4, then a 4-token
+  window against its steps."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.layers import moe
+  from repro_torch.models import transformer
+  cfg = configs.get_smoke("deepseek-v3-671b").with_(dtype=torch.float32)
+  params = transformer.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                               device=cuda)
+  b = 2
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(b, 8))).to(cuda)
+  states = {p: transformer.init_decode_state(cfg, b, 16, device=cuda)
+            for p in ("cuda", "plain")}
+  pos = torch.tensor([0, 3], device=cuda)
+  ops.reset_launches()
+  routes = {}
+  for p in states:
+    with moe.record_routes() as routes[p]:
+      out = [transformer.decode_step(
+          params, states[p], toks[:, t:t + 1], pos + t, cfg,
+          dispatch.resolve_policy(p, b))[0] for t in range(4)]
+    routes[p + "_out"] = out
+  for a, c in zip(routes["cuda_out"], routes["plain_out"]):
+    torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+  for a, c in zip(routes["cuda"], routes["plain"]):
+    np.testing.assert_array_equal(np.sort(a["experts"], -1),
+                                  np.sort(c["experts"], -1))
+  assert ops.LAUNCHES["decode_matvec"] > 0
+  got, _ = transformer.decode_window(
+      params, states["cuda"], toks[:, 4:], pos + 4, cfg,
+      dispatch.resolve_policy("cuda", b, window=4))
+  steps = [transformer.decode_step(params, states["plain"],
+                                   toks[:, 4 + t:5 + t], pos + 4 + t,
+                                   cfg)[0][:, 0] for t in range(4)]
+  torch.testing.assert_close(got, torch.stack(steps, 1), rtol=1e-4, atol=1e-4)

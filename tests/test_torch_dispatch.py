@@ -20,6 +20,16 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.layers.common import gemm  # noqa: E402
 from repro_torch.quant import QuantizedLinear, quantize_leaf  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 KEY = jax.random.PRNGKey(0)
 
 

@@ -9,6 +9,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
@@ -32,7 +42,9 @@ def test_port_imports_neither_jax_nor_reference():
           "serving/engine.py", "models/api.py", "launch/serve.py",
           "models/whisper.py", "configs/whisper_small.py", "quant/ptq.py",
           "layers/norms.py", "layers/ffn.py", "layers/attention.py",
-          "kernels/dispatch.py"} <= names
+          "kernels/dispatch.py", "layers/mla.py", "layers/moe.py",
+          "configs/deepseek_v2_lite.py",
+          "configs/deepseek_v3_671b.py"} <= names
   bad = [(f.relative_to(PORT), mod) for f in files
          for mod in _imported_modules(f)
          if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
@@ -130,3 +142,23 @@ def test_whisper_entry_points_default_to_the_gpu(monkeypatch):
   out = train.main(["--arch", "whisper-small", "--device", "cpu", "--steps",
                     "1", "--batch", "2", "--seq", "16"])
   assert out["final_loss"] > 0
+
+
+def test_deepseek_entry_points_default_to_the_gpu(monkeypatch):
+  """The DeepSeek configs through the same entry points: with no GPU, not
+  asking for the CPU raises; on the CPU the model (MLA, MoE, MTP head)
+  and its latent decode state are built there."""
+  from repro_torch import configs
+  from repro_torch.models.transformer import init_decode_state, init_lm
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  cfg = configs.get_smoke("deepseek-v3-671b")
+  gen = torch.Generator().manual_seed(0)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_lm(cfg, generator=gen)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_decode_state(cfg, 2, 16)
+  params = init_lm(cfg, generator=gen, device="cpu")
+  assert params.mtp.norm.device.type == "cpu"
+  assert params.moe_layers.moe.router.dtype == torch.float32
+  state = init_decode_state(cfg, 2, 16, device="cpu")
+  assert state["moe"]["c_kv"].shape == (3, 2, 16, 32)

@@ -20,6 +20,16 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: (b, m, n) from tests/test_kernels.py's PARITY_GRID, odd shapes included
 GRID = [(1, 128, 128), (3, 300, 700), (16, 384, 136)]

@@ -29,6 +29,16 @@ from repro_torch.core import compress, svd  # noqa: E402
 from repro_torch.core.factored import (FactoredLinear, count_params,  # noqa: E402
                                        iter_factored_leaves)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 ATOL = 1e-4
 #: launch/train.py's plan: every DS2 GEMM at the smoke widths
 PLAN = dict(min_dim=32, exclude=("*embed*",))

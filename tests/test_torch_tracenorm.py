@@ -16,6 +16,16 @@ from repro.core.factored import FactoredLinear as JLeaf  # noqa: E402
 from repro_torch.core import tracenorm as tn  # noqa: E402
 from repro_torch.core.factored import FactoredLinear  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """Torch on one thread: the suite runs files in parallel workers."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 RTOL = 1e-5
 
 
