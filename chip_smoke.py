@@ -25,7 +25,10 @@
    repeated; the plain version repeats them), at (1, 4096, 32, 128), at (1, 32768, 32, 128)
    (its plain version by query-row chunks) and at (1, 1024, 32, 128)
    causal bf16, once causal in f32 and once non-causal at a ragged
-   (1, 1500, 12, 64) in bf16: bf16 within atol = rtol = 1e-2 (one bf16
+   (1, 1500, 12, 64) in bf16, and at zamba2-7b's head width 112 causal
+   at (1, 4096, 32, 112) in bf16 (timed), non-causal at a ragged GQA
+   (1, 1000, 32 / 8, 112) and causal in f32: bf16 within atol = rtol =
+   1e-2 (one bf16
    rounding of the output is 2^-8 relative), f32 within 1e-4 (summation
    order), int8 bit for bit; `flash_attention` also row by row against
    each row's own scale (`FLASH_ROW_RTOL`). Times the kernel, the plain
@@ -201,7 +204,35 @@
    top-8, q-LoRA 1536, MTP head built): `decode_matvec` at its shapes,
    then as (b) in bf16 with `DS3_PREFILL` tokens and `DS3_STEPS` steps
    (29 launches a step), gated on the route log as (c).
-12. Prints each phase's seconds, the card line, `{"kernels": [...]}`
+12. zamba2-7b, after phase 11: the first carry family (a Mamba2
+   backbone, its chunked SSD scan plain PyTorch in f32, and one shared
+   attention block before each group of 6 layers, head width 112). (a)
+   All 81 layers in bf16 (seeded CUDA generator, ~6.75 B parameters):
+   every GEMM of a batch-4 decode step must classify to `decode_matvec`
+   (3 x 81 Mamba2 + 7 x 13 shared + the head = 335 launches a step),
+   which is held and timed, warm and cold, at those shapes. (b) Phase
+   4's 4096-token prefill under both policies: exactly 13
+   `flash_attention` launches (one a group, d = 112) and the head's
+   `decode_matvec`, each flash call held in place against its plain
+   version on its own inputs; the policies' log-probs are compared on
+   an f32 copy of the weights within `F32_LOGPROB_ATOL` (two bf16 runs
+   of this model part by as much as bf16 from f32). (c) Phase 5's
+   `LMEngine` serving (335 launches a step; log-probs compared on the
+   f32 copy likewise), then one decode step and one prefill timed and
+   profiled: the SSD scan's share of the prefill's device time (its
+   calls marked with `record_function`) and the device's idle shares.
+   (e) Cut to `ZAMBA_CUT_LAYERS` (one group and one tail layer): the
+   rank-128 draft built on the card, `lowrank_gemm` held at its shapes,
+   the engine's masked replay against the steps it stands for (accepted
+   lengths 1..4, carries bit for bit), then, with the target's residual
+   beyond the draft shrunk to `ZAMBA_SPEC_RESIDUAL` so that the draft
+   agrees on some tokens, `LMEngine(speculate=3)` as phase 7 holds
+   llama3-8b's, which must take a masked replay (live slots committing
+   different lengths) at least once. (d) Phase 6's f32 card-vs-CPU step
+   at the zamba smoke width (updates within `ZAMBA_UPDATE_RTOL`), then
+   the cut model trained as phase 9 and served with every GEMM through
+   `lowrank_gemm` (29 launches a step).
+13. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
    failure raises: the script exits non-zero and prints no result line.
@@ -283,7 +314,8 @@ LM_SERVE_ATOL = 0.25
 #: prefill_32k length (its plain version by row chunks)
 #: (the qwen3-4b prefill's shape is llama3-8b's), then stablelm-3b's
 #: prefill at head width 80 and ragged d = 80 cases in both types and
-#: modes
+#: modes, then zamba2-7b's shared-block prefill at head width 112 (32
+#: heads, no GQA) and ragged d = 112 cases
 FLASH_CASES = [(1, PREFILL_LEN, 32, 8, 128, True, torch.bfloat16, True),
                (1, PREFILL_LEN, 32, 32, 128, True, torch.bfloat16, True),
                (1, 32768, 32, 32, 128, True, torch.bfloat16, True),
@@ -294,7 +326,10 @@ FLASH_CASES = [(1, PREFILL_LEN, 32, 8, 128, True, torch.bfloat16, True),
                (1, 1000, 32, 32, 80, True, torch.bfloat16, False),
                (1, 1500, 32, 8, 80, False, torch.bfloat16, False),
                (1, 700, 8, 8, 80, True, torch.float32, False),
-               (1, 500, 8, 2, 80, False, torch.float32, False)]
+               (1, 500, 8, 2, 80, False, torch.float32, False),
+               (1, PREFILL_LEN, 32, 32, 112, True, torch.bfloat16, True),
+               (1, 1000, 32, 8, 112, False, torch.bfloat16, False),
+               (1, 512, 8, 8, 112, True, torch.float32, False)]
 #: (m, n) and (m, r, n) off every tile and vector width, at RAGGED_BATCHES
 RAGGED_MATVEC = [(1000, 700), (4100, 1030), (333, 130)]
 RAGGED_LOWRANK = [(1000, 130, 700), (333, 72, 1030)]
@@ -322,6 +357,13 @@ TRAIN_LAMBDA = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_UPDATE_RTOL = 1e-2
+#: zamba2-7b's smoke step: its updates differ by 1.7e-2 (measured on an
+#: H100 80GB HBM3 at 700 W, gradients within 3.4e-4): a leaf of m entries
+#: of which f move the other way differs by 2 sqrt(f / m), so 1.7e-2 is
+#: ~7e-5 of a leaf's entries. The limit is the next power of two above
+#: that reading; each run prints the share of entries whose update sign
+#: differs (`update_sign_flips`) for every arch
+ZAMBA_UPDATE_RTOL = 2.0 ** -5
 #: phase 9: the transformer's training batch (data/lm.py) and, at full
 #: qwen3-4b width, the depth it is cut to
 LM_TRAIN_BATCH = 4
@@ -374,6 +416,41 @@ DS_TRAIN_LAYERS = 2
 DS3_LAYERS = 4
 DS3_PREFILL = 512
 DS3_STEPS = 4
+#: phase 12: zamba2-7b at full width (81 layers: 13 groups of 6 Mamba2
+#: blocks behind the shared attention block, then 3 tail layers; head
+#: width 112), and cut to ZAMBA_CUT_LAYERS (one group of 6 and one tail
+#: layer, so `main`, `tail` and the shared block all run) for the
+#: two-stage recipe and the self-speculative engine
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_CUT_LAYERS = 7
+#: the share of each weight that the rank-128 draft leaves out which the
+#: speculative target keeps (`shrink_residuals`): small enough that the
+#: draft's greedy tokens agree with the target's on a 32000-word
+#: vocabulary about a third of the time, so that slots accept different
+#: lengths and both the masked and the unmasked replay run (the run
+#: prints the accept rate and each replay's commits)
+ZAMBA_SPEC_RESIDUAL = 0.0025
+#: log-prob agreement of the two policies where a model is compared in
+#: f32 (`check_prefill` and `check_lm_serving` with a `compare` copy, the
+#: speculative engine's window): zamba2-7b's, whose bf16 runs part too
+#: far. `zamba_drift` measures why, at the prompt's last position after
+#: each of the 13 groups (an H100 80GB HBM3 at 700 W): both precisions
+#: carry a difference forward at about one rate (2.3x a group in bf16,
+#: 2.1x in f32, over groups 1-4; f32 then 1.2-1.5x), but the bf16
+#: policies start ~1400x further apart (0.059 relative after the first
+#: group against 4.3e-5: the flash kernel rounds P to bf16, where the f32
+#: runs differ by summation order), so bf16 reaches 0.73 by the 4th
+#: group and saturates near 1.2 (decorrelated). The f32 prefill's
+#: log-probs were 0.0175 apart, serving's 0.031; the limit is 2^-3.
+#: Where the policies are compared on an f32 copy, the bf16 model's own
+#: flash calls are held in place against their plain versions, and the
+#: CPU tests hold each bf16 stage to the reference's own bf16 rounding
+F32_LOGPROB_ATOL = 2.0 ** -3
+#: the GEMMs of a zamba layer stack and shared block, by logical name
+ZAMBA_GEMMS = ("mamba/ssm_in_zx", "mamba/ssm_in_bcdt", "mamba/ssm_out",
+               "shared/attn_q", "shared/attn_k", "shared/attn_v",
+               "shared/attn_o", "shared/ffn_gate", "shared/ffn_up",
+               "shared/ffn_down")
 #: a route that differs between the "cuda" and "plain" runs in bf16 must,
 #: where it first differs, be a near-tie: a logit gap ln(p_k / p_(k+1))
 #: between the last chosen and the first unchosen expert below this. The
@@ -673,7 +750,8 @@ def kernel_cases(dense, fact, quant, lm, gen):
         2 * b * s * (h + h_kv) * d * size if timed else 0,
         4 * b * h * d * pairs,
         path=("lm_prefill" if s == PREFILL_LEN and h_kv < h else
-              "stablelm_prefill" if s == PREFILL_LEN and d == 80 else None),
+              "stablelm_prefill" if s == PREFILL_LEN and d == 80 else
+              "zamba_prefill" if s == PREFILL_LEN and d == 112 else None),
         weight=n_layers, reps=5 if long else 20))
   # f32 once per GEMM kernel: the kernels take f32 as well as bf16
   f32 = torch.float32
@@ -703,8 +781,11 @@ def step_leaves(lm, cfg) -> list[tuple]:
   projections, or MLA's q (or q-LoRA's two), dkv and o, in every layer;
   the dense layers' SwiGLU; the MoE layers' shared SwiGLU; and the head.
   (MLA's w_uk and w_uv enter the absorbed attention as products and the
-  routed experts as stacked einsums: neither reaches a GEMM regime.)"""
+  routed experts as stacked einsums: neither reaches a GEMM regime.)
+  A zamba model's are `zamba_step_leaves`."""
   from repro_torch.models.transformer import depths
+  if cfg.family == "zamba":
+    return zamba_step_leaves(lm, cfg)
   n_dense, n_moe = depths(cfg)
   lp = lm.dense_layers.layers()[0]
   if cfg.mla is None:
@@ -983,52 +1064,107 @@ def build_lm(cfg):
   return init_lm(cfg, generator=gen, device="cuda")
 
 
-def check_prefill(lm, cfg, card, gemms=None, flash: bool = True) -> dict:
+def attention_layers(cfg) -> int:
+  """The attention calls of a forward: one a layer, or for zamba one a
+  group (the shared block)."""
+  if cfg.family == "zamba":
+    from repro_torch.models.zamba import _plan
+    return _plan(cfg)[1]
+  return cfg.num_layers
+
+
+def hold_flash_in_place(lm, cfg, toks) -> float:
+  """One "cuda" prefill of `lm` in which each flash call is held against
+  `ref.flash_attention` on that call's own q, k, v, row by row
+  (FLASH_ROW_RTOL). Returns the largest row ratio."""
+  from repro_torch.kernels import dispatch, ref
+  from repro_torch.models.api import get_model
+  ratios = []
+  maybe = dispatch.maybe_flash_attention
+
+  def held(q, k, v, policy, name, *, causal=True):
+    out = maybe(q, k, v, policy, name, causal=causal)
+    rep = q.shape[2] // k.shape[2]
+    want = ref.flash_attention(q, torch.repeat_interleave(k, rep, 2),
+                               torch.repeat_interleave(v, rep, 2),
+                               causal=causal).float()
+    err = (out.float() - want).abs()
+    ratios.append(float((err.amax(-1) / want.abs().amax(-1)).max()))
+    return out
+  dispatch.maybe_flash_attention = held
+  try:
+    get_model(cfg).forward(lm, toks, cfg, last_only=True,
+                           policy=dispatch.resolve_policy("cuda"))
+  finally:
+    dispatch.maybe_flash_attention = maybe
+  if len(ratios) != attention_layers(cfg) or \
+      max(ratios) > FLASH_ROW_RTOL[cfg.dtype]:
+    fail(f"{cfg.name} prefill: flash calls against their plain versions, "
+         f"row ratios {ratios}")
+  return max(ratios)
+
+
+def check_prefill(lm, cfg, card, gemms=None, flash: bool = True,
+                  compare=None) -> dict:
   """forward(last_only=True) on one 4096-token prompt under both
   policies; returns the kernel run's launches. `gemms`: the logical
   names of the layer GEMMs (default: the dense LM's), which stay plain
   at 4096 rows; `flash`: whether the attention launches flash_attention
-  (one call a layer), which MLA does not; without it the log-probs are
-  held to the head's rounding (HEAD_ONLY_RTOL), not PREFILL_ATOL."""
+  (one call an attention layer), which MLA does not; without it the
+  log-probs are held to the head's rounding (HEAD_ONLY_RTOL), not
+  PREFILL_ATOL (F32_LOGPROB_ATOL in f32). `compare`: (model, cfg), a copy
+  of the same weights on which the policies' log-probs are compared
+  (default: `lm` itself); `lm`'s runs are then held to their launches,
+  routing and finite log-probs, and each of its flash calls to its plain
+  version in place (`hold_flash_in_place`)."""
   from repro_torch.kernels import dispatch, ops
-  from repro_torch.models.transformer import forward
+  from repro_torch.models.api import get_model
   toks = torch.from_numpy(np.random.RandomState(0).randint(
       1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
-  runs = {}
-  for policy in ("cuda", "plain"):
-    pol = dispatch.resolve_policy(policy)
-    forward(lm, toks, cfg, last_only=True, policy=pol)  # warm-up, full size
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    with dispatch.record_dispatch() as log:
-      t0 = time.perf_counter()
-      logits = forward(lm, toks, cfg, last_only=True, policy=pol)
-      torch.cuda.synchronize()
-      dt = time.perf_counter() - t0
-    last = logits[0, -1].float()
-    runs[policy] = (torch.log_softmax(last, dim=-1), dt, dict(ops.LAUNCHES),
-                    set(log), float(last.abs().max()))
-  (lp_k, dt_k, launches, routes, top_k), \
-      (lp_p, dt_p, plain_launches, _, top_p) = runs["cuda"], runs["plain"]
-  atol = PREFILL_ATOL if flash else HEAD_ONLY_RTOL * max(top_k, top_p)
-  # the layer GEMMs (flat batch 4096) stay plain, and the head, narrowed
-  # to the last position, is a batch-1 GEMM
-  want = {k: 0 for k in launches}
-  want.update(flash_attention=cfg.num_layers if flash else 0,
-              decode_matvec=1)
-  if launches != want:
-    fail(f"{cfg.name} prefill: launches {launches} != {want}")
-  if any(plain_launches.values()):
-    fail(f"{cfg.name} prefill: the plain policy launched {plain_launches}")
   if gemms is None:
     gemms = {f"layers/{g}" for g in LM_GEMMS}
   want_routes = {(n, "jnp") for n in gemms} | {("lm_head", "decode_matvec")}
   if flash:
     want_routes.add(("layers/attn", "flash_attention"))
-  if routes != want_routes:
-    fail(f"{cfg.name} prefill: routing {sorted(routes)}")
-  if lp_k.shape != (cfg.vocab_size,) or not bool(torch.isfinite(lp_k).all()):
-    fail(f"{cfg.name} prefill: log-probs of the wrong shape or not finite")
+
+  def run(model, c, policy):
+    forward = get_model(c).forward
+    pol = dispatch.resolve_policy(policy)
+    forward(model, toks, c, last_only=True, policy=pol)  # warm-up, full size
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with dispatch.record_dispatch() as log:
+      t0 = time.perf_counter()
+      logits = forward(model, toks, c, last_only=True, policy=pol)
+      torch.cuda.synchronize()
+      dt = time.perf_counter() - t0
+    last = logits[0, -1].float()
+    launches = dict(ops.LAUNCHES)
+    # the layer GEMMs (flat batch 4096) stay plain, and the head, narrowed
+    # to the last position, is a batch-1 GEMM
+    want = {k: 0 for k in launches}
+    if policy == "cuda":
+      want.update(flash_attention=attention_layers(c) if flash else 0,
+                  decode_matvec=1)
+      if set(log) != want_routes:
+        fail(f"{c.name} prefill: routing {sorted(set(log))}")
+    if launches != want:
+      fail(f"{c.name} prefill ({policy}, {c.dtype}): launches {launches} "
+           f"!= {want}")
+    if last.shape != (c.vocab_size,) or not bool(torch.isfinite(last).all()):
+      fail(f"{c.name} prefill: logits of the wrong shape or not finite")
+    return torch.log_softmax(last, dim=-1), dt, launches, \
+        float(last.abs().max())
+  (_, dt_k, launches, _), (_, dt_p, _, _) = runs = [
+      run(lm, cfg, p) for p in ("cuda", "plain")]
+  cm, cc = compare or (lm, cfg)
+  if compare is not None:
+    runs = [run(cm, cc, p) for p in ("cuda", "plain")]
+  (lp_k, _, _, top_k), (lp_p, _, _, top_p) = runs
+  if not flash:
+    atol = HEAD_ONLY_RTOL * max(top_k, top_p)
+  else:
+    atol = F32_LOGPROB_ATOL if cc.dtype == torch.float32 else PREFILL_ATOL
   diff = float((lp_k - lp_p).abs().max())
   if diff > atol:
     fail(f"{cfg.name} prefill: last-position log-probs differ by {diff:.3g} "
@@ -1039,13 +1175,17 @@ def check_prefill(lm, cfg, card, gemms=None, flash: bool = True) -> dict:
   if tok_k != tok_p and gap >= atol:
     fail(f"{cfg.name} prefill: greedy tokens {tok_k} != {tok_p} at a top-2 "
          f"gap of {gap:.3g}")
+  held = {} if compare is None else dict(
+      compared_dtype=str(cc.dtype),
+      flash_max_row_err_ratio=hold_flash_in_place(lm, cfg, toks))
   print(json.dumps(dict(
-      prefill=cfg.name, card=card, layers=cfg.num_layers,
-      head_dim=cfg.resolved_head_dim, tokens=PREFILL_LEN, launches=launches,
-      cuda_prefill_s=dt_k, cuda_prefill_tokens_per_s=PREFILL_LEN / dt_k,
-      plain_prefill_s=dt_p, plain_prefill_tokens_per_s=PREFILL_LEN / dt_p,
-      max_logprob_diff=diff, atol=atol, plain_top2_gap=gap, greedy_cuda=tok_k,
-      greedy_plain=tok_p)), flush=True)
+      prefill=cfg.name, card=card, dtype=str(cfg.dtype),
+      layers=cfg.num_layers, head_dim=cfg.resolved_head_dim,
+      tokens=PREFILL_LEN, launches=launches, cuda_prefill_s=dt_k,
+      cuda_prefill_tokens_per_s=PREFILL_LEN / dt_k, plain_prefill_s=dt_p,
+      plain_prefill_tokens_per_s=PREFILL_LEN / dt_p, max_logprob_diff=diff,
+      atol=atol, plain_top2_gap=gap, greedy_cuda=tok_k, greedy_plain=tok_p,
+      **held)), flush=True)
   return launches
 
 
@@ -1289,7 +1429,8 @@ def router_drift(entries_p: list, entries_k: list, tokens_of,
   return worst
 
 
-def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec") -> dict:
+def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec",
+                     compare=None) -> dict:
   """Correctness: a recorded plain run, and a recorded kernel run fed the
   plain run's tokens, compared call by call. Throughput: one run of each
   policy with no hooks. Every GEMM of the kernel runs must route to
@@ -1301,26 +1442,40 @@ def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec") -> dict:
   recorded run, the kernel policy replaying the plain run's routes
   (`moe.replay_routes`), is held at every live row and gives the
   router's drift (`router_drift`), which must stay below
-  ROUTE_LOGIT_GAP. Returns the hook-free kernel run's launches."""
+  ROUTE_LOGIT_GAP. `compare`: (model, cfg), a copy of the same weights
+  on which the recorded runs are compared (default: `lm` itself; an f32
+  copy is held to F32_LOGPROB_ATOL), and `lm` then takes one recorded
+  "cuda" run of its own (routing, launches, finite log-probs) before the
+  hook-free runs. Returns the hook-free kernel run's launches."""
   from repro_torch.layers import moe
   from repro_torch.models.transformer import depths
   what = f"{cfg.name} serving"
   reqs = lm_requests(cfg)
-  n_moe = depths(cfg)[1]
+  transformer = cfg.family == "transformer"
+  n_moe = depths(cfg)[1] if transformer else 0
   leaves = step_leaves(lm, cfg)
   names = {n for n, _, _ in leaves}
   per_step = sum(w for _, _, w in leaves)
-  eng_k, eng_p = lm_engine(lm, cfg, "cuda"), lm_engine(lm, cfg, "plain")
+  cm, cc = compare or (lm, cfg)
+  atol = F32_LOGPROB_ATOL if cc.dtype == torch.float32 else LM_SERVE_ATOL
+  eng_k, eng_p = lm_engine(cm, cc, "cuda"), lm_engine(cm, cc, "plain")
   p = recorded_run(eng_p, reqs)
   k = recorded_run(eng_k, reqs, forced=p["sampled"])
   runs = {"recorded": k}
   if p["route_log"]:
     with moe.replay_routes(p["route_log"]):
       runs["replayed"] = recorded_run(eng_k, reqs, forced=p["sampled"])
+  if compare is not None:
+    del eng_k, eng_p
+    eng_k, eng_p = lm_engine(lm, cfg, "cuda"), lm_engine(lm, cfg, "plain")
+    runs["own"] = recorded_run(eng_k, reqs)
   fin_k, dt_k, launches = timed_run(eng_k, reqs)
   fin_p, dt_p, plain_launches_t = timed_run(eng_p, reqs)
-  if k["routes"] != {(n, kernel) for n in names}:
-    fail(f"{what}: routing {sorted(k['routes'])}")
+  for name, r in runs.items():
+    if r["routes"] != {(n, kernel) for n in names}:
+      fail(f"{what} ({name}): routing {sorted(r['routes'])}")
+    if not all(bool(torch.isfinite(c[2]).all()) for c in r["calls"]):
+      fail(f"{what} ({name}): non-finite log-probs")
   if p["routes"] != {(n, "jnp") for n in names}:
     fail(f"{what}: plain routing {sorted(p['routes'])}")
   n_calls = len(p["calls"])
@@ -1356,11 +1511,10 @@ def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec") -> dict:
       held = torch.tensor([r is not None and first.get(r[0], r[1] + 1) > r[1]
                            for r in rows], device=lk.device)
       yield i, lk[live], lp[live], held[live]
-  lp_stats = compare_logprobs(pairs(k, first_pos), LM_SERVE_ATOL, what)
+  lp_stats = compare_logprobs(pairs(k, first_pos), atol, what)
   if "replayed" in runs:
     r = runs["replayed"]
-    rep = compare_logprobs(pairs(r, {}), LM_SERVE_ATOL,
-                           f"{what} (routes replayed)")
+    rep = compare_logprobs(pairs(r, {}), atol, f"{what} (routes replayed)")
     lp_stats["replayed"] = {key: rep[key] for key in (
         "max_logprob_diff", "rows_held", "argmax_flips", "flip_max_top2_gap")}
     route_stats["router_drift"] = router_drift(
@@ -1384,13 +1538,15 @@ def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec") -> dict:
   n_k = sum(len(t) for t in toks_k)
   n_p = sum(len(t) for t in toks_p)
   print(json.dumps(dict(
-      serve=cfg.name, card=card, layers=cfg.num_layers, requests=len(reqs),
-      slots=SERVE_BATCH, steps=n_calls, launches_a_step=per_step,
-      launches=launches, cuda_tokens=n_k, cuda_tok_per_s=n_k / dt_k,
+      serve=cfg.name, card=card, dtype=str(cfg.dtype),
+      compared_dtype=str(cc.dtype), layers=cfg.num_layers,
+      requests=len(reqs), slots=SERVE_BATCH, steps=n_calls,
+      launches_a_step=per_step, launches=launches, atol=atol,
+      cuda_tokens=n_k, cuda_tok_per_s=n_k / dt_k,
       cuda_ttft_p50_ms=ttft_p50(fin_k), plain_tokens=n_p,
       plain_tok_per_s=n_p / dt_p, plain_ttft_p50_ms=ttft_p50(fin_p),
       tokens_equal=f"{same}/{len(toks_k)}", **lp_stats, **route_stats,
-      **time_layer_views(lm, cfg))), flush=True)
+      **(time_layer_views(lm, cfg) if transformer else {}))), flush=True)
   return launches
 
 
@@ -1487,8 +1643,8 @@ def check_window_vs_steps(lm, cfg, card) -> dict:
   then one (SERVE_BATCH x (SPEC_K + 1))-row `decode_window` and, from a
   clone of the same state, SPEC_K + 1 `decode_step`s. The window's GEMMs
   take 16 rows where a step's take 4, so `decode_matvec` sums in another
-  split-K order: log-probs within LM_SERVE_ATOL, argmax flips only at a
-  top-2 gap below it."""
+  split-K order: log-probs within LM_SERVE_ATOL (F32_LOGPROB_ATOL in
+  f32), argmax flips only at a top-2 gap below it."""
   from repro_torch.kernels import dispatch
   from repro_torch.models.api import get_model
   api, dev = get_model(cfg), lm.final_norm.device
@@ -1501,7 +1657,7 @@ def check_window_vs_steps(lm, cfg, card) -> dict:
   for t in range(8):
     _, state = api.decode_step(lm, state, toks[:, t:t + 1], pos + t, cfg,
                                pol)
-  steps_state = {"dense": {k: v.clone() for k, v in state["dense"].items()}}
+  steps_state = clone_state(state)
   win, _ = api.decode_window(lm, state, toks[:, 8:], pos + 8, cfg, pol)
   seq, _ = api.decode_window_sequential(lm, steps_state, toks[:, 8:],
                                         pos + 8, cfg, pol)
@@ -1518,10 +1674,18 @@ def check_window_vs_steps(lm, cfg, card) -> dict:
              rows=SERVE_BATCH * (SPEC_K + 1), max_logprob_diff=diff,
              argmax_flips=int(flip.sum()), flip_max_top2_gap=gap)
   print(json.dumps(out), flush=True)
-  if diff > LM_SERVE_ATOL or gap >= LM_SERVE_ATOL:
+  atol = F32_LOGPROB_ATOL if cfg.dtype == torch.float32 else LM_SERVE_ATOL
+  if diff > atol or gap >= atol:
     fail(f"window vs steps: log-probs differ by {diff:.3g}, a flip at a "
-         f"top-2 gap of {gap:.3g} (limit {LM_SERVE_ATOL})")
+         f"top-2 gap of {gap:.3g} (limit {atol})")
   return out
+
+
+def clone_state(state):
+  """A copy of a decode state (nested dicts of tensors)."""
+  if isinstance(state, dict):
+    return {k: clone_state(v) for k, v in state.items()}
+  return state.clone()
 
 
 def spec_engine(lm, cfg, draft, policy: str):
@@ -1606,23 +1770,56 @@ def check_lm_speculative(lm, cfg, card) -> tuple[dict, list[dict], dict]:
   draft, built = build_draft(lm, cfg, card)
   rows = check_cases(speculative_cases(lm, draft,
                                        torch.Generator().manual_seed(4)))
+  launches, summary = run_speculative(lm, cfg, card, draft, built)
+  return launches, rows, summary
+
+
+def run_speculative(lm, cfg, card, draft, built: dict) -> tuple[dict, dict]:
+  """The verify window against its steps, then phase 5's requests
+  through `LMEngine(speculate=SPEC_K)` with `draft`: every draft GEMM
+  (`step_leaves`' logical names) through lowrank_gemm and every target
+  GEMM (admission steps, verify windows and, for a carry family, the
+  replay's steps) through decode_matvec, `step_leaves`' launches a call;
+  tokens as vanilla greedy's up to a near-tie flip (LM_SERVE_ATOL, or
+  F32_LOGPROB_ATOL in f32). A carry family must take at least one masked
+  replay: an iteration whose live slots committed different lengths, so
+  that each slot's carries are put back past its own (`_replay`'s
+  per-slot path). Returns (the counted run's launches, the summary)."""
   window = check_window_vs_steps(lm, cfg, card)
+  atol = F32_LOGPROB_ATOL if cfg.dtype == torch.float32 else LM_SERVE_ATOL
+  leaves = step_leaves(lm, cfg)
+  names = {n for n, _, _ in leaves}
+  per_call = sum(w for _, _, w in leaves)
   reqs = lm_requests(cfg)
   eng = spec_engine(lm, cfg, draft, "cuda")
+  replays = []
+  if eng._has_carry:
+    replay = eng._replay
+
+    def counted_replay(step, state, window, commit, pos0):
+      if step == eng._step:        # the target's (the draft replays too)
+        replays.append([int(c) for i, c in enumerate(commit)
+                        if eng._slots[i].active])
+      return replay(step, state, window, commit, pos0)
+    eng._replay = counted_replay
   fin, calls, routes, launches, dt_rec = counted_spec_run(eng, reqs)
   accept = eng.accept_rate
   drafted, accepted, iters = (eng.drafted_tokens, eng.accepted_tokens,
                               eng.decode_steps)
+  masked = sum(len(set(c)) > 1 for c in replays)
+  if eng._has_carry:
+    del eng._replay
+    if not masked:
+      fail(f"{cfg.name} speculative serving: no masked replay (every "
+           f"replay's live slots committed alike: {replays})")
   eng.reset()
   # routing: every draft GEMM through lowrank_gemm, every target GEMM
   # (admission steps and verify windows) through decode_matvec
-  names = {f"layers/{g}" for g in LM_GEMMS} | {"lm_head"}
   want = {"draft": {(n, "lowrank_gemm") for n in names},
           "step": {(n, "decode_matvec") for n in names},
           "window": {(n, "decode_matvec") for n in names}}
   if routes != want:
     fail(f"speculative serving: routing {routes}")
-  per_call = cfg.num_layers * len(LM_GEMMS) + 1
   want_launches = {k: 0 for k in launches}
   want_launches.update(lowrank_gemm=per_call * calls["draft"],
                        decode_matvec=per_call * (calls["step"] +
@@ -1651,7 +1848,7 @@ def check_lm_speculative(lm, cfg, card) -> tuple[dict, list[dict], dict]:
     lp = lps_v[uid][j]
     gap = float(lp[tv[j]] - lp[ts[j]])
     first_flips.append(dict(uid=uid, token=j, vanilla_gap=gap))
-    if gap >= LM_SERVE_ATOL:
+    if gap >= atol:
       fail(f"speculative serving: request {uid} token {j} is {ts[j]}, "
            f"vanilla's {tv[j]}, at a log-prob gap of {gap:.3g}")
   # throughput smoke readings, hook-free: speculative and vanilla
@@ -1665,8 +1862,8 @@ def check_lm_speculative(lm, cfg, card) -> tuple[dict, list[dict], dict]:
   if any(plain_launches.values()) or len(fin_p) != SERVE_BATCH:
     fail(f"speculative serving: the plain policy launched {plain_launches}")
   summary = dict(
-      serve_speculative=cfg.name, card=card, requests=len(reqs),
-      slots=SERVE_BATCH, k=SPEC_K, draft_rank=DRAFT_RANK,
+      serve_speculative=cfg.name, card=card, layers=cfg.num_layers,
+      requests=len(reqs), slots=SERVE_BATCH, k=SPEC_K, draft_rank=DRAFT_RANK,
       draft_build_s=built["build_s"], iterations=iters, calls=calls,
       launches=launches, drafted=drafted, accepted=accepted,
       accept_rate=accept, tokens_equal=f"{equal}/{len(toks_v)}",
@@ -1674,10 +1871,13 @@ def check_lm_speculative(lm, cfg, card) -> tuple[dict, list[dict], dict]:
       speculative_tokens=n_s, speculative_tok_per_s=n_s / dt_s,
       vanilla_tokens=n_v, vanilla_tok_per_s=n_v / dt_v,
       plain_speculative_tok_per_s=sum(len(f.tokens) for f in fin_p) / dt_p,
-      window_max_logprob_diff=window["max_logprob_diff"])
+      window_max_logprob_diff=window["max_logprob_diff"],
+      replays=len(replays), masked_replays=masked,
+      iterations_not_replayed=iters - len(replays) if eng._has_carry else 0,
+      live_commits_by_replay=replays)
   print(json.dumps(summary), flush=True)
   del eng, plain, van
-  return launches, rows, summary
+  return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -1711,7 +1911,7 @@ def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None):
 def train_batch(cfg, step: int) -> dict:
   """Step `step`'s batch of the synthetic speech (TRAIN_BATCH
   utterances) or LM stream (LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens)."""
-  if cfg.family == "transformer":
+  if cfg.family in ("transformer", "zamba"):
     from repro_torch.data import lm as lm_data
     return lm_data.batch_at(lm_data.LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
@@ -1726,10 +1926,16 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
   return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def check_training_card_vs_cpu(card, arch: str = "deepspeech2-wsj") -> dict:
+def check_training_card_vs_cpu(card, arch: str = "deepspeech2-wsj",
+                               update_rtol: float = TRAIN_UPDATE_RTOL
+                               ) -> dict:
   """One f32 stage-1 step at `arch`'s smoke width on the CPU and on the
   card, the card's trainer restored from the CPU trainer's step-0
-  checkpoint (each device's own stage-1 SVD would pick other signs)."""
+  checkpoint (each device's own stage-1 SVD would pick other signs):
+  loss, gradients and each leaf's update within TRAIN_LOSS_RTOL,
+  TRAIN_GRAD_RTOL and `update_rtol`. Prints the share of the update
+  entries whose sign differs between the devices (Adam's first step
+  moves each weight by ~lr * sign(g))."""
   from repro_torch import configs
   cfg = configs.get_smoke(arch).with_(dtype=torch.float32)
   ckpt = ROOT / "build" / f"train_smoke_ckpt_{arch}"
@@ -1757,12 +1963,15 @@ def check_training_card_vs_cpu(card, arch: str = "deepspeech2-wsj") -> dict:
              batch={k: list(np.shape(v)) for k, v in batch.items()},
              loss_cpu=l_c, loss_cuda=l_g, loss_rel=loss_rel,
              max_grad_rel=grad_rel, max_update_rel=update_rel)
+  flips = sum(int((torch.sign(d_g[k]) != torch.sign(d)).sum())
+              for k, d in d_c.items())
+  out["update_sign_flips"] = flips / sum(d.numel() for d in d_c.values())
   print(json.dumps(out), flush=True)
   if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL and
-          update_rel <= TRAIN_UPDATE_RTOL):
+          update_rel <= update_rtol):
     fail(f"training step card vs CPU: loss {loss_rel:.3g}, gradients "
          f"{grad_rel:.3g}, updates {update_rel:.3g} (limits "
-         f"{TRAIN_LOSS_RTOL}, {TRAIN_GRAD_RTOL}, {TRAIN_UPDATE_RTOL})")
+         f"{TRAIN_LOSS_RTOL}, {TRAIN_GRAD_RTOL}, {update_rtol})")
   return out
 
 
@@ -2740,6 +2949,430 @@ def check_deepseek(card) -> tuple[dict, list[dict]]:
   return by_path, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: zamba2-7b, the first carry LM family — the shared block's
+# prefill through flash_attention at head width 112, the decode step
+# through decode_matvec, the recipe and the draft through lowrank_gemm,
+# the speculative engine's carry rewind.
+# ---------------------------------------------------------------------------
+
+def build_zamba(cfg):
+  from repro_torch.models.zamba import init_lm
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  return init_lm(cfg, generator=gen, device="cuda")
+
+
+def zamba_step_leaves(lm, cfg) -> list[tuple]:
+  """(logical name, a 2-D leaf, launches a decode step) of every GEMM a
+  zamba decode step routes through `gemm`: each Mamba2 block's in_zx,
+  in_bcdt and out_proj (every layer, main and tail), the shared block's
+  q, k, v, o and SwiGLU (once a group), and the head."""
+  from repro_torch.models.zamba import _plan
+  groups = _plan(cfg)[1]
+  lp, sp = lm.main.layers()[0][0], lm.shared_attn.view()
+  out = [(f"mamba/ssm_{n}", lp[k], cfg.num_layers) for n, k in (
+      ("in_zx", "in_zx"), ("in_bcdt", "in_bcdt"), ("out", "out_proj"))]
+  out += [(f"shared/attn_{k[1:]}", sp["attn"][k], groups)
+          for k in ("wq", "wk", "wv", "wo")]
+  out += [(f"shared/ffn_{g}", sp["ffn"][f"w_{g}"], groups)
+          for g in ("gate", "up", "down")]
+  out.append(("lm_head", lm.embedding.head, 1))
+  return out
+
+
+def f32_copy(lm, cfg):
+  """An f32 copy of a model on the card (the same weights, widened) and
+  its config."""
+  return copy.deepcopy(lm).float(), cfg.with_(dtype=torch.float32)
+
+
+def zamba_drift(lm, cfg, card, compare) -> dict:
+  """How far the two policies' residual streams part at the prompt's last
+  position, after each group and the tail (`_mamba_scan`'s outputs), as
+  ||x_cuda - x_plain|| / ||x_plain||: in bf16 (`lm`) and in f32
+  (`compare`: (model, cfg), the same weights widened), on phase 4's
+  prompt. What F32_LOGPROB_ATOL's comment says of bf16 rests on this."""
+  from repro_torch.kernels import dispatch
+  from repro_torch.models import zamba
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
+  scan, rec = zamba._mamba_scan, []
+
+  def recorded(x, *args, **kwargs):
+    out = scan(x, *args, **kwargs)
+    rec.append(out[0, -1].float())
+    return out
+  zamba._mamba_scan = recorded
+  out = {}
+  try:
+    for m, c in ((lm, cfg), compare):
+      runs = []
+      for policy in ("cuda", "plain"):
+        rec.clear()
+        zamba.forward(m, toks, c, last_only=True,
+                      policy=dispatch.resolve_policy(policy))
+        runs.append(list(rec))
+      out[str(c.dtype)] = [float((a - b).norm() / b.norm())
+                           for a, b in zip(*runs)]
+  finally:
+    zamba._mamba_scan = scan
+  print(json.dumps(dict(zamba_drift=cfg.name, card=card,
+                        cuda_vs_plain_by_group=out)), flush=True)
+  return out
+
+
+def annotated_kernel_ms(trace: Path, label: str) -> tuple[float, int]:
+  """Device time of the kernels launched inside `record_function(label)`
+  ranges of a torch.profiler trace (by the launches' correlation ids),
+  and the number of ranges."""
+  events = json.loads(trace.read_text())["traceEvents"]
+  spans = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in events
+           if e.get("cat") == "user_annotation" and e.get("name") == label]
+  corr = {e["args"]["correlation"] for e in events
+          if e.get("cat") in ("cuda_runtime", "cuda_driver") and
+          "correlation" in
+          e.get("args", {}) and any(a <= e["ts"] <= b and e.get("tid") == t
+                                    for a, b, t in spans)}
+  ms = sum(e.get("dur", 0.0) for e in events if e.get("cat") == "kernel"
+           and e.get("args", {}).get("correlation") in corr) / 1e3
+  return ms, len(spans)
+
+
+def zamba_profiles(lm, cfg, card) -> dict:
+  """Where zamba2-7b's time goes: one batch-4 decode step under "cuda"
+  (positions 64.. of a zeroed state) timed unprofiled (median of 5) and
+  once under torch.profiler; the 4096-token prefill timed unprofiled
+  (median of 3) and once under the profiler with each `ssd_chunked` call
+  in a `record_function` range, which gives the SSD scan's share of the
+  device's kernel time; and one `ssd_chunked` call alone at a layer's
+  prefill shapes (CUDA events), times the layers."""
+  from repro_torch.kernels import dispatch
+  from repro_torch.layers import mamba2 as m2
+  from repro_torch.models import zamba
+  pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
+  state = zamba.init_decode_state(cfg, SERVE_BATCH, 128, device="cuda")
+  tok = torch.ones((SERVE_BATCH, 1), dtype=torch.int64, device="cuda")
+  pos = torch.arange(64, 64 + SERVE_BATCH, device="cuda")
+
+  def walls(fn, n):
+    fn()
+    out = []
+    for _ in range(n):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      fn()
+      torch.cuda.synchronize()
+      out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+  def step():
+    zamba.decode_step(lm, state, tok, pos, cfg, pol)
+  step_walls = walls(step, 5)
+  step_prof = profile_step(step, "zamba_decode_step")
+  step_prof["device_idle_share"] = 1.0 - step_prof["device_kernel_ms"] / \
+      statistics.median(step_walls)
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
+  prefill_pol = dispatch.resolve_policy("cuda")
+
+  def prefill():
+    zamba.forward(lm, toks, cfg, last_only=True, policy=prefill_pol)
+  prefill_walls = walls(prefill, 3)
+  ssd = m2.ssd_chunked
+
+  def marked_ssd(*args, **kwargs):
+    with torch.profiler.record_function("ssd_chunked"):
+      return ssd(*args, **kwargs)
+  m2.ssd_chunked = marked_ssd
+  try:
+    prefill_prof = profile_step(prefill, "zamba_prefill")
+  finally:
+    m2.ssd_chunked = ssd
+  ssd_ms, ranges = annotated_kernel_ms(
+      ROOT / "build" / "zamba_prefill_trace.json", "ssd_chunked")
+  if ranges != cfg.num_layers:
+    fail(f"{cfg.name} prefill profile: {ranges} ssd_chunked ranges, not "
+         f"{cfg.num_layers}")
+  prefill_prof.update(
+      ssd_kernel_ms=ssd_ms,
+      ssd_share=ssd_ms / prefill_prof["device_kernel_ms"],
+      device_idle_share=1.0 - prefill_prof["device_kernel_ms"] /
+      statistics.median(prefill_walls))
+  gen = torch.Generator().manual_seed(12)
+  d_inner = 2 * cfg.d_model
+  heads = d_inner // m2.HEAD_DIM
+  x = randn((1, PREFILL_LEN, heads, m2.HEAD_DIM), gen, torch.bfloat16)
+  dt = F.softplus(randn((1, PREFILL_LEN, heads), gen, torch.float32))
+  A = -torch.ones(heads, device="cuda")
+  B, C = (randn((1, PREFILL_LEN, cfg.ssm_state), gen, torch.bfloat16)
+          for _ in range(2))
+  one = time_ms(lambda: ssd(x, dt, A, B, C), reps=5)
+  out = dict(zamba_profile=cfg.name, card=card,
+             decode_step_ms=statistics.median(step_walls),
+             decode_step_walls_ms=step_walls, decode_step=step_prof,
+             prefill_ms=statistics.median(prefill_walls),
+             prefill_walls_ms=prefill_walls, prefill=prefill_prof,
+             ssd_one_layer_ms=one, ssd_all_layers_ms=one * cfg.num_layers)
+  print(json.dumps(out), flush=True)
+  del state
+  return out
+
+
+def zamba_carries(state: dict, carry: dict) -> list:
+  """The carry leaves of a zamba decode state, in a fixed order."""
+  return [state[k][n] for k, leaves in carry.items()
+          for n, c in leaves.items() if c]
+
+
+def check_replay(eng, cfg, card) -> dict:
+  """The speculative engine's masked replay on the card: 4 prompts of 8
+  tokens prefilled at batch 4, then the next SPEC_K + 1 tokens replayed
+  with accepted lengths 1, 2, 3 and 4 (one a slot) from a copy of that
+  state, against the SPEC_K + 1 steps they stand for: every slot's
+  carries must be the steps' own after its accepted length, bit for bit
+  (the same steps at the same shapes; the replay only keeps rows)."""
+  api, dev = eng.api, eng.device
+  rng = np.random.RandomState(5)
+  toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, size=(
+      SERVE_BATCH, 8 + SPEC_K + 1))).to(dev)
+  state = api.init_decode_state(cfg, SERVE_BATCH, 64, device=dev)
+  pos = torch.zeros(SERVE_BATCH, dtype=torch.int64, device=dev)
+  for t in range(8):
+    _, state = eng._step(state, toks[:, t:t + 1], pos + t)
+  window = toks[:, 8:]
+  steps, after = clone_state(state), []
+  for t in range(SPEC_K + 1):
+    _, steps = eng._step(steps, window[:, t:t + 1], pos + 8 + t)
+    after.append([x.clone() for x in zamba_carries(steps, eng._carry)])
+  commit = np.arange(1, SERVE_BATCH + 1) % (SPEC_K + 1)
+  commit[commit == 0] = SPEC_K + 1
+  got = eng._replay(eng._step, clone_state(state), window, commit, pos + 8)
+  axes = [eng._axes[k][n] for k, leaves in eng._carry.items()
+          for n, c in leaves.items() if c]
+  for i, c in enumerate(commit):
+    for ax, g, w in zip(axes, zamba_carries(got, eng._carry),
+                        after[c - 1]):
+      if not torch.equal(g.select(ax, i), w.select(ax, i)):
+        diff = float((g.select(ax, i).float()
+                      - w.select(ax, i).float()).abs().max())
+        fail(f"{cfg.name} replay: slot {i} (accepted {c}) differs from "
+             f"its steps by {diff:.3g}")
+  out = dict(replay_vs_steps=cfg.name, card=card, accepted=commit.tolist(),
+             carry_leaves=len(axes), equal=True)
+  print(json.dumps(out), flush=True)
+  return out
+
+
+def shrink_residuals(lm, draft, alpha: float) -> None:
+  """Each GEMM leaf W of `lm` becomes UV + alpha (W - UV), UV its
+  truncation in `draft`. A random weight's spectrum is flat, so a
+  rank-128 draft of a 3584-wide random model keeps a few percent of it
+  and agrees with its target on no greedy token (every window then
+  commits 1 in every slot, and the engine's per-slot replay never runs);
+  a trained weight's spectrum decays. W - UV lies outside UV's singular
+  subspaces, so UV is still the new weight's rank-128 truncation: the
+  draft is unchanged, and `alpha` sets how far it is from its target."""
+  from repro_torch.core.factored import iter_factored_leaves
+  pairs = list(zip(iter_factored_leaves(lm), iter_factored_leaves(draft)))
+  if len(pairs) != 14 or any(t.name != d.name or t.is_factored or
+                             not d.is_factored for t, d in pairs):
+    fail(f"shrink_residuals: leaves {[(t.name, d.name) for t, d in pairs]}")
+  with torch.no_grad():
+    for t, d in pairs:
+      t.w.mul_(alpha).add_(torch.matmul(d.u, d.v), alpha=1.0 - alpha)
+
+
+def check_zamba_speculative(card) -> tuple[dict, list[dict], dict]:
+  """zamba2-7b at full width cut to ZAMBA_CUT_LAYERS: the rank-128 draft
+  built on the card (every GEMM leaf factored, the norms, A_log and the
+  embedding the target's own storage), `lowrank_gemm` held and timed at
+  the draft step's shapes in bf16, then, in f32 (the target and its
+  draft widened: speculative greedy is held to vanilla greedy's tokens,
+  which bf16 rounding would decorrelate, see F32_LOGPROB_ATOL), the
+  masked replay against its steps (`check_replay`), the target's
+  residuals shrunk (`shrink_residuals`) and `run_speculative` (greedy,
+  every call's launches exact, at least one masked replay). Returns
+  (launches, rows, summary)."""
+  from repro_torch import configs
+  from repro_torch.core.factored import count_params, iter_factored_leaves
+  from repro_torch.models.zamba import _plan
+  from repro_torch.serving.speculative import make_draft_params
+  cfg = configs.get_config(ZAMBA_ARCH).with_(num_layers=ZAMBA_CUT_LAYERS)
+  if _plan(cfg) != (6, 1, 1):
+    fail(f"{cfg.name} cut to {cfg.num_layers} layers: plan {_plan(cfg)}")
+  lm = build_zamba(cfg)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  draft = make_draft_params(lm, rank=DRAFT_RANK)
+  torch.cuda.synchronize()
+  build_s = time.perf_counter() - t0
+  leaves = list(iter_factored_leaves(draft))
+  if len(leaves) != 14 or any(not lf.is_factored or lf.rank != DRAFT_RANK
+                              for lf in leaves):
+    fail(f"zamba draft: leaves {[(lf.name, lf.rank) for lf in leaves]}")
+  if any(lf.is_factored for lf in iter_factored_leaves(lm)):
+    fail("zamba draft: building it factored the target")
+  dsd, tsd = draft.state_dict(), lm.state_dict()
+  if any(dsd[k].data_ptr() != tsd[k].data_ptr() for k in (
+      "embedding.table", "final_norm", "main.A_log", "tail.conv_w",
+      "shared_attn.ln1")):
+    fail("zamba draft: a norm or an SSM leaf is a copy, not the target's")
+  built = dict(draft=cfg.name, card=card, layers=cfg.num_layers,
+               rank=DRAFT_RANK, build_s=build_s,
+               draft_params=count_params(draft),
+               target_params=count_params(lm))
+  print(json.dumps(built), flush=True)
+  rows = check_cases(lowrank_cases(zamba_step_leaves(draft, cfg),
+                                   torch.Generator().manual_seed(13),
+                                   "zamba_draft", f"{cfg.name} draft "))
+  lm, cfg = f32_copy(lm, cfg)
+  draft = copy.deepcopy(draft).float()
+  check_replay(spec_engine(lm, cfg, draft, "cuda"), cfg, card)
+  shrink_residuals(lm, draft, ZAMBA_SPEC_RESIDUAL)
+  launches, summary = run_speculative(lm, cfg, card, draft, built)
+  summary["residual_scale"] = ZAMBA_SPEC_RESIDUAL
+  del lm, draft
+  free()
+  return launches, rows, summary
+
+
+def check_zamba_training(card) -> tuple[dict, list[dict], dict]:
+  """zamba2-7b at full width cut to ZAMBA_CUT_LAYERS, bf16, trained
+  TRAIN_STEPS steps of `data/lm.py` batches through both stages as phase
+  9 (one step a stage under torch.profiler), then frozen and served
+  through LMEngine with every GEMM through lowrank_gemm. Returns (the
+  serving run's launches, the kernel rows, the training summary)."""
+  from repro_torch import configs
+  from repro_torch.core.factored import count_params, frozen, \
+      iter_factored_leaves
+  cfg = configs.get_config(ZAMBA_ARCH).with_(num_layers=ZAMBA_CUT_LAYERS)
+  ckpt = ROOT / "build" / "zamba_train_ckpt"
+  shutil.rmtree(ckpt, ignore_errors=True)
+  t0 = time.perf_counter()
+  tr = make_trainer(cfg, "cuda", ckpt,
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  dense_params = dense_param_count(tr.params)
+  steps, profiles = [], {}
+  for i in range(TRAIN_STEPS):
+    batch = train_batch(cfg, i)
+    if i == TRAIN_TRANSITION:
+      params_before = count_params(tr.params)
+    t0 = time.perf_counter()
+    if i in (1, TRAIN_TRANSITION + 1):      # one profiled step a stage
+      profiles[f"stage{tr.stage}"] = profile_step(
+          lambda b=batch: steps.append(tr.train_step(b)),
+          f"zamba_train_step{i}")
+    else:
+      steps.append(tr.train_step(batch))
+    torch.cuda.synchronize()
+    steps[-1]["call_s"] = time.perf_counter() - t0
+  params_after = count_params(tr.params)
+  losses = [m["loss"] for m in steps]
+  if not all(math.isfinite(x) for x in losses):
+    fail(f"{cfg.name} training: non-finite loss {losses}")
+  stages = [m["stage"] for m in steps]
+  if stages != [1] * TRAIN_TRANSITION + [2] * (TRAIN_STEPS - TRAIN_TRANSITION):
+    fail(f"{cfg.name} training: stages {stages}")
+  if not params_after < params_before:
+    fail(f"{cfg.name} training: {params_after} params after the "
+         f"transition, {params_before} before")
+  ranks = {}
+  for leaf in iter_factored_leaves(tr.params):
+    if not leaf.is_factored or leaf.rank % 8 or \
+        leaf.rank > min(leaf.in_dim, leaf.out_dim):
+      fail(f"{cfg.name} training: leaf {leaf.name} rank "
+           f"{leaf.rank if leaf.is_factored else None}")
+    ranks[leaf.name] = max(leaf.rank, ranks.get(leaf.name, 0))
+  median_ms = {f"stage{s}": statistics.median(
+      m["wall_s"] * 1e3 for i, m in enumerate(steps)
+      if m["stage"] == s and i not in (0, 1, TRAIN_TRANSITION,
+                                       TRAIN_TRANSITION + 1))
+      for s in (1, 2)}
+  for s, prof in profiles.items():     # idle share of an unprofiled step
+    prof["device_idle_share"] = 1.0 - prof["device_kernel_ms"] / median_ms[s]
+  transition_ms = (steps[TRAIN_TRANSITION]["call_s"]
+                   - steps[TRAIN_TRANSITION]["wall_s"]) * 1e3
+  summary = dict(
+      train=cfg.name, card=card, layers=cfg.num_layers,
+      batch=[LM_TRAIN_BATCH, LM_TRAIN_SEQ], steps=TRAIN_STEPS,
+      transition_step=TRAIN_TRANSITION, init_s=init_s, losses=losses,
+      stages=stages, wall_ms=[m["wall_s"] * 1e3 for m in steps],
+      median_step_ms=median_ms, transition_ms=transition_ms,
+      dense_params=dense_params, stage1_params=params_before,
+      stage2_params=params_after,
+      stage2_over_dense=params_after / dense_params, ranks=ranks,
+      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+      profiles=profiles)
+  print(json.dumps(summary), flush=True)
+  fact = frozen(copy.deepcopy(tr.params))
+  del tr
+  free()
+  leaves = zamba_step_leaves(fact, cfg)
+  for name, leaf, _ in leaves:
+    if not leaf.is_factored or min(leaf.u.shape[-2], leaf.rank,
+                                   leaf.v.shape[-1]) < 128:
+      fail(f"{cfg.name} trained: {name} would not reach lowrank_gemm")
+  rows = check_cases(lowrank_cases(leaves, torch.Generator().manual_seed(14),
+                                   "zamba_trained", f"trained {cfg.name} "))
+  launches = check_lm_serving(fact, cfg, card, "lowrank_gemm",
+                              compare=f32_copy(fact, cfg))
+  del fact
+  free()
+  return launches, rows, summary
+
+
+def check_zamba(card) -> tuple[dict, list[dict]]:
+  """Phase 12. Returns (launches by path, kernel rows)."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch
+  from repro_torch.models.zamba import _plan
+  by_path, rows = {}, []
+  cfg = configs.get_config(ZAMBA_ARCH)
+  if cfg.resolved_head_dim != 112 or _plan(cfg) != (6, 13, 3):
+    fail(f"{cfg.name}: head width {cfg.resolved_head_dim}, plan "
+         f"{_plan(cfg)}")
+  # (a) all 81 layers in bf16: decode_matvec at the decode step's shapes,
+  # its launches a step counted from `classify`
+  lm = build_zamba(cfg)
+  leaves = zamba_step_leaves(lm, cfg)
+  pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
+  per_step = 0
+  for name, leaf, weight in leaves:
+    x = torch.zeros((SERVE_BATCH, leaf.in_dim), dtype=cfg.dtype,
+                    device="cuda")
+    if dispatch.classify(leaf, x, pol, name) != "decode_matvec":
+      fail(f"{cfg.name}: {name} does not classify to decode_matvec")
+    per_step += weight
+  if per_step != 3 * 81 + 7 * 13 + 1:
+    fail(f"{cfg.name}: {per_step} decode_matvec launches a step, not 335")
+  rows += check_cases(decode_cases(leaves, torch.Generator().manual_seed(11),
+                                   "zamba_decode", f"{cfg.name} "))
+  # (b) the 4096-token prefill: 13 flash launches (one a group) and the
+  # head, each flash call held in place, the policies' log-probs compared
+  # on an f32 copy; (c) LMEngine, 335 launches a step, compared likewise
+  lm32 = f32_copy(lm, cfg)
+  by_path["zamba_prefill"] = check_prefill(lm, cfg, card, set(ZAMBA_GEMMS),
+                                           compare=lm32)
+  by_path["zamba_serving"] = check_lm_serving(lm, cfg, card, compare=lm32)
+  zamba_drift(lm, cfg, card, lm32)
+  del lm32
+  free()
+  zamba_profiles(lm, cfg, card)
+  del lm
+  free()
+  # (e) the self-speculative engine on the depth-cut model
+  by_path["zamba_speculative"], spec_rows, _ = check_zamba_speculative(card)
+  rows += spec_rows
+  # (d) the two-stage recipe at the depth cut
+  check_training_card_vs_cpu(card, ZAMBA_ARCH, ZAMBA_UPDATE_RTOL)
+  by_path["zamba_trained_serving"], trained_rows, _ = check_zamba_training(
+      card)
+  rows += trained_rows
+  return by_path, rows
+
+
 def _sums(rows: list[dict]) -> dict:
   """Per-step sums of timed rows, each row counted `weight` times (and
   the cold times' sums where every row has them)."""
@@ -2811,6 +3444,8 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
       entry["repeated_heads_ms"] = mha[0]["kernel_ms"]
       entry["stablelm_3b_prefill_call"] = _sums(
           [dict(r, weight=1) for r in mine if r["path"] == "stablelm_prefill"])
+      entry["zamba2_7b_prefill_call"] = _sums(
+          [dict(r, weight=1) for r in mine if r["path"] == "zamba_prefill"])
     else:
       entry["ms_by_batch"] = ds2_step_ms_by_batch(rows, name)
       for y in sorted({r["yardstick"] for r in mine if "yardstick" in r
@@ -2829,7 +3464,10 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
                       ("whisper_int8", "whisper_small_ptq_encode"),
                       ("ds_decode", "deepseek_v2_lite_decode_step"),
                       ("ds3_decode", "deepseek_v3_671b_4_layer_decode_step"),
-                      ("ds_trained", "deepseek_v2_lite_trained_step")):
+                      ("ds_trained", "deepseek_v2_lite_trained_step"),
+                      ("zamba_decode", "zamba2_7b_decode_step"),
+                      ("zamba_draft", "zamba2_7b_7_layer_draft_step"),
+                      ("zamba_trained", "zamba2_7b_trained_step")):
       on_path = [r for r in mine if r["path"] == path]
       if on_path:
         entry[key] = _sums(on_path)
@@ -2923,6 +3561,11 @@ def main() -> int:
   by_path.update(ds_paths)
   rows += ds_rows
   phases["11_deepseek"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  zamba_paths, zamba_rows = check_zamba(card)
+  by_path.update(zamba_paths)
+  rows += zamba_rows
+  phases["12_zamba"] = time.perf_counter() - t0
   launches = {k: sum(n[k] for n in by_path.values()) for k in KERNELS}
   if not all(n > 0 for n in launches.values()):
     fail(f"a kernel never launched on the main paths: {launches}")

@@ -18,6 +18,14 @@ checkpoint path strings (`repro.checkpoint.manager`):
                f), "moe_layers/moe/shared/w_gate/w", ...; the MTP head's
                "mtp/proj/w", "mtp/layer/attn/...", "mtp/layer/ffn/...",
                "mtp/layer/ln1" and "mtp/norm" (unstacked)
+  zamba:       "embedding/table", "embedding/head/w", "final_norm",
+               "main/in_zx/w" (groups, attn_every, d, 2 * d_inner),
+               "main/in_bcdt/w", "main/out_proj/w", "main/conv_w",
+               "main/A_log", "main/D", "main/dt_bias", "main/norm",
+               "main/norm_in" (stacked two levels deep), the same under
+               "tail/" (one level), "shared_attn/ln1",
+               "shared_attn/attn/wq/w", "shared_attn/ffn/w_gate/w", ...
+               (unstacked)
   whisper:     "embedding/table" (tied), "pos_dec", "enc_layers/ln1/scale",
                "enc_layers/attn/wq/w", "enc_layers/ffn/w_in/w",
                "enc_layers/ffn/b_in", "enc_ln/bias", "dec_layers/xattn/wk/w",
@@ -62,6 +70,7 @@ from repro_torch.models.transformer import (MTP, DenseLayer, LayerStack,
                                             MoELayerStack, TransformerLM,
                                             depths)
 from repro_torch.models.whisper import Whisper, WhisperLayers
+from repro_torch.models.zamba import MambaStack, ZambaLM, _plan
 from repro_torch.quant.leaf import QuantizedLinear
 
 _FLOAT_FIELDS = {"w", "u", "v"}
@@ -213,15 +222,41 @@ def _whisper(a: _Arrays, cfg: ModelConfig) -> Whisper:
                  stack("dec_layers", "dec", True), ln("dec_ln"))
 
 
+def _zamba(a: _Arrays, cfg: ModelConfig) -> ZambaLM:
+  def gemm_leaf(path: str, name: str):
+    return _leaf(a.take(path), name=name, group="nonrec", cfg=cfg)
+
+  def mamba(p: str) -> MambaStack:
+    return MambaStack(
+        gemm_leaf(f"{p}/in_zx", "mamba/ssm_in_zx"),
+        gemm_leaf(f"{p}/in_bcdt", "mamba/ssm_in_bcdt"),
+        gemm_leaf(f"{p}/out_proj", "mamba/ssm_out"),
+        *(a.pop(f"{p}/{k}") for k in ("conv_w", "A_log", "D", "dt_bias",
+                                      "norm", "norm_in")))
+
+  p = "shared_attn"
+  shared = DenseLayer(
+      a.pop(f"{p}/ln1"), a.pop(f"{p}/ln2"),
+      Attention(*(gemm_leaf(f"{p}/attn/w{x}", f"shared/attn_{x}")
+                  for x in "qkvo")),
+      SwiGLU(*(gemm_leaf(f"{p}/ffn/w_{x}", f"shared/ffn_{x}")
+               for x in ("gate", "up", "down"))))
+  table = a.pop("embedding/table")
+  head = None if cfg.tie_embeddings else gemm_leaf("embedding/head",
+                                                   "lm_head")
+  return ZambaLM(Embedding(table, head), a.pop("final_norm"), mamba("main"),
+                 shared, mamba("tail") if _plan(cfg)[2] else None)
+
+
 _FAMILIES = {"deepspeech": _deepspeech, "transformer": _transformer,
-             "whisper": _whisper}
+             "whisper": _whisper, "zamba": _zamba}
 
 
 def from_reference(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, *,
                    dtypes: Optional[Mapping[str, str]] = None,
                    device=None) -> nn.Module:
-  """Build the `cfg.family` model (a `DeepSpeech2`, a `TransformerLM` or
-  a `Whisper`) on `device` (default: the GPU) from the reference's
+  """Build the `cfg.family` model (a `DeepSpeech2`, a `TransformerLM`, a
+  `ZambaLM` or a `Whisper`) on `device` (default: the GPU) from the reference's
   path-keyed arrays.
   `dtypes` maps paths to dtype strings where an array is a raw view
   (bf16 as uint16). Every key must be used: an unknown or missing one

@@ -40,9 +40,10 @@
 //     1 batch) panel at a column offset inside the head, with 128-byte
 //     swizzle: no transpose, and rows past s (ragged tiles) and columns
 //     past d are zero-filled by TMA. The head is a dimension of its own so
-//     that a head width off the 64-column panel (stablelm's d = 80) reads
-//     zeros past its last column, not the next head's: a d = 80 head is
-//     staged as two panels, columns 80..127 zero. The maps are encoded on
+//     that a head width off the 64-column panel (stablelm's d = 80,
+//     zamba2's d = 112) reads zeros past its last column, not the next
+//     head's: a d = 80 or d = 112 head is staged as two panels, columns
+//     80..127 or 112..127 zero. The maps are encoded on
 //     the host (cuTensorMapEncodeTiled, libcuda) and passed as
 //     __grid_constant__ parameters.
 //   * Products: S = Q K^T is wgmma.mma_async m64n128k16 (bf16 in, f32
@@ -51,8 +52,9 @@
 //     (its layout per 8 columns is that of mma.sync), and O += P V is
 //     wgmma with A from registers and V as an MN-major B (transpose bit).
 //     P is rounded to bf16 for that product (l sums the f32 values).
-//     Q K^T takes d/16 k-steps (5 at d = 80: the zero columns are
-//     skipped); P V runs at the panels' width (N = 128 at d = 80, the
+//     Q K^T takes d/16 k-steps (5 at d = 80, 7 at d = 112: the zero
+//     columns are skipped); P V runs at the panels' width (N = 128 at
+//     d = 80 and 112, the
 //     zero columns of V giving zero columns of O), and the store writes
 //     the d columns of each head.
 //   * Softmax in base 2 (scores pre-multiplied by log2(e)/sqrt(d),
@@ -71,7 +73,8 @@
 // 4 x 4 score tile each, tiles staged as f32 in shared memory (113 KB at
 // d = 128), 64-row q and kv tiles.
 //
-// Head widths: 64, 80 (stablelm-3b) and 128, both types.
+// Head widths: 64, 80 (stablelm-3b), 112 (zamba2-7b's shared attention)
+// and 128, both types; 80 and 112 take d = 128's shared memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -695,11 +698,13 @@ extern "C" int rk_flash_attention(const void* q, const void* k, const void* v, v
       return cudaErrorInvalidValue;
     if (d == 64) return tma::launch<64>(q, k, v, o, b, s, h, h_kv, causal, st);
     if (d == 80) return tma::launch<80>(q, k, v, o, b, s, h, h_kv, causal, st);
+    if (d == 112) return tma::launch<112>(q, k, v, o, b, s, h, h_kv, causal, st);
     if (d == 128) return tma::launch<128>(q, k, v, o, b, s, h, h_kv, causal, st);
   } else if (dtype == rk::kF32) {
     if (b * h > 65535) return cudaErrorInvalidValue;
     if (d == 64) return launch_simt<64>(q, k, v, o, b, s, h, h_kv, causal, st);
     if (d == 80) return launch_simt<80>(q, k, v, o, b, s, h, h_kv, causal, st);
+    if (d == 112) return launch_simt<112>(q, k, v, o, b, s, h, h_kv, causal, st);
     if (d == 128) return launch_simt<128>(q, k, v, o, b, s, h, h_kv, causal, st);
   }
   return cudaErrorInvalidValue;

@@ -19,8 +19,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head widths the kernel is instantiated for (80: stablelm-3b)
-HEAD_DIMS = (64, 80, 128)
+#: head widths the kernel is instantiated for (80: stablelm-3b; 112:
+#: zamba2-7b's shared attention block)
+HEAD_DIMS = (64, 80, 112, 128)
 
 
 def flash_supported(q: torch.Tensor, k: torch.Tensor,

@@ -11,6 +11,8 @@ Examples (on a machine with a GPU; `--device cpu` runs the plain path):
       --device cpu --speculate 3 --draft-rank 8 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite \
       --device cpu --speculate 3 --draft-rank 8 --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --device cpu --speculate 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepspeech2-wsj \
       --full --kernels cuda --batch 4
 """
@@ -95,7 +97,7 @@ def main(argv=None) -> None:
   # a full-width LM is drawn on the card (a CPU draw of 8B values takes
   # minutes); DS2 and the smoke configs draw on the CPU
   on_card = (args.full and device.type == "cuda"
-             and cfg.family == "transformer")
+             and cfg.family in ("transformer", "zamba"))
   gen_device = device if on_card else "cpu"
   gen = torch.Generator(device=gen_device).manual_seed(args.seed)
   params = get_model(cfg).init(cfg, generator=gen, device=device)

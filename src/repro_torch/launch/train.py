@@ -1,6 +1,6 @@
 """Training entry point of the port: the deepspeech, transformer (dense
-and DeepSeek) and whisper branches of `repro.launch.train`, with its
-flags and `--device`. A DeepSeek config's loss lines also print the MoE
+and DeepSeek), zamba and whisper branches of `repro.launch.train`, with
+its flags and `--device`. A DeepSeek config's loss lines also print the MoE
 aux loss and, with MTP, the MTP head's cross-entropy.
 
 Examples (on a machine with a GPU; `--device cpu` runs on the CPU):
@@ -11,6 +11,8 @@ Examples (on a machine with a GPU; `--device cpu` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+      --device cpu --steps 6 --two-stage --transition 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepspeech2-wsj \
       --full --steps 8 --batch 16 --two-stage --transition 4
@@ -97,7 +99,7 @@ def main(argv=None) -> dict:
           args.batch, args.seq, cfg.d_model).astype(np.float32)
       return {"frames": frames, "tokens": b["tokens"],
               "targets": b["targets"]}
-  else:
+  else:                 # the token LMs: transformer and zamba
     dcl = lm_data.LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch, seed=args.seed)
     gen = lambda i: lm_data.batch_at(dcl, i)  # noqa: E731

@@ -58,10 +58,10 @@ class MLAConfig:
 class ModelConfig:
   """The reference's `ModelConfig`, cut to the fields the ported
   families read: the transformer (qwen3's `qk_norm`, DeepSeek's MoE,
-  MLA and MTP head included), Whisper's encoder-decoder and DS2 (the
-  SSM fields come with their families)."""
+  MLA and MTP head included), zamba's Mamba2 hybrid, Whisper's
+  encoder-decoder and DS2."""
   name: str
-  family: str                   # transformer | whisper | deepspeech
+  family: str                   # transformer | zamba | whisper | deepspeech
   num_layers: int
   d_model: int
   num_heads: int
@@ -78,6 +78,9 @@ class ModelConfig:
   moe: Optional[MoEConfig] = None
   mla: Optional[MLAConfig] = None
   mtp: bool = False                       # multi-token prediction head (dsv3)
+  # -- hybrid / ssm --
+  ssm_state: int = 0                      # mamba2 state dim (zamba2)
+  attn_every: int = 0                     # zamba: shared attn block period
   # -- enc-dec (whisper) --
   encoder_layers: int = 0
   max_source_positions: int = 1500

@@ -1,8 +1,8 @@
 """One dispatch surface over the ported model families — counterpart of
 `repro.models.api`, as far as serving and training need it.
 
-`get_model(cfg)` returns a `ModelApi` for the `transformer`, `whisper`
-and `deepspeech` families with `init`, `forward`, `encode` (whisper's
+`get_model(cfg)` returns a `ModelApi` for the `transformer`, `zamba`,
+`whisper` and `deepspeech` families with `init`, `forward`, `encode` (whisper's
 encoder), `loss_fn`,
 `init_decode_state`, `decode_step`, `decode_state_batch_axes`, the
 speculative-rewind
@@ -22,7 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.layers.common import ModelConfig
-from repro_torch.models import deepspeech, transformer, whisper
+from repro_torch.models import deepspeech, transformer, whisper, zamba
 
 __all__ = ["KV_CACHE_KEYS", "ModelApi", "cast_kv_cache", "get_model"]
 
@@ -67,7 +67,8 @@ class ModelApi:
   # cfg -> nested dict of ints: the batch axis of every decode-state leaf
   decode_state_batch_axes: Optional[Callable] = None
   # cfg -> nested dict of bools of the decode state's structure: True for
-  # read-modify-write carries (GRU hiddens) that a speculative rewind
+  # read-modify-write carries (GRU hiddens, Mamba2 SSM states and conv
+  # tails) that a speculative rewind
   # restores from a pre-draft snapshot and replays through the accepted
   # prefix; False for attention KV rows, written at absolute positions,
   # whose rewind is the position counter alone
@@ -145,6 +146,14 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_state_batch_axes=transformer.decode_state_batch_axes,
         decode_state_carry=transformer.decode_state_carry,
         decode_window_batched=transformer.decode_window)
+  if fam == "zamba":
+    return ModelApi(
+        family=fam, init=zamba.init_lm, loss_fn=zamba.loss_fn,
+        forward=zamba.forward, init_decode_state=zamba.init_decode_state,
+        decode_step=zamba.decode_step,
+        decode_state_batch_axes=zamba.decode_state_batch_axes,
+        decode_state_carry=zamba.decode_state_carry,
+        decode_window_batched=zamba.decode_window)
   if fam == "whisper":
     return ModelApi(
         family=fam, init=whisper.init_model, loss_fn=whisper.loss_fn,

@@ -16,5 +16,6 @@ def make_optimizer(kind: str):
     return adamw.init, adamw.apply
   if kind == "q_adam":
     raise NotImplementedError(
-        "q_adam (int8 moments) is not ported yet: ROADMAP A10")
+        "q_adam (int8 moments) is not ported yet: ROADMAP, "
+        "\"Distribution\"")
   raise ValueError(f"unknown optimizer {kind}")

@@ -19,10 +19,14 @@ With `speculate=k` each iteration drafts k tokens a slot with the
 paper's truncated-SVD copy of the weights (`serving.speculative`),
 verifies them in one (b x (k+1))-row `decode_window` of the target and
 commits the accepted prefix plus one token, through the same retirement
-rules. The reference's carry-family branch (snapshot, `merge_rewind`,
-masked replay) has no family here to serve: a family whose decode state
-has a carry leaf raises. The prefix cache and meshes come with later
-slices and raise if asked for; `compile_stats` has no counterpart
+rules. A family whose decode state has carry leaves (zamba's SSM states)
+takes the reference's carry branch: the draft's and the target's carries
+are cloned before the draft and the window, and a rejected suffix is
+undone by `merge_rewind` and a masked replay of the accepted prefix
+(every slot's carries kept past its own accepted length); when every
+live slot accepts its whole window, the target's carries stand and the
+draft catches up with one step. The prefix cache and meshes come with
+later slices and raise if asked for; `compile_stats` has no counterpart
 (nothing is compiled).
 
 `StreamingSpeechServer` keeps the reference's two surfaces (a
@@ -51,7 +55,7 @@ from repro_torch.models.api import cast_kv_cache, get_model
 from repro_torch.serving.speculative import (RankController,
                                              accept_longest_prefix,
                                              accept_sampled,
-                                             make_draft_params)
+                                             make_draft_params, merge_rewind)
 
 _INHERIT = object()   # submit(eos_id=...) sentinel: use the engine's eos_id
 
@@ -156,12 +160,11 @@ class LMEngine:
     self.speculate = int(speculate)
     self.kernel_policy = resolve_policy(kernel_policy, batch_size,
                                         window=self.speculate + 1)
-    if self.speculate and _any_leaf(self.api.decode_state_carry(model_cfg)):
-      raise NotImplementedError(
-          f"speculative decoding of {model_cfg.name}: its decode state "
-          "has carry leaves, whose rewind (snapshot, merge_rewind, masked "
-          "replay) comes with the carry LM families (zamba, xlstm; "
-          "ROADMAP A8)")
+    # per-family rewind: carry leaves are snapshot and replayed, the rest
+    # (attention KV) rewind with the position counter
+    self._axes = self.api.decode_state_batch_axes(model_cfg)
+    self._carry = self.api.decode_state_carry(model_cfg)
+    self._has_carry = _any_leaf(self._carry)
     if rng is None:
       rng = torch.Generator(device=self.device).manual_seed(0)
     self.rng = rng
@@ -392,7 +395,14 @@ class LMEngine:
     the new position are dead until overwritten (the causal mask never
     reads them), so the rejected suffix rewinds with the position alone.
     Rows at or past max_len are dropped by the attention layer, and the
-    commit loop retires the slot at the boundary first."""
+    commit loop retires the slot at the boundary first.
+
+    Carry families (`decode_state_carry`) clone their carries before the
+    draft and before the window; a surviving slot that rejected part of
+    its window has both states' carries restored (`merge_rewind`) and the
+    accepted prefix replayed, masked per slot (`_replay`). If every
+    surviving slot accepted its whole window, the target's carries stand
+    and the draft takes the one step that consumes d_k."""
     k = self.speculate
     sampled = temperature > 0.0
     active = self._active_mask()
@@ -401,6 +411,8 @@ class LMEngine:
                            device=self.device)
 
     # draft: k proposals against the draft's own state
+    if self._has_carry:
+      draft_snap = self._snapshot(self.draft_state)
     cur = torch.as_tensor(self._next_tokens(), device=self.device)
     cols, draft_lgs = [cur], []
     for j in range(k):
@@ -410,12 +422,17 @@ class LMEngine:
       cols.append(cur)
       if sampled:
         draft_lgs.append(lg[:, -1:])
-    # one more draft step consumes d_k, so a fully accepted window leaves
-    # the draft's cache complete through p+k
-    _, self.draft_state = self._draft_step(self.draft_state, cur, pos0 + k)
+    if not self._has_carry:
+      # one more draft step consumes d_k, so a fully accepted window
+      # leaves the draft's cache complete through p+k (carry families do
+      # it, or the replay, after the commit)
+      _, self.draft_state = self._draft_step(self.draft_state, cur,
+                                             pos0 + k)
     window = torch.cat(cols, dim=1)                       # (b, k+1)
 
     # verify: all k+1 positions in one window of the target
+    if self._has_carry:
+      snap = self._snapshot(self.state)
     logits_w, self.state = self._window(self.state, window, pos0)
     window_np = window.cpu().numpy()
     if sampled:
@@ -456,7 +473,46 @@ class LMEngine:
       self.accepted_tokens += min(int(accept[i]), int(commit[i]))
     self.positions = np.where(active, self.positions + commit,
                               self.positions)
+    if self._has_carry:
+      # retired slots take garbage (their next admit writes a whole
+      # fresh state), so only the surviving slots decide the rewind
+      live = [i for i in range(self.batch) if self._slots[i].active]
+      if any(commit[i] != k + 1 for i in live):
+        self.state = self._replay(
+            self._step, merge_rewind(self.state, snap, self._carry),
+            window, commit, pos0)
+        self.draft_state = self._replay(
+            self._draft_step,
+            merge_rewind(self.draft_state, draft_snap, self._carry),
+            window, commit, pos0)
+      elif live:
+        # every surviving slot took its whole window: the target's
+        # carries are the committed ones, and the draft (which never fed
+        # d_k) catches up with one step
+        _, self.draft_state = self._draft_step(self.draft_state, cur,
+                                               pos0 + k)
     self._maybe_adapt_rank()
+
+  def _snapshot(self, state: dict) -> dict:
+    """Clones of `state`'s carry leaves (None for the others): the
+    decode steps write in place, so a rewind needs copies."""
+    return _map_carry(lambda x: x.clone(), state, self._carry)
+
+  def _replay(self, step, state: dict, window: torch.Tensor,
+              commit: np.ndarray, pos0: torch.Tensor) -> dict:
+    """Feed window[:, t] at pos0 + t for t < commit[i] into slot i (the
+    reference's masked prefill program): all slots step together, and
+    where t >= commit[i] slot i's carries are put back to their values
+    before the step. KV rows written there lie past the slot's new
+    position, where the causal mask never reads them."""
+    for t in range(int(commit.max())):
+      live = commit > t
+      old = None if live.all() else self._snapshot(state)
+      _, state = step(state, window[:, t:t + 1], pos0 + t)
+      if old is not None:
+        keep = torch.as_tensor(live, device=self.device)
+        _keep_rows(state, old, keep, self._carry, self._axes)
+    return state
 
   def _host_rng(self) -> np.random.Generator:
     """One host RNG per sampled acceptance round, seeded from the
@@ -577,6 +633,27 @@ def _any_leaf(tree) -> bool:
   if isinstance(tree, dict):
     return any(_any_leaf(v) for v in tree.values())
   return bool(tree)
+
+
+def _map_carry(fn, state: dict, carry) -> dict:
+  """fn(leaf) of every carry leaf of `state`, None for the others."""
+  if isinstance(carry, dict):
+    return {k: _map_carry(fn, state[k], c) for k, c in carry.items()}
+  return fn(state) if carry else None
+
+
+def _keep_rows(state: dict, old: dict, keep: torch.Tensor, carry,
+               axes) -> None:
+  """In place: every carry leaf of `state` takes `old`'s rows where
+  `keep` (b,) is False, along the leaf's batch axis."""
+  if isinstance(carry, dict):
+    for k, c in carry.items():
+      _keep_rows(state[k], old[k], keep, c, axes[k])
+    return
+  if carry:
+    shape = [1] * state.ndim
+    shape[axes] = keep.shape[0]
+    state.copy_(torch.where(keep.view(shape), state, old))
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:

@@ -72,7 +72,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
   api = api or get_model(model_cfg)
   if api.loss_fn is None:
     raise NotImplementedError(
-        f"no loss_fn for the {api.family} family yet: ROADMAP A8")
+        f"no loss_fn for the {api.family} family yet: ROADMAP, \"Modules "
+        "to port\"")
   reg = train_cfg.regularizer if reg is None else reg
   opt_init, opt_apply = make_optimizer(train_cfg.optimizer)
 
@@ -152,7 +153,7 @@ class Trainer:
                generator: Optional[torch.Generator] = None, device=None):
     if mesh is not None:
       raise NotImplementedError(
-          "Trainer(mesh=...) is not ported yet: ROADMAP A10")
+          "Trainer(mesh=...) is not ported yet: ROADMAP, \"Distribution\"")
     self.model_cfg = model_cfg
     self.train_cfg = train_cfg
     self.schedule = schedule
@@ -220,7 +221,7 @@ class Trainer:
   def train_step(self, batch: dict) -> dict:
     self.maybe_transition()
     t0 = time.perf_counter()
-    if self.api.family == "transformer":
+    if self.api.family in ("transformer", "zamba"):
       batch = shard_batch(batch, self.device)
     elif self.api.family == "whisper":
       batch = {"frames": torch.as_tensor(batch["frames"], dtype=torch.float32,

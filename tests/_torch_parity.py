@@ -58,11 +58,16 @@ def collapse(best_row) -> list:
 def reference_tree(params, init):
   """The port's `params` as the reference's param tree: its structure
   from `jax.eval_shape` of the reference's `init(key)` (nothing is drawn
-  or compiled), its leaves the port's weights by checkpoint path."""
+  or compiled), its leaves the port's weights by checkpoint path (a bf16
+  leaf, which `to_reference` gives as its uint16 view, viewed back)."""
   from repro_torch.bridge import to_reference
   arrays = to_reference(params)
   flat, tree = jax.tree_util.tree_flatten_with_path(
       jax.eval_shape(init, jax.random.PRNGKey(0)))
-  return jax.tree_util.tree_unflatten(tree, [
-      jnp.asarray(arrays["/".join(_key_str(k) for k in path)])
-      for path, _ in flat])
+  leaves = []
+  for path, shape in flat:
+    a = arrays["/".join(_key_str(k) for k in path)]
+    if shape.dtype == jnp.bfloat16 and a.dtype == np.uint16:
+      a = a.view(jnp.bfloat16)
+    leaves.append(jnp.asarray(a))
+  return jax.tree_util.tree_unflatten(tree, leaves)

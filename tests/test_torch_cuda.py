@@ -1,6 +1,7 @@
 """The port on the card: its five CUDA kernels against their plain
-versions, and the streaming server and the LM prefill through the
-kernels against the plain policy. Every test here is marked `gpu` and skips where no CUDA device is
+versions, and the streaming server, the LM prefill and the LM decode
+steps (dense, zamba, DeepSeek) through the kernels against the plain
+policy. Every test here is marked `gpu` and skips where no CUDA device is
 present (the kernels have no CPU mode); on a GPU machine run
 
   python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -606,6 +607,74 @@ def test_flash_attention_at_head_width_80(cuda, dtype):
                                torch.repeat_interleave(v, rep, dim=2),
                                causal=causal)
     torch.testing.assert_close(got, want, **tol)
+
+
+#: (b, s, h, h_kv, d, causal) at zamba2-7b's head width 112 (two 64-column
+#: panels, the second zero past column 48), as FLASH_80
+FLASH_112 = [(1, 300, 4, 4, 112, True), (2, 129, 3, 3, 112, False),
+             (1, 1, 2, 2, 112, True), (1, 520, 8, 2, 112, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_head_width_112(cuda, dtype):
+  """The d = 112 instantiation against the plain version (scale
+  1/sqrt(112)), f32 within 1e-4 and bf16 within 1e-2."""
+  from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+  assert 112 in HEAD_DIMS
+  dt = getattr(torch, dtype)
+  tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
+      dict(rtol=1e-2, atol=1e-2)
+  for b, s, h, h_kv, d, causal in FLASH_112:
+    q = torch.from_numpy(rnd(4, (b, s, h, d))).to(cuda, dt)
+    k, v = (torch.from_numpy(rnd(i, (b, s, h_kv, d))).to(cuda, dt)
+            for i in (5, 6))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    rep = h // h_kv
+    want = ref.flash_attention(q, torch.repeat_interleave(k, rep, dim=2),
+                               torch.repeat_interleave(v, rep, dim=2),
+                               causal=causal)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_zamba_smoke_decode_through_kernels_matches_plain(cuda):
+  """zamba2-7b's smoke config in f32 on the card: 6 batch-2 decode steps
+  under the "cuda" policy (the 128-lane GEMMs through decode_matvec)
+  against the plain policy, logits and every SSM carry within 1e-4, and
+  a 4-token decode window against its steps."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.models import zamba
+  cfg = configs.get_smoke("zamba2-7b").with_(dtype=torch.float32)
+  params = zamba.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                         device=cuda)
+  b = 2
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(b, 10))).to(cuda)
+  states = {p: zamba.init_decode_state(cfg, b, 16, device=cuda)
+            for p in ("cuda", "plain")}
+  pos = torch.tensor([0, 2], device=cuda)
+  ops.reset_launches()
+  for t in range(6):
+    out = {p: zamba.decode_step(
+        params, states[p], toks[:, t:t + 1], pos + t, cfg,
+        dispatch.resolve_policy(p, b))[0] for p in states}
+    torch.testing.assert_close(out["cuda"], out["plain"], rtol=1e-4,
+                               atol=1e-4)
+  assert ops.LAUNCHES["decode_matvec"] > 0
+  for key in ("main_ssm", "tail_ssm"):
+    torch.testing.assert_close(states["cuda"][key]["ssm"],
+                               states["plain"][key]["ssm"], rtol=1e-4,
+                               atol=1e-4)
+  got, _ = zamba.decode_window(params, states["cuda"], toks[:, 6:], pos + 6,
+                               cfg, dispatch.resolve_policy("cuda", b,
+                                                            window=4))
+  steps = []
+  for t in range(4):
+    lg, _ = zamba.decode_step(params, states["plain"], toks[:, 6 + t:7 + t],
+                              pos + 6 + t, cfg)
+    steps.append(lg[:, 0])
+  torch.testing.assert_close(got, torch.stack(steps, 1), rtol=1e-4, atol=1e-4)
 
 
 def test_qwen3_smoke_decode_through_kernels_matches_plain(cuda):

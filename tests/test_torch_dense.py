@@ -213,7 +213,8 @@ def test_head_dims_are_the_cuda_sources_instantiations():
          "flash_attention.cu").read_text()
   for launcher in ("tma::launch", "launch_simt"):
     widths = re.findall(rf"if \(d == (\d+)\) return {launcher}<\1>", src)
-    assert tuple(int(w) for w in widths) == fa.HEAD_DIMS == (64, 80, 128)
+    assert tuple(int(w) for w in widths) == fa.HEAD_DIMS == (64, 80, 112,
+                                                              128)
 
 
 def test_blockwise_attention_at_head_width_80_matches_reference():
@@ -224,6 +225,21 @@ def test_blockwise_attention_at_head_width_80_matches_reference():
               attn_block_q=64, attn_block_kv=64)
   arrays = [np.random.RandomState(i).randn(1, 128, 4, 80).astype(np.float32)
             for i in (4, 5, 6)]
+  got = attention.flash_attention(*(torch.from_numpy(a) for a in arrays),
+                                  ModelConfig(**dims))
+  want = jattn.flash_attention(*(jnp.asarray(a) for a in arrays),
+                               JConfig(**dims))
+  close(got, want, ATTN_TOL)
+
+
+def test_blockwise_attention_at_head_width_112_matches_reference():
+  """The plain blockwise attention at zamba2-7b's head width (112)
+  against the reference's jnp twin (blocks of 64 over s = 128)."""
+  dims = dict(name="t", family="transformer", num_layers=1, d_model=448,
+              num_heads=4, num_kv_heads=4, d_ff=64, vocab_size=64,
+              attn_block_q=64, attn_block_kv=64)
+  arrays = [np.random.RandomState(i).randn(1, 128, 4, 112).astype(
+      np.float32) for i in (7, 8, 9)]
   got = attention.flash_attention(*(torch.from_numpy(a) for a in arrays),
                                   ModelConfig(**dims))
   want = jattn.flash_attention(*(jnp.asarray(a) for a in arrays),

@@ -132,15 +132,15 @@ def test_port_quantize_leaf_matches_reference_bitwise():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 64, 80, 112, 128])
 def test_flash_predicate_declines_where_the_kernel_refuses(d, dtype):
   """The routing predicate beside HEAD_DIMS: head widths 64, 80
-  (stablelm-3b) and 128 only.
+  (stablelm-3b), 112 (zamba2-7b) and 128 only.
   Where an operand starts does not enter it: the wrapper copies a bf16
   operand off a 16-byte boundary (here one element into its storage) and
   a non-contiguous one into a fresh buffer."""
   from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_supported
-  assert HEAD_DIMS == (64, 80, 128)
+  assert HEAD_DIMS == (64, 80, 112, 128)
   want = d in HEAD_DIMS
   n = 2 * 8 * 2 * d
   q = torch.zeros(n + 1, dtype=dtype)[1:].view(2, 8, 2, d)

@@ -97,7 +97,7 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
   """`Trainer` and `launch.train` run on the GPU unless asked for the
   CPU; with no GPU they raise. On the CPU the launcher trains the DS2
   smoke model through both stages and a transformer's; a family without
-  a port (zamba) and a mesh are not ported yet and say so."""
+  a port (xlstm) and a mesh are not ported yet and say so."""
   from repro_torch import configs
   from repro_torch.launch import train
   from repro_torch.training import TrainConfig, Trainer
@@ -107,10 +107,10 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
     Trainer(cfg, TrainConfig())
   with pytest.raises(RuntimeError, match="device='cpu'"):
     train.main(["--arch", "deepspeech2-wsj", "--steps", "1"])
-  with pytest.raises(NotImplementedError, match="A10"):
+  with pytest.raises(NotImplementedError, match="Distribution"):
     Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
   with pytest.raises(ValueError, match="not ported yet"):
-    Trainer(cfg.with_(family="zamba"), TrainConfig(), device="cpu")
+    Trainer(cfg.with_(family="xlstm"), TrainConfig(), device="cpu")
   lm_out = train.main(["--arch", "llama3-8b", "--device", "cpu", "--steps",
                        "1", "--batch", "2", "--seq", "8"])
   assert lm_out["final_loss"] > 0

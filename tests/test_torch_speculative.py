@@ -174,20 +174,28 @@ def test_rank_controller_matches_reference():
       tspec.RankController(**bad)
 
 
-@pytest.mark.parametrize("arch", [ARCH, "deepspeech2-wsj"])
+@pytest.mark.parametrize("arch", [ARCH, "deepspeech2-wsj", "zamba2-7b"])
 def test_decode_state_carry_matches_reference(arch):
-  """Transformer: all KV, no carry; DS2: every GRU hidden a carry. The
-  rewind split follows the contract: carry leaves from the snapshot."""
+  """Transformer: all KV, no carry; DS2: every GRU hidden a carry;
+  zamba: the SSM states and conv tails carries, the shared block's KV
+  rows positional. The contract and the batch axes equal the
+  reference's, and the rewind split follows the contract: carry leaves
+  from the snapshot, the others from the window's state."""
   jc, tc = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
-  carry = get_model(tc).decode_state_carry(tc)
-  assert carry == tree_dict(jget_model(jc).decode_state_carry(jc))
-  assert set(carry) == set(get_model(tc).decode_state_batch_axes(tc))
-  window = {k: ({"k": 1, "v": 1} if isinstance(c, dict) else 1)
-            for k, c in carry.items()}
-  snap = {k: ({"k": 2, "v": 2} if isinstance(c, dict) else 2)
-          for k, c in carry.items()}
+  api, japi = get_model(tc), jget_model(jc)
+  carry = api.decode_state_carry(tc)
+  assert carry == tree_dict(japi.decode_state_carry(jc))
+  axes = api.decode_state_batch_axes(tc)
+  assert axes == japi.decode_state_batch_axes(jc)
+  assert set(carry) == set(axes)
+
+  def fill(tree, fn):
+    return {k: fill(c, fn) if isinstance(c, dict) else fn(c)
+            for k, c in tree.items()}
+  window, snap = fill(carry, lambda c: 1), fill(carry, lambda c: 2)
   merged = tspec.merge_rewind(window, snap, carry)
-  assert merged == (window if arch == ARCH else snap)
+  assert merged == fill(carry, lambda c: 2 if c else 1)
+  assert merged == {ARCH: window, "deepspeech2-wsj": snap}.get(arch, merged)
 
 
 # ----------------------------------------------------------------------------
@@ -497,16 +505,6 @@ def test_rank_controller_walk_and_reset(tparams):
     engine(tparams, rank_controller=tspec.RankController())
   with pytest.raises(ValueError, match="draft_rank"):
     engine(tparams, speculate=2, rank_controller=tspec.RankController())
-
-
-def test_carry_family_speculation_is_refused():
-  """The carry-family branch waits for a carry LM family (ROADMAP A8)."""
-  cfg = tconfigs.get_smoke("deepspeech2-wsj")
-  params = get_model(cfg).init(cfg, generator=torch.Generator().manual_seed(
-      0), device="cpu")
-  with pytest.raises(NotImplementedError, match="A8"):
-    LMEngine(cfg, params, batch_size=1, max_len=8, device="cpu",
-             speculate=2, draft_params=params)
 
 
 def test_serve_cli_speculates(capsys):
