@@ -49,6 +49,11 @@
    timed cold, with the L2 evicted before every timed call by reading a
    256 MB buffer (outside the events), as a real decode step finds them;
    so are `gru_cell` and its yardstick at the DS2 shapes at batch 4.
+   `decode_matvec` and `lowrank_gemm` are also held, at the f32
+   tolerance, and timed with f32 activations over bf16 weights at one
+   xlstm-350m recurrent head, (4, 256) x (256, 1024) and its rank-128
+   factors (their library call: `torch.matmul` on f32 copies of the
+   weights, made outside the timed call).
 3. Serves the full-width config (bf16, random weights from seed 0) with
    4 slots and 8 utterances of 17..64 frames, through
    `StreamingSpeechServer`, three times: dense, factored (rank 256 on
@@ -101,10 +106,11 @@
    `lowrank_gemm` and `int8_gemm` against their plain versions at the
    trained shapes (uneven ranks) and serves the trained weights and their
    PTQ'd form as phase 3 does (`launches_by_path` key `ds2_trained`).
-7. Speculative serving, run after phase 5 on its weights: the ported
-   `make_draft_params` builds the rank-128 truncated-SVD draft on the
-   card (timed; every GEMM leaf factored, the embedding and norms the
-   target's own storage). `lowrank_gemm` is held against its plain
+7. Speculative serving, after phase 5, on llama3-8b at full width cut to
+   `SPEC_LAYERS` (8) layers (seeded random weights as phase 4's): the
+   ported `make_draft_params` builds the rank-128 truncated-SVD draft on
+   the card (timed, 57 SVDs; every GEMM leaf factored, the embedding and
+   norms the target's own storage). `lowrank_gemm` is held against its plain
    version, and timed against two `torch.matmul` calls and its bound, at
    each distinct draft shape at batch 1 (a draft prefill) and 4 (a draft
    step), and `decode_matvec` at the target's shapes at the verify
@@ -113,7 +119,7 @@
    `LMEngine(speculate=3, kernel_policy="cuda")` serves phase 5's 8
    requests greedily: every draft GEMM must route to `lowrank_gemm` and
    every target GEMM (admission steps and verify windows) to
-   `decode_matvec`, with exactly 225 launches a counted call; each
+   `decode_matvec`, with exactly 57 launches a counted call; each
    request's tokens equal vanilla greedy's under the same policy up to
    its first flip, which must sit at a vanilla log-prob gap below
    `LM_SERVE_ATOL` (a near-tie). Draft build time, accept rate and tok/s
@@ -122,10 +128,11 @@
    "plain" policy launches nothing (`launches_by_path` key
    `lm_speculative`).
 8. The rest of the dense family at full width, after phase 6: `qwen3-4b`
-   (36 layers, qk-norm, bf16, seeded random weights) has `decode_matvec`
+   (qk-norm, bf16, seeded random weights) cut to `QWEN_LAYERS` (12 of its
+   36 layers) has `decode_matvec`
    held and timed, warm and cold, at its decode step's shapes (batch 4),
-   then runs phase 4's 4096-token prefill (exactly 36 `flash_attention`
-   launches) and phase 5's serving (exactly 253 `decode_matvec` launches
+   then runs phase 4's 4096-token prefill (exactly 12 `flash_attention`
+   launches) and phase 5's serving (exactly 85 `decode_matvec` launches
    a step) under both policies with their tolerances; `stablelm-3b` at
    full width (head width 80) cut to `STABLELM_LAYERS` layers runs the
    prefill through the d = 80 kernel, one launch a layer, so a decline
@@ -182,11 +189,12 @@
    `DS_F32_STEPS` teacher-forced decode steps under "plain" and "cuda",
    under `moe.record_routes()`: routes identical, log-probs within
    `DS_F32_ATOL`, exactly 25 `decode_matvec` launches a step. (a), (c)
-   All 27 layers in bf16: `decode_matvec` held and timed (warm and cold)
+   `DS_LAYERS` layers (1 dense + 8 MoE of its 1 + 26) in bf16:
+   `decode_matvec` held and timed (warm and cold)
    at the decode step's shapes; the 4096-token prefill under both
    policies (one launch, the head; no flash; log-probs held to the
    head's bf16 rounding, `HEAD_ONLY_RTOL`); `LMEngine` as in phase 5
-   (163 launches a step), gated on the route log: every first route
+   (55 launches a step), gated on the route log: every first route
    difference between the policies (not caused by an earlier one of its
    sequence at a lower layer and an earlier or equal position) must be a
    near-tie (`ROUTE_LOGIT_GAP`), log-probs are held to `LM_SERVE_ATOL`
@@ -194,7 +202,7 @@
    routes (`moe.replay_routes`) is held to it at every call and measures
    how far the arithmetic alone moves the router's logit gaps, which
    must stay below `ROUTE_LOGIT_GAP`; then one decode step and one
-   prefill under `torch.profiler`. (d) The f32
+   prefill timed and profiled (`profile_paths`). (d) The f32
    card-vs-CPU step at `deepseek-v3-671b`'s smoke width (q-LoRA, MTP);
    `deepseek-v2-lite` at full width cut to `DS_TRAIN_LAYERS` (1 dense +
    1 MoE), bf16, trained as phase 9 (every GEMM of at least 32 wide
@@ -207,20 +215,24 @@
 12. zamba2-7b, after phase 11: the first carry family (a Mamba2
    backbone, its chunked SSD scan plain PyTorch in f32, and one shared
    attention block before each group of 6 layers, head width 112). (a)
-   All 81 layers in bf16 (seeded CUDA generator, ~6.75 B parameters):
-   every GEMM of a batch-4 decode step must classify to `decode_matvec`
-   (3 x 81 Mamba2 + 7 x 13 shared + the head = 335 launches a step),
+   Cut to `ZAMBA_LAYERS` (4 groups and a tail of 3, of the full
+   model's 13 groups and 3) in bf16 (seeded CUDA generator): every GEMM
+   of a batch-4 decode step must classify to `decode_matvec`
+   (3 x 27 Mamba2 + 7 x 4 shared + the head = 110 launches a step),
    which is held and timed, warm and cold, at those shapes. (b) Phase
-   4's 4096-token prefill under both policies: exactly 13
+   4's 4096-token prefill under both policies: exactly 4
    `flash_attention` launches (one a group, d = 112) and the head's
    `decode_matvec`, each flash call held in place against its plain
    version on its own inputs; the policies' log-probs are compared on
    an f32 copy of the weights within `F32_LOGPROB_ATOL` (two bf16 runs
-   of this model part by as much as bf16 from f32). (c) Phase 5's
-   `LMEngine` serving (335 launches a step; log-probs compared on the
+   of this model part by as much as bf16 from f32), and the residual
+   stream's drift after each group and the tail is printed for both
+   precisions (`check_prefill(drift=)`). (c) Phase 5's
+   `LMEngine` serving (110 launches a step; log-probs compared on the
    f32 copy likewise), then one decode step and one prefill timed and
-   profiled: the SSD scan's share of the prefill's device time (its
-   calls marked with `record_function`) and the device's idle shares.
+   profiled (`profile_paths`): the SSD scan's share of the prefill's
+   device time (its calls marked with `record_function`) and the
+   device's idle shares.
    (e) Cut to `ZAMBA_CUT_LAYERS` (one group and one tail layer): the
    rank-128 draft built on the card, `lowrank_gemm` held at its shapes,
    the engine's masked replay against the steps it stands for (accepted
@@ -228,18 +240,55 @@
    beyond the draft shrunk to `ZAMBA_SPEC_RESIDUAL` so that the draft
    agrees on some tokens, `LMEngine(speculate=3)` as phase 7 holds
    llama3-8b's, which must take a masked replay (live slots committing
-   different lengths) at least once. (d) Phase 6's f32 card-vs-CPU step
+   different lengths) at least once (`check_cut_speculative`, shared
+   with phase 13). (d) Phase 6's f32 card-vs-CPU step
    at the zamba smoke width (updates within `ZAMBA_UPDATE_RTOL`), then
    the cut model trained as phase 9 and served with every GEMM through
    `lowrank_gemm` (29 launches a step).
-13. Prints each phase's seconds, the card line, `{"kernels": [...]}`
+13. xlstm-350m, after phase 12: 12 (mLSTM, sLSTM) pairs, d 1024, 4 heads
+   (bf16, seeded CUDA generator). (b, first) every GEMM of a batch-4
+   decode step but the mLSTM's gate projection must classify to
+   `decode_matvec` (per pair up, qkv, down, wx, out and the 4 recurrent
+   heads on f32 activations, and the head: 109 launches a step), held
+   and timed, warm and cold. (a) One 1024-token batch-1 prefill under
+   both policies through `check_prefill(recurrent=)`, teacher-forced:
+   the layer GEMMs stay plain and each token of each pair launches 4
+   recurrent `decode_matvec`s (49,152); log-probs at every position
+   compared on an f32 copy (F32_LOGPROB_ATOL; the bf16 difference and
+   the drift after each pair are printed, see the comment above
+   `XLSTM_PROFILE_LEN`). (b) Phase 5's `LMEngine` serving (109 launches
+   a step, compared on the f32 copy), then one decode step and a
+   64-token prefill timed and profiled (`profile_paths`) for the
+   device's busy share. (e) The prefix cache
+   (`check_prefix_cache`): an engine with a `PrefixCache` of 256 MB and
+   `publish_on_retire` against one without, 8 requests (6 opening with a
+   16-token template) and a second turn of 2 conversations: tokens equal
+   token for token, hits in the first turn, evictions (an xlstm snapshot
+   is ~50 MB); a state spliced at the template and stepped on equals the
+   cold prefill's bit for bit; TTFT p50 with and without hits. (c) Cut
+   to `XLSTM_CUT_LAYERS` (2 pairs): the rank-128 draft built on the card
+   (the gate projection shared), `lowrank_gemm` held and timed at its
+   shapes (the recurrent heads on f32 activations), then in f32 the
+   masked replay against its steps, the residuals shrunk
+   (`XLSTM_SPEC_RESIDUAL`) and `LMEngine(speculate=3)` as phase 7 (its
+   windows launch the recurrent heads position by position), which must
+   take a masked replay. (d) Phase 6's f32 card-vs-CPU step at the xlstm
+   smoke width, then the cut model trained as phase 9 and served through
+   `lowrank_gemm` (19 launches a step). (e, last) The prefix cache again
+   on qwen3-4b at full width cut to `PREFIX_QWEN_LAYERS` (4) layers (KV
+   rows sliced; no eviction, so every second-turn hit reaches the first
+   turn's fed length).
+14. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
    failure raises: the script exits non-zero and prints no result line.
 
 On an H100 the build takes about 30 s (nvcc, the five sources in
 parallel) and phases 2-6 about a minute and a half; phase 7's draft
-build runs 225 exact SVDs on the card.
+build runs 57 exact SVDs on the card (225 before its depth cut, ~257 s).
+Phases 8, 11 and 12 run their serving paths cut in depth (`QWEN_LAYERS`,
+`DS_LAYERS`, `ZAMBA_LAYERS`): at 36, 27 and 81 layers they took ~78,
+~228 and ~250 s, and the script came within 100 s of its 1200 s limit.
 """
 from __future__ import annotations
 
@@ -369,14 +418,19 @@ ZAMBA_UPDATE_RTOL = 2.0 ** -5
 LM_TRAIN_BATCH = 4
 LM_TRAIN_SEQ = 256
 LM_TRAIN_LAYERS = 2
-#: phase 8: stablelm-3b's depth for its full-width prefill through the
-#: d = 80 flash kernel (every layer has the same shapes)
+#: phase 8: qwen3-4b's depth at full width (12 of its 36 layers: the
+#: script's time limit), and stablelm-3b's for its full-width prefill
+#: through the d = 80 flash kernel (every layer has the same shapes)
+QWEN_LAYERS = 12
 STABLELM_LAYERS = 4
 #: phase 7: draft tokens an iteration and the draft's truncated-SVD rank
 #: (at or above the 128-lane gate, so every draft GEMM reaches
 #: lowrank_gemm)
 SPEC_K = 3
 DRAFT_RANK = 128
+#: phase 7's depth: llama3-8b at full width cut to 8 layers (8 x 7 + 1 =
+#: 57 draft SVDs; all 32 layers took 225, ~257 s of the script's time)
+SPEC_LAYERS = 8
 LM_GEMMS = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
             "ffn_down")
 #: phase 10: whisper-small's streams, frames (the reference's 30 s
@@ -405,9 +459,12 @@ WHISPER_DEC_STEP = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "xattn/wq",
 #: row and DS_F32_STEPS decode steps, where routes must be identical and
 #: log-probs within DS_F32_ATOL (f32 sums in another order); trained at
 #: full width cut to DS_TRAIN_LAYERS (1 dense + 1 MoE); deepseek-v3-671b
-#: at full width cut to DS3_LAYERS (3 dense + 1 MoE)
+#: at full width cut to DS3_LAYERS (3 dense + 1 MoE). Its bf16 prefill,
+#: serving and profiles run deepseek-v2-lite at full width cut to
+#: DS_LAYERS (1 dense + 8 MoE of its 1 + 26: the script's time limit)
 DS_ARCH = "deepseek-v2-lite"
 DS3_ARCH = "deepseek-v3-671b"
+DS_LAYERS = 9
 DS_F32_LAYERS = 4
 DS_F32_PREFILL = 512
 DS_F32_STEPS = 8
@@ -416,12 +473,14 @@ DS_TRAIN_LAYERS = 2
 DS3_LAYERS = 4
 DS3_PREFILL = 512
 DS3_STEPS = 4
-#: phase 12: zamba2-7b at full width (81 layers: 13 groups of 6 Mamba2
-#: blocks behind the shared attention block, then 3 tail layers; head
-#: width 112), and cut to ZAMBA_CUT_LAYERS (one group of 6 and one tail
-#: layer, so `main`, `tail` and the shared block all run) for the
-#: two-stage recipe and the self-speculative engine
+#: phase 12: zamba2-7b at full width (head width 112) cut to ZAMBA_LAYERS
+#: (4 groups of 6 Mamba2 blocks behind the shared attention block, then 3
+#: tail layers, the full model's 81 layers being 13 groups and a tail of
+#: 3: the script's time limit), and to ZAMBA_CUT_LAYERS (one group of 6
+#: and one tail layer, so `main`, `tail` and the shared block all run)
+#: for the two-stage recipe and the self-speculative engine
 ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_LAYERS = 27
 ZAMBA_CUT_LAYERS = 7
 #: the share of each weight that the rank-128 draft leaves out which the
 #: speculative target keeps (`shrink_residuals`): small enough that the
@@ -433,8 +492,9 @@ ZAMBA_SPEC_RESIDUAL = 0.0025
 #: log-prob agreement of the two policies where a model is compared in
 #: f32 (`check_prefill` and `check_lm_serving` with a `compare` copy, the
 #: speculative engine's window): zamba2-7b's, whose bf16 runs part too
-#: far. `zamba_drift` measures why, at the prompt's last position after
-#: each of the 13 groups (an H100 80GB HBM3 at 700 W): both precisions
+#: far. `check_prefill(drift=)` measures why, at the prompt's last
+#: position after each group; at all 81 layers, after each of the 13
+#: groups (an H100 80GB HBM3 at 700 W): both precisions
 #: carry a difference forward at about one rate (2.3x a group in bf16,
 #: 2.1x in f32, over groups 1-4; f32 then 1.2-1.5x), but the bf16
 #: policies start ~1400x further apart (0.059 relative after the first
@@ -451,6 +511,45 @@ ZAMBA_GEMMS = ("mamba/ssm_in_zx", "mamba/ssm_in_bcdt", "mamba/ssm_out",
                "shared/attn_q", "shared/attn_k", "shared/attn_v",
                "shared/attn_o", "shared/ffn_gate", "shared/ffn_up",
                "shared/ffn_down")
+#: phase 13: xlstm-350m at full width (24 layers: 12 (mLSTM, sLSTM)
+#: pairs, d 1024, 4 heads), its prefill length, and the depth (2 pairs)
+#: its speculative engine and its training run at. The sLSTM's recurrent
+#: GEMM takes f32 activations over the weights' type, one head at a time:
+#: (256, 1024) at full width, and rank-128 factors in the draft
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_PREFILL_LEN = 1024
+XLSTM_CUT_LAYERS = 4
+XLSTM_REC = "pairs/slstm_rec"
+XLSTM_REC_SHAPE = (256, DRAFT_RANK, 1024)
+#: the GEMMs of an xlstm pair, by logical name (the recurrent one apart)
+XLSTM_GEMMS = ("pairs/mlstm_up", "pairs/mlstm_qkv", "pairs/mlstm_ifg",
+               "pairs/mlstm_down", "pairs/slstm_nonrec", "pairs/slstm_out")
+#: as ZAMBA_SPEC_RESIDUAL, for the 4-layer xlstm target and its draft
+XLSTM_SPEC_RESIDUAL = 0.0025
+#: phase 13 compares the policies' log-probs on an f32 copy of the
+#: weights (F32_LOGPROB_ATOL), as phase 12 does. The prefill prints both
+#: precisions and the residual stream's drift after each pair: on an H100
+#: 80GB HBM3 at 700 W the bf16 policies were 0.0019 apart after the first
+#: pair and 0.045 after the 12th (the f32 ones 2.3e-7 and 2.3e-5), and
+#: their 1024 positions' log-probs 0.92 apart with 117 argmax flips (f32:
+#: 4.1e-4, none). The two differ only in the order the recurrent GEMM
+#: sums in; one flipped bf16 rounding of the sLSTM's output then reaches
+#: the next mLSTM, whose normaliser max(|q . n|, exp(-m)) divides by a
+#: sum that cancels, and serving parted by 0.30 at its first call. The
+#: CPU tests hold each bf16 block to the reference's own bf16 rounding.
+#: XLSTM_PROFILE_LEN: the tokens of the prefill `profile_paths` profiles:
+#: the sLSTM's per-token loop makes ~300 device kernels a token (a
+#: 1024-token trace would run to hundreds of MB), and each token costs
+#: the same
+XLSTM_PROFILE_LEN = 64
+#: the prefix cache (phase 13 (e)): the reference's default capacity, the
+#: template most requests open with, the conversations that take a
+#: second turn, and qwen3-4b's depth there. A cold xlstm-350m admission
+#: steps its prompt one token at a time (~40-80 ms a step on the host)
+PREFIX_CACHE_MB = 256.0
+PREFIX_TEMPLATE = 16
+PREFIX_TURNS_2 = 2
+PREFIX_QWEN_LAYERS = 4
 #: a route that differs between the "cuda" and "plain" runs in bf16 must,
 #: where it first differs, be a near-tie: a logit gap ln(p_k / p_(k+1))
 #: between the last chosen and the first unchosen expert below this. The
@@ -538,7 +637,7 @@ def randn(shape, gen, dtype, scale=1.0):
 
 def case(kernel, label, b, dtype, fn, plain, lib=None, nbytes=0, ops=0,
          exact=False, path=None, weight=1, reps=50, cold=False,
-         yardstick=None, stable=False):
+         yardstick=None, stable=False, act=None):
   """One comparison. `path` names the main path whose per-step sums the
   case feeds ("ds2" frame step, "lm_decode" step, "lm_prefill" call);
   `weight` is its launches in one step; nbytes/ops give the bound; `reps`
@@ -548,11 +647,14 @@ def case(kernel, label, b, dtype, fn, plain, lib=None, nbytes=0, ops=0,
   does not compute the same function, reported as `<name>_ms`
   (int8_gemm's `torch._int_mm` at 32 rows, no dequant: "int_mm_padded";
   gru_cell's `torch.matmul(h, U)`, the product without the gates:
-  "matmul_h_u"); `stable`: a second call must give the same bits."""
+  "matmul_h_u"); `stable`: a second call must give the same bits; `act`:
+  the activations' type where it is not `dtype` (the weights'): f32
+  activations over bf16 weights are held to the f32 tolerance, and their
+  operations bounded at f32's peak (the FMAs are f32)."""
   return dict(kernel=kernel, label=label, batch=b, dtype=dtype, fn=fn,
               plain=plain, lib=lib, nbytes=nbytes, ops=ops, exact=exact,
               path=path, weight=weight, reps=reps, cold=cold,
-              yardstick=yardstick, stable=stable)
+              yardstick=yardstick, stable=stable, act=act or dtype)
 
 
 _BUSY: list = []
@@ -767,6 +869,24 @@ def kernel_cases(dense, fact, quant, lm, gen):
       case("gru_cell", "f32 768x2304", 4, f32, lambda: gru_cell(*g),
            lambda: ref.gru_cell(*g), stable=True),
   ]
+  # f32 activations over bf16 weights: the sLSTM's recurrent GEMM, one
+  # xlstm-350m head (4, 256) x (256, 1024) and its rank-128 factors, held
+  # at the f32 tolerance and timed
+  b, (m, r, n) = SERVE_BATCH, XLSTM_REC_SHAPE
+  xr = randn((b, m), gen, f32)
+  wr = randn((m, n), gen, bf16, 0.06)
+  ur, vr = randn((m, r), gen, bf16, 0.08), randn((r, n), gen, bf16, 0.08)
+  cases += [
+      case("decode_matvec", f"f32 x over bf16 {m}x{n}", b, bf16,
+           lambda: decode_matvec(xr, wr), lambda: ref.decode_matvec(xr, wr),
+           matmul_lib(xr, wr), 4 * (b * m + b * n) + 2 * m * n,
+           2 * b * m * n, path="xlstm_rec", cold=True, act=f32),
+      case("lowrank_gemm", f"f32 x over bf16 {m}x{r}x{n}", b, bf16,
+           lambda: lowrank_gemm(xr, ur, vr),
+           lambda: ref.lowrank_gemm(xr, ur, vr), matmul_lib(xr, ur, vr),
+           4 * (b * m + b * n) + 2 * r * (m + n), 2 * b * r * (m + n),
+           path="xlstm_rec", cold=True, act=f32),
+  ]
   return cases
 
 
@@ -782,10 +902,13 @@ def step_leaves(lm, cfg) -> list[tuple]:
   the dense layers' SwiGLU; the MoE layers' shared SwiGLU; and the head.
   (MLA's w_uk and w_uv enter the absorbed attention as products and the
   routed experts as stacked einsums: neither reaches a GEMM regime.)
-  A zamba model's are `zamba_step_leaves`."""
+  A zamba model's are `zamba_step_leaves`, an xlstm model's
+  `xlstm_step_leaves`."""
   from repro_torch.models.transformer import depths
   if cfg.family == "zamba":
     return zamba_step_leaves(lm, cfg)
+  if cfg.family == "xlstm":
+    return xlstm_step_leaves(lm, cfg)
   n_dense, n_moe = depths(cfg)
   lp = lm.dense_layers.layers()[0]
   if cfg.mla is None:
@@ -805,24 +928,54 @@ def step_leaves(lm, cfg) -> list[tuple]:
   return out
 
 
+def act_dtype(name: str, w: torch.Tensor) -> torch.dtype:
+  """The activations' type at GEMM `name`: the weight's, but f32 at the
+  sLSTM's recurrent GEMM (an f32 hidden state over the weight's type)."""
+  return torch.float32 if name == XLSTM_REC else w.dtype
+
+
+def matmul_lib(x: torch.Tensor, *ws: torch.Tensor):
+  """The library call of x @ w1 @ ...: `torch.matmul`, on f32 copies of
+  the weights (made here, outside the timed call) where x is f32 and the
+  weights bf16, which no one PyTorch call multiplies."""
+  ws = tuple(w.float() if x.dtype != w.dtype else w for w in ws)
+
+  def fn():
+    y = x
+    for w in ws:
+      y = torch.matmul(y, w)
+    return y
+  return fn
+
+
+def plain_gemms(cfg) -> set:
+  """Logical names of the GEMMs of a decode step that stay plain under
+  the kernel policy (below the 128-lane gate): xlstm's (2 di, 2 heads)
+  mLSTM gate projection."""
+  return {"pairs/mlstm_ifg"} if cfg.family == "xlstm" else set()
+
+
 def decode_cases(leaves, gen, path: str, prefix: str = "") -> list[dict]:
   """decode_matvec at each (name, 2-D leaf, launches a step) of `leaves`,
   at the engine's batch, warm and cold; `weight` is each shape's
-  launches a step."""
+  launches a step. x is f32 at the sLSTM's recurrent GEMM (`act_dtype`),
+  the weight's type elsewhere."""
   from repro_torch.kernels import ref
   from repro_torch.kernels.decode_matvec import decode_matvec
-  b, bf16 = SERVE_BATCH, torch.bfloat16
+  b = SERVE_BATCH
   cases = []
   for name, leaf, weight in leaves:
     w = leaf.w
     m, n = w.shape
-    x = randn((b, m), gen, bf16)
-    cases.append(case("decode_matvec", f"{prefix}{name} {m}x{n}", b, bf16,
+    xd = act_dtype(name, w)
+    x = randn((b, m), gen, xd)
+    xs, ws = x.element_size(), w.element_size()
+    cases.append(case("decode_matvec", f"{prefix}{name} {m}x{n}", b, w.dtype,
                       lambda x=x, w=w: decode_matvec(x, w),
                       lambda x=x, w=w: ref.decode_matvec(x, w),
-                      lambda x=x, w=w: torch.matmul(x, w),
-                      2 * (b * m + m * n + b * n), 2 * b * m * n,
-                      path=path, weight=weight, cold=True))
+                      matmul_lib(x, w),
+                      xs * (b * m + b * n) + ws * m * n, 2 * b * m * n,
+                      path=path, weight=weight, cold=True, act=xd))
   return cases
 
 
@@ -846,6 +999,8 @@ def check_cases(cases: list[dict]) -> list[dict]:
     max_err = float(err.max())
     row = dict(kernel=kernel, shape=label, batch=b, dtype=str(dtype),
                max_abs_err=max_err, path=c["path"], weight=c["weight"])
+    if c["act"] != dtype:
+      row["act_dtype"] = str(c["act"])
     if c["stable"]:
       again = c["fn"]()
       if not torch.equal(got, again):
@@ -854,7 +1009,7 @@ def check_cases(cases: list[dict]) -> list[dict]:
     if c["exact"]:
       ok = torch.equal(got, want)
     else:
-      tol = TOL[dtype]
+      tol = TOL[c["act"]]
       ok = bool(torch.isfinite(got.float()).all()) and \
           bool((err <= tol + tol * want.float().abs()).all())
     if kernel == "flash_attention":   # (b, s, h, d): rows of d values
@@ -869,7 +1024,7 @@ def check_cases(cases: list[dict]) -> list[dict]:
            f"version (max |err| {max_err:.3g})")
     if c["nbytes"]:                     # the paths' shapes: timed
       reps = c["reps"]
-      bnd, by = bound_ms(c["nbytes"], c["ops"], dtype)
+      bnd, by = bound_ms(c["nbytes"], c["ops"], c["act"])
       row.update(kernel_ms=time_ms(c["fn"], reps),
                  plain_ms=time_ms(c["plain"], reps),
                  library_ms=(time_ms(c["lib"], reps) if c["lib"] is not None
@@ -1105,88 +1260,156 @@ def hold_flash_in_place(lm, cfg, toks) -> float:
 
 
 def check_prefill(lm, cfg, card, gemms=None, flash: bool = True,
-                  compare=None) -> dict:
-  """forward(last_only=True) on one 4096-token prompt under both
-  policies; returns the kernel run's launches. `gemms`: the logical
-  names of the layer GEMMs (default: the dense LM's), which stay plain
-  at 4096 rows; `flash`: whether the attention launches flash_attention
-  (one call an attention layer), which MLA does not; without it the
-  log-probs are held to the head's rounding (HEAD_ONLY_RTOL), not
-  PREFILL_ATOL (F32_LOGPROB_ATOL in f32). `compare`: (model, cfg), a copy
-  of the same weights on which the policies' log-probs are compared
-  (default: `lm` itself); `lm`'s runs are then held to their launches,
-  routing and finite log-probs, and each of its flash calls to its plain
-  version in place (`hold_flash_in_place`)."""
+                  compare=None, tokens: int = PREFILL_LEN,
+                  recurrent=None, drift=None) -> dict:
+  """forward on one `tokens`-token prompt under both policies; returns
+  the kernel run's launches. `gemms`: the logical names of the layer
+  GEMMs (default: the dense LM's), which stay plain at `tokens` rows;
+  `flash`: whether the attention launches flash_attention (one call an
+  attention layer), which MLA does not. `recurrent`: (logical name,
+  calls a token) of a GEMM that a recurrence runs at one row a token
+  (xlstm's sLSTM heads), which routes to decode_matvec; the log-probs
+  of every position are then compared (teacher forcing), the head has
+  `tokens` rows and stays plain, and the warm-up runs the first 16
+  tokens (each further one repeats their launches). With neither a
+  kernel below the head, the log-probs are held to the head's rounding
+  (HEAD_ONLY_RTOL), else to PREFILL_ATOL (F32_LOGPROB_ATOL in f32).
+  `compare`: (model,
+  cfg), a copy of the same weights on which the policies' log-probs are
+  compared (default: `lm` itself); `lm`'s runs are then held to their
+  launches, routing and finite log-probs, their log-prob difference is
+  printed, and each of its flash calls is held to its plain version in
+  place (`hold_flash_in_place`). `drift`: (module, function name) of a
+  block of the forward whose output's last position is kept at each
+  call of the timed runs; how far the two policies' residual streams
+  part after each block, ||x_cuda - x_plain|| / ||x_plain||, is printed
+  for each precision run (what F32_LOGPROB_ATOL's comment rests on)."""
   from repro_torch.kernels import dispatch, ops
   from repro_torch.models.api import get_model
   toks = torch.from_numpy(np.random.RandomState(0).randint(
-      1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
+      1, cfg.vocab_size, size=(1, tokens))).to("cuda")
+  last_only = recurrent is None
   if gemms is None:
     gemms = {f"layers/{g}" for g in LM_GEMMS}
-  want_routes = {(n, "jnp") for n in gemms} | {("lm_head", "decode_matvec")}
+  want_routes = {(n, "jnp") for n in gemms} | {
+      ("lm_head", "decode_matvec" if last_only else "jnp")}
   if flash:
     want_routes.add(("layers/attn", "flash_attention"))
+  if not last_only:
+    want_routes.add((recurrent[0], "decode_matvec"))
+  kept = []
 
   def run(model, c, policy):
     forward = get_model(c).forward
     pol = dispatch.resolve_policy(policy)
-    forward(model, toks, c, last_only=True, policy=pol)  # warm-up, full size
+    forward(model, toks if last_only else toks[:, :16], c,
+            last_only=last_only, policy=pol)       # warm-up
     torch.cuda.synchronize()
     ops.reset_launches()
-    with dispatch.record_dispatch() as log:
+    kept.clear()
+    with dispatch.record_dispatch() as log, \
+        patched(drift, keeping_last(kept)):
       t0 = time.perf_counter()
-      logits = forward(model, toks, c, last_only=True, policy=pol)
+      logits = forward(model, toks, c, last_only=last_only, policy=pol)
       torch.cuda.synchronize()
       dt = time.perf_counter() - t0
-    last = logits[0, -1].float()
+    lg = logits[0].float()
     launches = dict(ops.LAUNCHES)
-    # the layer GEMMs (flat batch 4096) stay plain, and the head, narrowed
+    # the layer GEMMs (flat batch `tokens`) stay plain; the head, narrowed
     # to the last position, is a batch-1 GEMM
     want = {k: 0 for k in launches}
     if policy == "cuda":
       want.update(flash_attention=attention_layers(c) if flash else 0,
-                  decode_matvec=1)
+                  decode_matvec=1 if last_only else tokens * recurrent[1])
       if set(log) != want_routes:
         fail(f"{c.name} prefill: routing {sorted(set(log))}")
     if launches != want:
       fail(f"{c.name} prefill ({policy}, {c.dtype}): launches {launches} "
            f"!= {want}")
-    if last.shape != (c.vocab_size,) or not bool(torch.isfinite(last).all()):
+    if lg.shape != (1 if last_only else tokens, c.vocab_size) or \
+        not bool(torch.isfinite(lg).all()):
       fail(f"{c.name} prefill: logits of the wrong shape or not finite")
-    return torch.log_softmax(last, dim=-1), dt, launches, \
-        float(last.abs().max())
-  (_, dt_k, launches, _), (_, dt_p, _, _) = runs = [
-      run(lm, cfg, p) for p in ("cuda", "plain")]
+    return dict(lp=torch.log_softmax(lg, dim=-1), s=dt, launches=launches,
+                top=float(lg.abs().max()), kept=list(kept))
+  k, p = own = [run(lm, cfg, pol) for pol in ("cuda", "plain")]
   cm, cc = compare or (lm, cfg)
+  runs = {str(cfg.dtype): own}
   if compare is not None:
-    runs = [run(cm, cc, p) for p in ("cuda", "plain")]
-  (lp_k, _, _, top_k), (lp_p, _, _, top_p) = runs
-  if not flash:
-    atol = HEAD_ONLY_RTOL * max(top_k, top_p)
+    runs[str(cc.dtype)] = [run(cm, cc, pol) for pol in ("cuda", "plain")]
+  gk, gp = runs[str(cc.dtype)]
+  if not (flash or recurrent):
+    atol = HEAD_ONLY_RTOL * max(gk["top"], gp["top"])
   else:
     atol = F32_LOGPROB_ATOL if cc.dtype == torch.float32 else PREFILL_ATOL
-  diff = float((lp_k - lp_p).abs().max())
+  diff = float((gk["lp"] - gp["lp"]).abs().max())
+  flip = gk["lp"].argmax(-1) != gp["lp"].argmax(-1)
+  top2 = torch.topk(gp["lp"], 2, dim=-1).values
+  gaps = top2[:, 0] - top2[:, 1]
+  flip_gap = float(gaps[flip].max()) if bool(flip.any()) else 0.0
   if diff > atol:
-    fail(f"{cfg.name} prefill: last-position log-probs differ by {diff:.3g} "
-         f"> {atol:.3g}")
-  top2 = torch.topk(lp_p, 2).values
-  gap = float(top2[0] - top2[1])
-  tok_k, tok_p = int(lp_k.argmax()), int(lp_p.argmax())
-  if tok_k != tok_p and gap >= atol:
-    fail(f"{cfg.name} prefill: greedy tokens {tok_k} != {tok_p} at a top-2 "
-         f"gap of {gap:.3g}")
-  held = {} if compare is None else dict(
-      compared_dtype=str(cc.dtype),
-      flash_max_row_err_ratio=hold_flash_in_place(lm, cfg, toks))
+    fail(f"{cfg.name} prefill: log-probs differ by {diff:.3g} > {atol:.3g}")
+  if flip_gap >= atol:
+    fail(f"{cfg.name} prefill: greedy tokens differ at a top-2 gap of "
+         f"{flip_gap:.3g}")
+  extra = {}
+  if compare is not None:
+    extra.update(compared_dtype=str(cc.dtype), own_max_logprob_diff=float(
+        (k["lp"] - p["lp"]).abs().max()))
+    if flash:
+      extra["flash_max_row_err_ratio"] = hold_flash_in_place(lm, cfg, toks)
+  if drift is not None:
+    extra["drift_by_block"] = {
+        d: [float((a - b).norm() / b.norm()) for a, b in zip(
+            rk["kept"], rp["kept"])] for d, (rk, rp) in runs.items()}
   print(json.dumps(dict(
       prefill=cfg.name, card=card, dtype=str(cfg.dtype),
       layers=cfg.num_layers, head_dim=cfg.resolved_head_dim,
-      tokens=PREFILL_LEN, launches=launches, cuda_prefill_s=dt_k,
-      cuda_prefill_tokens_per_s=PREFILL_LEN / dt_k, plain_prefill_s=dt_p,
-      plain_prefill_tokens_per_s=PREFILL_LEN / dt_p, max_logprob_diff=diff,
-      atol=atol, plain_top2_gap=gap, greedy_cuda=tok_k, greedy_plain=tok_p,
-      **held)), flush=True)
-  return launches
+      tokens=tokens, launches=k["launches"], cuda_prefill_s=k["s"],
+      cuda_prefill_tokens_per_s=tokens / k["s"], plain_prefill_s=p["s"],
+      plain_prefill_tokens_per_s=tokens / p["s"], max_logprob_diff=diff,
+      atol=atol, argmax_flips=int(flip.sum()), flip_max_top2_gap=flip_gap,
+      plain_top2_gap=float(gaps[-1]), greedy_cuda=int(gk["lp"][-1].argmax()),
+      greedy_plain=int(gp["lp"][-1].argmax()), **extra)), flush=True)
+  return k["launches"]
+
+
+@contextlib.contextmanager
+def patched(target, wrap):
+  """Within it, the function `target` names ((module, function name);
+  None: none) is `wrap` of itself."""
+  if target is None:
+    yield
+    return
+  module, name = target
+  fn = getattr(module, name)
+  setattr(module, name, wrap(fn))
+  try:
+    yield
+  finally:
+    setattr(module, name, fn)
+
+
+def keeping_last(kept: list):
+  """A `patched` wrap: each call appends its output's last position
+  (batch row 0, in f32) to `kept`."""
+  def wrap(fn):
+    def kept_fn(*args, **kwargs):
+      out = fn(*args, **kwargs)
+      kept.append(out[0, -1].float())
+      return out
+    return kept_fn
+  return wrap
+
+
+def in_range(label: str):
+  """A `patched` wrap: each call runs in a torch.profiler
+  `record_function(label)` range."""
+  def wrap(fn):
+    def ranged(*args, **kwargs):
+      with torch.profiler.record_function(label):
+        return fn(*args, **kwargs)
+    return ranged
+  return wrap
 
 
 # ---------------------------------------------------------------------------
@@ -1455,6 +1678,7 @@ def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec",
   n_moe = depths(cfg)[1] if transformer else 0
   leaves = step_leaves(lm, cfg)
   names = {n for n, _, _ in leaves}
+  stay = {(n, "jnp") for n in plain_gemms(cfg)}
   per_step = sum(w for _, _, w in leaves)
   cm, cc = compare or (lm, cfg)
   atol = F32_LOGPROB_ATOL if cc.dtype == torch.float32 else LM_SERVE_ATOL
@@ -1472,11 +1696,11 @@ def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec",
   fin_k, dt_k, launches = timed_run(eng_k, reqs)
   fin_p, dt_p, plain_launches_t = timed_run(eng_p, reqs)
   for name, r in runs.items():
-    if r["routes"] != {(n, kernel) for n in names}:
+    if r["routes"] != {(n, kernel) for n in names} | stay:
       fail(f"{what} ({name}): routing {sorted(r['routes'])}")
     if not all(bool(torch.isfinite(c[2]).all()) for c in r["calls"]):
       fail(f"{what} ({name}): non-finite log-probs")
-  if p["routes"] != {(n, "jnp") for n in names}:
+  if p["routes"] != {(n, "jnp") for n in names} | stay:
     fail(f"{what}: plain routing {sorted(p['routes'])}")
   n_calls = len(p["calls"])
   for name, got in [(n, r["launches"]) for n, r in runs.items()] + [
@@ -1558,7 +1782,7 @@ def check_lm_serving(lm, cfg, card, kernel: str = "decode_matvec",
 def build_draft(lm, cfg, card):
   """The ported `make_draft_params(rank=DRAFT_RANK)` of the full-width
   target, on the card, timed. Requires every GEMM leaf factored at the
-  draft rank (32 layers x 7 stacked leaves and the head), the embedding
+  draft rank (the 7 stacked leaves and the head), the embedding
   and norms shared with the target (the same storage), and the target
   left unfactored."""
   from repro_torch.core.factored import count_params, iter_factored_leaves
@@ -1600,6 +1824,7 @@ def speculative_cases(lm, draft, gen):
   from repro_torch.kernels.lowrank_gemm import lowrank_gemm
   bf16 = torch.bfloat16
   n_layers = len(lm.dense_layers.layers())
+  cfg_name = f"llama3-8b ({n_layers} layers)"
 
   def layer0(model):
     lp = model.dense_layers.layers()[0]
@@ -1619,7 +1844,7 @@ def speculative_cases(lm, draft, gen):
     for b in (1, SERVE_BATCH):
       x = randn((b, m), gen, bf16)
       cases.append(case(
-          "lowrank_gemm", f"llama3-8b draft {name} {m}x{r}x{n}", b, bf16,
+          "lowrank_gemm", f"{cfg_name} draft {name} {m}x{r}x{n}", b, bf16,
           lambda a=(x, u, v): lowrank_gemm(*a),
           lambda a=(x, u, v): ref.lowrank_gemm(*a),
           lambda x=x, u=u, v=v: torch.matmul(torch.matmul(x, u), v),
@@ -1628,7 +1853,7 @@ def speculative_cases(lm, draft, gen):
           weight=weight, cold=True))
     x = randn((rows, m), gen, bf16)
     cases.append(case(
-        "decode_matvec", f"llama3-8b verify {name} {m}x{n}", rows, bf16,
+        "decode_matvec", f"{cfg_name} verify {name} {m}x{n}", rows, bf16,
         lambda x=x, w=wt: decode_matvec(x, w),
         lambda x=x, w=wt: ref.decode_matvec(x, w),
         lambda x=x, w=wt: torch.matmul(x, w),
@@ -1764,13 +1989,19 @@ def vanilla_logprobs(eng, reqs):
   return {f.uid: f.tokens.tolist() for f in finished}, rows
 
 
-def check_lm_speculative(lm, cfg, card) -> tuple[dict, list[dict], dict]:
-  """Phase 7. Returns (the counted speculative run's launches, the kernel
-  rows, the summary)."""
+def check_lm_speculative(card) -> tuple[dict, list[dict], dict]:
+  """Phase 7, on llama3-8b at full width cut to SPEC_LAYERS layers (seeded
+  random weights, as phase 4's). Returns (the counted speculative run's
+  launches, the kernel rows, the summary)."""
+  from repro_torch import configs
+  cfg = configs.get_config(LM_ARCH).with_(num_layers=SPEC_LAYERS)
+  lm = build_lm(cfg)
   draft, built = build_draft(lm, cfg, card)
   rows = check_cases(speculative_cases(lm, draft,
                                        torch.Generator().manual_seed(4)))
   launches, summary = run_speculative(lm, cfg, card, draft, built)
+  del lm, draft
+  free()
   return launches, rows, summary
 
 
@@ -1790,6 +2021,10 @@ def run_speculative(lm, cfg, card, draft, built: dict) -> tuple[dict, dict]:
   leaves = step_leaves(lm, cfg)
   names = {n for n, _, _ in leaves}
   per_call = sum(w for _, _, w in leaves)
+  # a window's GEMMs take its SPEC_K + 1 positions at once, but the
+  # sLSTM's recurrent GEMM runs position by position
+  per_window = per_call + SPEC_K * sum(w for n, _, w in leaves
+                                       if n == XLSTM_REC)
   reqs = lm_requests(cfg)
   eng = spec_engine(lm, cfg, draft, "cuda")
   replays = []
@@ -1815,15 +2050,16 @@ def run_speculative(lm, cfg, card, draft, built: dict) -> tuple[dict, dict]:
   eng.reset()
   # routing: every draft GEMM through lowrank_gemm, every target GEMM
   # (admission steps and verify windows) through decode_matvec
-  want = {"draft": {(n, "lowrank_gemm") for n in names},
-          "step": {(n, "decode_matvec") for n in names},
-          "window": {(n, "decode_matvec") for n in names}}
+  stay = {(n, "jnp") for n in plain_gemms(cfg)}
+  want = {"draft": {(n, "lowrank_gemm") for n in names} | stay,
+          "step": {(n, "decode_matvec") for n in names} | stay,
+          "window": {(n, "decode_matvec") for n in names} | stay}
   if routes != want:
     fail(f"speculative serving: routing {routes}")
   want_launches = {k: 0 for k in launches}
   want_launches.update(lowrank_gemm=per_call * calls["draft"],
-                       decode_matvec=per_call * (calls["step"] +
-                                                 calls["window"]))
+                       decode_matvec=per_call * calls["step"] +
+                       per_window * calls["window"])
   if launches != want_launches:
     fail(f"speculative serving: launches {launches} != {want_launches} "
          f"({calls})")
@@ -1911,7 +2147,7 @@ def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None):
 def train_batch(cfg, step: int) -> dict:
   """Step `step`'s batch of the synthetic speech (TRAIN_BATCH
   utterances) or LM stream (LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens)."""
-  if cfg.family in ("transformer", "zamba"):
+  if cfg.family in ("transformer", "zamba", "xlstm"):
     from repro_torch.data import lm as lm_data
     return lm_data.batch_at(lm_data.LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
@@ -2006,6 +2242,88 @@ def profile_step(fn, name: str) -> dict:
   return dict(wall_ms=wall * 1e3, device_kernel_ms=busy, kernels=count,
               profiled_idle_share=1.0 - busy / (wall * 1e3),
               top_kernels_ms={k: round(v, 4) for k, v in top})
+
+
+def timed_walls(fn, n: int) -> list[float]:
+  """`fn()` once (a warm-up), then `n` calls timed on the host clock with
+  the device synchronised around each: their ms."""
+  fn()
+  out = []
+  for _ in range(n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    out.append((time.perf_counter() - t0) * 1e3)
+  return out
+
+
+def annotated_kernel_ms(trace: Path, label: str) -> tuple[float, int]:
+  """Device time of the kernels launched inside `record_function(label)`
+  ranges of a torch.profiler trace (by the launches' correlation ids),
+  and the number of ranges."""
+  events = json.loads(trace.read_text())["traceEvents"]
+  spans = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in events
+           if e.get("cat") == "user_annotation" and e.get("name") == label]
+  corr = {e["args"]["correlation"] for e in events
+          if e.get("cat") in ("cuda_runtime", "cuda_driver") and
+          "correlation" in
+          e.get("args", {}) and any(a <= e["ts"] <= b and e.get("tid") == t
+                                    for a, b, t in spans)}
+  ms = sum(e.get("dur", 0.0) for e in events if e.get("cat") == "kernel"
+           and e.get("args", {}).get("correlation") in corr) / 1e3
+  return ms, len(spans)
+
+
+def profile_paths(lm, cfg, name: str, prefill_tokens: int = PREFILL_LEN,
+                  mark=None) -> dict:
+  """Where a model's time goes on the card under "cuda": one
+  batch-SERVE_BATCH decode step (positions 64.. of a zeroed state) timed
+  unprofiled (median of 5) and once under torch.profiler, and
+  forward(last_only=True) over one `prefill_tokens`-token prompt timed
+  (median of 3) and once under the profiler; each profile gets the
+  device's idle share of its unprofiled median. `mark`: (module, function
+  name) whose calls in the profiled prefill each run in a
+  `record_function` range: their device time, share of the prefill's
+  and number (`marked_calls`). Traces go to build/{name}_*_trace.json."""
+  from repro_torch.kernels import dispatch
+  from repro_torch.models.api import get_model
+  api = get_model(cfg)
+  pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
+  state = api.init_decode_state(cfg, SERVE_BATCH, 128, device="cuda")
+  tok = torch.ones((SERVE_BATCH, 1), dtype=torch.int64, device="cuda")
+  pos = torch.arange(64, 64 + SERVE_BATCH, device="cuda")
+
+  def step():
+    api.decode_step(lm, state, tok, pos, cfg, pol)
+  step_walls = timed_walls(step, 5)
+  step_prof = profile_step(step, f"{name}_decode_step")
+  step_prof["device_idle_share"] = 1.0 - step_prof["device_kernel_ms"] / \
+      statistics.median(step_walls)
+  del state
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, cfg.vocab_size, size=(1, prefill_tokens))).to("cuda")
+  prefill_pol = dispatch.resolve_policy("cuda")
+
+  def prefill():
+    api.forward(lm, toks, cfg, last_only=True, policy=prefill_pol)
+  prefill_walls = timed_walls(prefill, 3)
+  label = mark[1] if mark else None
+  with patched(mark, in_range(label)):
+    prefill_prof = profile_step(prefill, f"{name}_prefill")
+  if mark is not None:
+    ms, calls = annotated_kernel_ms(
+        ROOT / "build" / f"{name}_prefill_trace.json", label)
+    prefill_prof.update(marked=label, marked_kernel_ms=ms,
+                        marked_calls=calls,
+                        marked_share=ms / prefill_prof["device_kernel_ms"])
+  prefill_prof.update(tokens=prefill_tokens, device_idle_share=1.0 -
+                      prefill_prof["device_kernel_ms"] /
+                      statistics.median(prefill_walls))
+  return dict(decode_step_ms=statistics.median(step_walls),
+              decode_step_walls_ms=step_walls, decode_step=step_prof,
+              prefill_ms=statistics.median(prefill_walls),
+              prefill_walls_ms=prefill_walls, prefill=prefill_prof)
 
 
 def trained_kernel_cases(fact, quant, gen) -> list[dict]:
@@ -2144,15 +2462,16 @@ def check_training(cfg, card) -> tuple[dict, list[dict], dict]:
 # ---------------------------------------------------------------------------
 
 def check_dense_family(card) -> tuple[dict, list[dict]]:
-  """qwen3-4b (all 36 layers, qk-norm): decode_matvec held and timed at
-  its decode step's shapes, the 4096-token prefill under both policies
-  (36 flash routes) and LMEngine's 8 requests (253 launches a step);
+  """qwen3-4b (qk-norm) at full width cut to QWEN_LAYERS: decode_matvec
+  held and timed at its decode step's shapes, the 4096-token prefill
+  under both policies (a flash route a layer) and LMEngine's 8 requests
+  (7 launches a layer and the head a step);
   then stablelm-3b at full width, STABLELM_LAYERS layers, its prefill
   through the d = 80 kernel (one flash route a layer). Returns (launches
   by path, kernel rows)."""
   from repro_torch import configs
   by_path = {}
-  qcfg = configs.get_config("qwen3-4b")
+  qcfg = configs.get_config("qwen3-4b").with_(num_layers=QWEN_LAYERS)
   lm = build_lm(qcfg)
   rows = check_cases(decode_cases(step_leaves(lm, qcfg),
                                   torch.Generator().manual_seed(5),
@@ -2195,19 +2514,21 @@ def lowrank_cases(leaves, gen, path: str, prefix: str) -> list[dict]:
   the bound; `weight` is each shape's launches a step."""
   from repro_torch.kernels import ref
   from repro_torch.kernels.lowrank_gemm import lowrank_gemm
-  b, bf16 = SERVE_BATCH, torch.bfloat16
+  b = SERVE_BATCH
   cases = []
   for name, leaf, weight in leaves:
     u, v = leaf.u, leaf.v
     (m, r), n = u.shape, v.shape[1]
-    x = randn((b, m), gen, bf16)
+    xd = act_dtype(name, u)
+    x = randn((b, m), gen, xd)
+    xs, ws = x.element_size(), u.element_size()
     cases.append(case("lowrank_gemm", f"{prefix}{name} {m}x{r}x{n}",
-                      b, bf16, lambda a=(x, u, v): lowrank_gemm(*a),
+                      b, u.dtype, lambda a=(x, u, v): lowrank_gemm(*a),
                       lambda a=(x, u, v): ref.lowrank_gemm(*a),
-                      lambda x=x, u=u, v=v: torch.matmul(torch.matmul(x, u),
-                                                         v),
-                      2 * (b * m + m * r + r * n + b * n), 2 * b * r * (m + n),
-                      path=path, weight=weight, cold=True))
+                      matmul_lib(x, u, v),
+                      xs * (b * m + b * n) + ws * (m * r + r * n),
+                      2 * b * r * (m + n), path=path, weight=weight,
+                      cold=True, act=xd))
   return cases
 
 
@@ -2854,49 +3175,17 @@ def check_ds_training(card) -> tuple[dict, list[dict], dict]:
 
 
 def ds_profiles(lm, cfg, card) -> dict:
-  """Where a full-depth DeepSeek step's time goes: one batch-4 decode step
-  under "cuda" (positions 64.. of a zeroed cache) timed unprofiled
-  (median of 5) and once under torch.profiler (device kernel time, the
-  device's idle share of the unprofiled step, the top kernels by name),
-  beside the routed experts' weight bytes a step (every expert at its 8
-  slots) and their bound; and the 4096-token prefill once under the
-  profiler."""
-  from repro_torch.kernels import dispatch
-  from repro_torch.models import transformer as tf
-  pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
-  state = tf.init_decode_state(cfg, SERVE_BATCH, 128, device="cuda")
-  tok = torch.ones((SERVE_BATCH, 1), dtype=torch.int64, device="cuda")
-  pos = torch.arange(64, 64 + SERVE_BATCH, device="cuda")
-
-  def step():
-    tf.decode_step(lm, state, tok, pos, cfg, pol)
-  step()
-  walls = []
-  for _ in range(5):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    walls.append((time.perf_counter() - t0) * 1e3)
-  median = statistics.median(walls)
-  prof = profile_step(step, "ds_decode_step")
-  prof["device_idle_share"] = 1.0 - prof["device_kernel_ms"] / median
+  """Where a DeepSeek step's time goes (`profile_paths`), beside the
+  routed experts' weight bytes a step (every expert at its 8 slots) and
+  their bound."""
+  from repro_torch.models.transformer import depths
   m = cfg.moe
-  experts = tf.depths(cfg)[1] * 3 * m.num_experts * cfg.d_model * \
+  experts = depths(cfg)[1] * 3 * m.num_experts * cfg.d_model * \
       m.d_expert * cfg.dtype.itemsize
-  toks = torch.from_numpy(np.random.RandomState(0).randint(
-      1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
-  prefill = profile_step(
-      lambda: tf.forward(lm, toks, cfg, last_only=True,
-                         policy=dispatch.resolve_policy("cuda")),
-      "ds_prefill")
-  out = dict(ds_profile=cfg.name, card=card, decode_step_ms=median,
-             decode_step_walls_ms=walls, decode_step=prof,
-             routed_expert_bytes=experts,
-             routed_expert_bound_ms=experts / HBM_BYTES_PER_S * 1e3,
-             prefill=prefill)
+  out = dict(ds_profile=cfg.name, card=card, layers=cfg.num_layers,
+             **profile_paths(lm, cfg, "ds"), routed_expert_bytes=experts,
+             routed_expert_bound_ms=experts / HBM_BYTES_PER_S * 1e3)
   print(json.dumps(out), flush=True)
-  del state
   return out
 
 
@@ -2915,9 +3204,10 @@ def check_deepseek(card) -> tuple[dict, list[dict]]:
   by_path["ds_f32"] = f32["launches"]
   del lm
   free()
-  # (a), (c) full depth in bf16
+  # (a), (c) DS_LAYERS layers in bf16
+  v2 = v2.with_(num_layers=DS_LAYERS)
   lm = build_lm(v2)
-  if depths(v2) != (1, 26):
+  if depths(v2) != (1, DS_LAYERS - 1):
     fail(f"{v2.name}: stacks {depths(v2)}")
   rows += check_cases(decode_cases(step_leaves(lm, v2),
                                    torch.Generator().manual_seed(9),
@@ -2986,138 +3276,6 @@ def f32_copy(lm, cfg):
   return copy.deepcopy(lm).float(), cfg.with_(dtype=torch.float32)
 
 
-def zamba_drift(lm, cfg, card, compare) -> dict:
-  """How far the two policies' residual streams part at the prompt's last
-  position, after each group and the tail (`_mamba_scan`'s outputs), as
-  ||x_cuda - x_plain|| / ||x_plain||: in bf16 (`lm`) and in f32
-  (`compare`: (model, cfg), the same weights widened), on phase 4's
-  prompt. What F32_LOGPROB_ATOL's comment says of bf16 rests on this."""
-  from repro_torch.kernels import dispatch
-  from repro_torch.models import zamba
-  toks = torch.from_numpy(np.random.RandomState(0).randint(
-      1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
-  scan, rec = zamba._mamba_scan, []
-
-  def recorded(x, *args, **kwargs):
-    out = scan(x, *args, **kwargs)
-    rec.append(out[0, -1].float())
-    return out
-  zamba._mamba_scan = recorded
-  out = {}
-  try:
-    for m, c in ((lm, cfg), compare):
-      runs = []
-      for policy in ("cuda", "plain"):
-        rec.clear()
-        zamba.forward(m, toks, c, last_only=True,
-                      policy=dispatch.resolve_policy(policy))
-        runs.append(list(rec))
-      out[str(c.dtype)] = [float((a - b).norm() / b.norm())
-                           for a, b in zip(*runs)]
-  finally:
-    zamba._mamba_scan = scan
-  print(json.dumps(dict(zamba_drift=cfg.name, card=card,
-                        cuda_vs_plain_by_group=out)), flush=True)
-  return out
-
-
-def annotated_kernel_ms(trace: Path, label: str) -> tuple[float, int]:
-  """Device time of the kernels launched inside `record_function(label)`
-  ranges of a torch.profiler trace (by the launches' correlation ids),
-  and the number of ranges."""
-  events = json.loads(trace.read_text())["traceEvents"]
-  spans = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in events
-           if e.get("cat") == "user_annotation" and e.get("name") == label]
-  corr = {e["args"]["correlation"] for e in events
-          if e.get("cat") in ("cuda_runtime", "cuda_driver") and
-          "correlation" in
-          e.get("args", {}) and any(a <= e["ts"] <= b and e.get("tid") == t
-                                    for a, b, t in spans)}
-  ms = sum(e.get("dur", 0.0) for e in events if e.get("cat") == "kernel"
-           and e.get("args", {}).get("correlation") in corr) / 1e3
-  return ms, len(spans)
-
-
-def zamba_profiles(lm, cfg, card) -> dict:
-  """Where zamba2-7b's time goes: one batch-4 decode step under "cuda"
-  (positions 64.. of a zeroed state) timed unprofiled (median of 5) and
-  once under torch.profiler; the 4096-token prefill timed unprofiled
-  (median of 3) and once under the profiler with each `ssd_chunked` call
-  in a `record_function` range, which gives the SSD scan's share of the
-  device's kernel time; and one `ssd_chunked` call alone at a layer's
-  prefill shapes (CUDA events), times the layers."""
-  from repro_torch.kernels import dispatch
-  from repro_torch.layers import mamba2 as m2
-  from repro_torch.models import zamba
-  pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
-  state = zamba.init_decode_state(cfg, SERVE_BATCH, 128, device="cuda")
-  tok = torch.ones((SERVE_BATCH, 1), dtype=torch.int64, device="cuda")
-  pos = torch.arange(64, 64 + SERVE_BATCH, device="cuda")
-
-  def walls(fn, n):
-    fn()
-    out = []
-    for _ in range(n):
-      torch.cuda.synchronize()
-      t0 = time.perf_counter()
-      fn()
-      torch.cuda.synchronize()
-      out.append((time.perf_counter() - t0) * 1e3)
-    return out
-
-  def step():
-    zamba.decode_step(lm, state, tok, pos, cfg, pol)
-  step_walls = walls(step, 5)
-  step_prof = profile_step(step, "zamba_decode_step")
-  step_prof["device_idle_share"] = 1.0 - step_prof["device_kernel_ms"] / \
-      statistics.median(step_walls)
-  toks = torch.from_numpy(np.random.RandomState(0).randint(
-      1, cfg.vocab_size, size=(1, PREFILL_LEN))).to("cuda")
-  prefill_pol = dispatch.resolve_policy("cuda")
-
-  def prefill():
-    zamba.forward(lm, toks, cfg, last_only=True, policy=prefill_pol)
-  prefill_walls = walls(prefill, 3)
-  ssd = m2.ssd_chunked
-
-  def marked_ssd(*args, **kwargs):
-    with torch.profiler.record_function("ssd_chunked"):
-      return ssd(*args, **kwargs)
-  m2.ssd_chunked = marked_ssd
-  try:
-    prefill_prof = profile_step(prefill, "zamba_prefill")
-  finally:
-    m2.ssd_chunked = ssd
-  ssd_ms, ranges = annotated_kernel_ms(
-      ROOT / "build" / "zamba_prefill_trace.json", "ssd_chunked")
-  if ranges != cfg.num_layers:
-    fail(f"{cfg.name} prefill profile: {ranges} ssd_chunked ranges, not "
-         f"{cfg.num_layers}")
-  prefill_prof.update(
-      ssd_kernel_ms=ssd_ms,
-      ssd_share=ssd_ms / prefill_prof["device_kernel_ms"],
-      device_idle_share=1.0 - prefill_prof["device_kernel_ms"] /
-      statistics.median(prefill_walls))
-  gen = torch.Generator().manual_seed(12)
-  d_inner = 2 * cfg.d_model
-  heads = d_inner // m2.HEAD_DIM
-  x = randn((1, PREFILL_LEN, heads, m2.HEAD_DIM), gen, torch.bfloat16)
-  dt = F.softplus(randn((1, PREFILL_LEN, heads), gen, torch.float32))
-  A = -torch.ones(heads, device="cuda")
-  B, C = (randn((1, PREFILL_LEN, cfg.ssm_state), gen, torch.bfloat16)
-          for _ in range(2))
-  one = time_ms(lambda: ssd(x, dt, A, B, C), reps=5)
-  out = dict(zamba_profile=cfg.name, card=card,
-             decode_step_ms=statistics.median(step_walls),
-             decode_step_walls_ms=step_walls, decode_step=step_prof,
-             prefill_ms=statistics.median(prefill_walls),
-             prefill_walls_ms=prefill_walls, prefill=prefill_prof,
-             ssd_one_layer_ms=one, ssd_all_layers_ms=one * cfg.num_layers)
-  print(json.dumps(out), flush=True)
-  del state
-  return out
-
-
 def zamba_carries(state: dict, carry: dict) -> list:
   """The carry leaves of a zamba decode state, in a fixed order."""
   return [state[k][n] for k, leaves in carry.items()
@@ -3163,7 +3321,7 @@ def check_replay(eng, cfg, card) -> dict:
   return out
 
 
-def shrink_residuals(lm, draft, alpha: float) -> None:
+def shrink_residuals(lm, draft, alpha: float, leaves: int) -> None:
   """Each GEMM leaf W of `lm` becomes UV + alpha (W - UV), UV its
   truncation in `draft`. A random weight's spectrum is flat, so a
   rank-128 draft of a 3584-wide random model keeps a few percent of it
@@ -3171,82 +3329,85 @@ def shrink_residuals(lm, draft, alpha: float) -> None:
   commits 1 in every slot, and the engine's per-slot replay never runs);
   a trained weight's spectrum decays. W - UV lies outside UV's singular
   subspaces, so UV is still the new weight's rank-128 truncation: the
-  draft is unchanged, and `alpha` sets how far it is from its target."""
+  draft is unchanged, and `alpha` sets how far it is from its target.
+  `leaves`: the draft's factored leaves (a leaf the draft shares with
+  its target stays as it is)."""
   from repro_torch.core.factored import iter_factored_leaves
-  pairs = list(zip(iter_factored_leaves(lm), iter_factored_leaves(draft)))
-  if len(pairs) != 14 or any(t.name != d.name or t.is_factored or
-                             not d.is_factored for t, d in pairs):
+  pairs = [(t, d) for t, d in zip(iter_factored_leaves(lm),
+                                  iter_factored_leaves(draft))
+           if d.is_factored]
+  if len(pairs) != leaves or any(t.name != d.name or t.is_factored
+                                 for t, d in pairs):
     fail(f"shrink_residuals: leaves {[(t.name, d.name) for t, d in pairs]}")
   with torch.no_grad():
     for t, d in pairs:
       t.w.mul_(alpha).add_(torch.matmul(d.u, d.v), alpha=1.0 - alpha)
 
 
-def check_zamba_speculative(card) -> tuple[dict, list[dict], dict]:
-  """zamba2-7b at full width cut to ZAMBA_CUT_LAYERS: the rank-128 draft
-  built on the card (every GEMM leaf factored, the norms, A_log and the
-  embedding the target's own storage), `lowrank_gemm` held and timed at
-  the draft step's shapes in bf16, then, in f32 (the target and its
-  draft widened: speculative greedy is held to vanilla greedy's tokens,
-  which bf16 rounding would decorrelate, see F32_LOGPROB_ATOL), the
-  masked replay against its steps (`check_replay`), the target's
-  residuals shrunk (`shrink_residuals`) and `run_speculative` (greedy,
-  every call's launches exact, at least one masked replay). Returns
+def check_cut_speculative(card, cfg, build, leaves_fn, n_factored: int,
+                          shared: tuple, residual: float, seed: int
+                          ) -> tuple[dict, list[dict], dict]:
+  """A full-width config cut in depth (`cfg`: zamba2-7b's, xlstm-350m's),
+  built by `build`: the rank-128 draft built on the card (timed; exactly
+  `n_factored` GEMM leaves factored, each at DRAFT_RANK; the state-dict
+  entries `shared` names (the norms, the embedding, an SSM leaf, a bias,
+  a GEMM below the 128-lane gate) the target's own storage; the target
+  left unfactored), `lowrank_gemm` held and timed at the draft step's
+  shapes (`leaves_fn`) in bf16, then, in f32 (the target and its draft
+  widened: speculative greedy is held to vanilla greedy's tokens, which
+  bf16 rounding would decorrelate, see F32_LOGPROB_ATOL), the masked
+  replay against its steps (`check_replay`), the target's residuals
+  shrunk to `residual` (`shrink_residuals`) and `run_speculative`
+  (greedy, every call's launches exact, at least one masked replay: the
+  carry branch). Kernel rows take the path "{family}_draft". Returns
   (launches, rows, summary)."""
-  from repro_torch import configs
   from repro_torch.core.factored import count_params, iter_factored_leaves
-  from repro_torch.models.zamba import _plan
   from repro_torch.serving.speculative import make_draft_params
-  cfg = configs.get_config(ZAMBA_ARCH).with_(num_layers=ZAMBA_CUT_LAYERS)
-  if _plan(cfg) != (6, 1, 1):
-    fail(f"{cfg.name} cut to {cfg.num_layers} layers: plan {_plan(cfg)}")
-  lm = build_zamba(cfg)
+  lm = build(cfg)
   torch.cuda.synchronize()
   t0 = time.perf_counter()
   draft = make_draft_params(lm, rank=DRAFT_RANK)
   torch.cuda.synchronize()
   build_s = time.perf_counter() - t0
-  leaves = list(iter_factored_leaves(draft))
-  if len(leaves) != 14 or any(not lf.is_factored or lf.rank != DRAFT_RANK
-                              for lf in leaves):
-    fail(f"zamba draft: leaves {[(lf.name, lf.rank) for lf in leaves]}")
+  fact = [lf for lf in iter_factored_leaves(draft) if lf.is_factored]
+  if len(fact) != n_factored or any(lf.rank != DRAFT_RANK for lf in fact):
+    fail(f"{cfg.name} draft: leaves {[(lf.name, lf.rank) for lf in fact]}")
   if any(lf.is_factored for lf in iter_factored_leaves(lm)):
-    fail("zamba draft: building it factored the target")
+    fail(f"{cfg.name} draft: building it factored the target")
   dsd, tsd = draft.state_dict(), lm.state_dict()
-  if any(dsd[k].data_ptr() != tsd[k].data_ptr() for k in (
-      "embedding.table", "final_norm", "main.A_log", "tail.conv_w",
-      "shared_attn.ln1")):
-    fail("zamba draft: a norm or an SSM leaf is a copy, not the target's")
+  if any(dsd[k].data_ptr() != tsd[k].data_ptr() for k in shared):
+    fail(f"{cfg.name} draft: one of {shared} is a copy, not the target's")
   built = dict(draft=cfg.name, card=card, layers=cfg.num_layers,
                rank=DRAFT_RANK, build_s=build_s,
                draft_params=count_params(draft),
                target_params=count_params(lm))
   print(json.dumps(built), flush=True)
-  rows = check_cases(lowrank_cases(zamba_step_leaves(draft, cfg),
-                                   torch.Generator().manual_seed(13),
-                                   "zamba_draft", f"{cfg.name} draft "))
+  rows = check_cases(lowrank_cases(leaves_fn(draft, cfg),
+                                   torch.Generator().manual_seed(seed),
+                                   f"{cfg.family}_draft", f"{cfg.name} draft "))
   lm, cfg = f32_copy(lm, cfg)
   draft = copy.deepcopy(draft).float()
   check_replay(spec_engine(lm, cfg, draft, "cuda"), cfg, card)
-  shrink_residuals(lm, draft, ZAMBA_SPEC_RESIDUAL)
+  shrink_residuals(lm, draft, residual, n_factored)
   launches, summary = run_speculative(lm, cfg, card, draft, built)
-  summary["residual_scale"] = ZAMBA_SPEC_RESIDUAL
+  summary["residual_scale"] = residual
   del lm, draft
   free()
   return launches, rows, summary
 
 
-def check_zamba_training(card) -> tuple[dict, list[dict], dict]:
-  """zamba2-7b at full width cut to ZAMBA_CUT_LAYERS, bf16, trained
-  TRAIN_STEPS steps of `data/lm.py` batches through both stages as phase
-  9 (one step a stage under torch.profiler), then frozen and served
-  through LMEngine with every GEMM through lowrank_gemm. Returns (the
-  serving run's launches, the kernel rows, the training summary)."""
-  from repro_torch import configs
+def check_cut_training(cfg, card, path: str, seed: int
+                       ) -> tuple[dict, list[dict], dict]:
+  """A full-width config cut in depth (`cfg`: zamba2-7b's, xlstm-350m's),
+  bf16, trained TRAIN_STEPS steps of `data/lm.py` batches through both
+  stages as phase 9 (one step a stage under torch.profiler), then frozen
+  and served through LMEngine with every step GEMM through lowrank_gemm,
+  the policies compared on an f32 copy. Kernel rows take `path`.
+  Returns (the serving run's launches, the kernel rows, the training
+  summary)."""
   from repro_torch.core.factored import count_params, frozen, \
       iter_factored_leaves
-  cfg = configs.get_config(ZAMBA_ARCH).with_(num_layers=ZAMBA_CUT_LAYERS)
-  ckpt = ROOT / "build" / "zamba_train_ckpt"
+  ckpt = ROOT / "build" / f"{path}_train_ckpt"
   shutil.rmtree(ckpt, ignore_errors=True)
   t0 = time.perf_counter()
   tr = make_trainer(cfg, "cuda", ckpt,
@@ -3263,7 +3424,7 @@ def check_zamba_training(card) -> tuple[dict, list[dict], dict]:
     if i in (1, TRAIN_TRANSITION + 1):      # one profiled step a stage
       profiles[f"stage{tr.stage}"] = profile_step(
           lambda b=batch: steps.append(tr.train_step(b)),
-          f"zamba_train_step{i}")
+          f"{path}_train_step{i}")
     else:
       steps.append(tr.train_step(batch))
     torch.cuda.synchronize()
@@ -3280,6 +3441,8 @@ def check_zamba_training(card) -> tuple[dict, list[dict], dict]:
          f"transition, {params_before} before")
   ranks = {}
   for leaf in iter_factored_leaves(tr.params):
+    if not tr.plan.matches(leaf) and not leaf.is_factored:
+      continue                  # below the plan's min_dim: kept dense
     if not leaf.is_factored or leaf.rank % 8 or \
         leaf.rank > min(leaf.in_dim, leaf.out_dim):
       fail(f"{cfg.name} training: leaf {leaf.name} rank "
@@ -3309,13 +3472,13 @@ def check_zamba_training(card) -> tuple[dict, list[dict], dict]:
   fact = frozen(copy.deepcopy(tr.params))
   del tr
   free()
-  leaves = zamba_step_leaves(fact, cfg)
+  leaves = step_leaves(fact, cfg)
   for name, leaf, _ in leaves:
     if not leaf.is_factored or min(leaf.u.shape[-2], leaf.rank,
                                    leaf.v.shape[-1]) < 128:
       fail(f"{cfg.name} trained: {name} would not reach lowrank_gemm")
-  rows = check_cases(lowrank_cases(leaves, torch.Generator().manual_seed(14),
-                                   "zamba_trained", f"trained {cfg.name} "))
+  rows = check_cases(lowrank_cases(leaves, torch.Generator().manual_seed(seed),
+                                   f"{path}_trained", f"trained {cfg.name} "))
   launches = check_lm_serving(fact, cfg, card, "lowrank_gemm",
                               compare=f32_copy(fact, cfg))
   del fact
@@ -3327,14 +3490,16 @@ def check_zamba(card) -> tuple[dict, list[dict]]:
   """Phase 12. Returns (launches by path, kernel rows)."""
   from repro_torch import configs
   from repro_torch.kernels import dispatch
-  from repro_torch.models.zamba import _plan
+  from repro_torch.layers import mamba2 as m2
+  from repro_torch.models import zamba
   by_path, rows = {}, []
-  cfg = configs.get_config(ZAMBA_ARCH)
-  if cfg.resolved_head_dim != 112 or _plan(cfg) != (6, 13, 3):
+  cfg = configs.get_config(ZAMBA_ARCH).with_(num_layers=ZAMBA_LAYERS)
+  k, groups, tail = zamba._plan(cfg)
+  if cfg.resolved_head_dim != 112 or (k, groups, tail) != (6, 4, 3):
     fail(f"{cfg.name}: head width {cfg.resolved_head_dim}, plan "
-         f"{_plan(cfg)}")
-  # (a) all 81 layers in bf16: decode_matvec at the decode step's shapes,
-  # its launches a step counted from `classify`
+         f"{(k, groups, tail)}")
+  # (a) ZAMBA_LAYERS layers in bf16: decode_matvec at the decode step's
+  # shapes, its launches a step counted from `classify`
   lm = build_zamba(cfg)
   leaves = zamba_step_leaves(lm, cfg)
   pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
@@ -3345,31 +3510,276 @@ def check_zamba(card) -> tuple[dict, list[dict]]:
     if dispatch.classify(leaf, x, pol, name) != "decode_matvec":
       fail(f"{cfg.name}: {name} does not classify to decode_matvec")
     per_step += weight
-  if per_step != 3 * 81 + 7 * 13 + 1:
-    fail(f"{cfg.name}: {per_step} decode_matvec launches a step, not 335")
+  if per_step != 3 * ZAMBA_LAYERS + 7 * groups + 1:
+    fail(f"{cfg.name}: {per_step} decode_matvec launches a step")
   rows += check_cases(decode_cases(leaves, torch.Generator().manual_seed(11),
                                    "zamba_decode", f"{cfg.name} "))
-  # (b) the 4096-token prefill: 13 flash launches (one a group) and the
-  # head, each flash call held in place, the policies' log-probs compared
-  # on an f32 copy; (c) LMEngine, 335 launches a step, compared likewise
+  # (b) the 4096-token prefill: one flash launch a group and the head,
+  # each flash call held in place, the policies' log-probs compared on an
+  # f32 copy, the residual stream's drift after each group and the tail;
+  # (c) LMEngine, compared likewise
   lm32 = f32_copy(lm, cfg)
-  by_path["zamba_prefill"] = check_prefill(lm, cfg, card, set(ZAMBA_GEMMS),
-                                           compare=lm32)
+  by_path["zamba_prefill"] = check_prefill(
+      lm, cfg, card, set(ZAMBA_GEMMS), compare=lm32,
+      drift=(zamba, "_mamba_scan"))
   by_path["zamba_serving"] = check_lm_serving(lm, cfg, card, compare=lm32)
-  zamba_drift(lm, cfg, card, lm32)
   del lm32
   free()
-  zamba_profiles(lm, cfg, card)
+  gen = torch.Generator().manual_seed(12)
+  heads = 2 * cfg.d_model // m2.HEAD_DIM
+  x = randn((1, PREFILL_LEN, heads, m2.HEAD_DIM), gen, torch.bfloat16)
+  dt = F.softplus(randn((1, PREFILL_LEN, heads), gen, torch.float32))
+  A = -torch.ones(heads, device="cuda")
+  B, C = (randn((1, PREFILL_LEN, cfg.ssm_state), gen, torch.bfloat16)
+          for _ in range(2))
+  one = time_ms(lambda: m2.ssd_chunked(x, dt, A, B, C), reps=5)
+  prof = profile_paths(lm, cfg, "zamba", mark=(m2, "ssd_chunked"))
+  if prof["prefill"]["marked_calls"] != cfg.num_layers:
+    fail(f"{cfg.name} prefill profile: {prof['prefill']['marked_calls']} "
+         f"ssd_chunked ranges, not {cfg.num_layers}")
+  print(json.dumps(dict(zamba_profile=cfg.name, card=card,
+                        layers=cfg.num_layers, **prof, ssd_one_layer_ms=one,
+                        ssd_all_layers_ms=one * cfg.num_layers)), flush=True)
   del lm
   free()
-  # (e) the self-speculative engine on the depth-cut model
-  by_path["zamba_speculative"], spec_rows, _ = check_zamba_speculative(card)
+  # (e) the self-speculative engine on the depth-cut model: one group and
+  # one tail layer
+  cut = configs.get_config(ZAMBA_ARCH).with_(num_layers=ZAMBA_CUT_LAYERS)
+  if zamba._plan(cut) != (6, 1, 1):
+    fail(f"{cut.name} cut to {cut.num_layers} layers: plan "
+         f"{zamba._plan(cut)}")
+  by_path["zamba_speculative"], spec_rows, _ = check_cut_speculative(
+      card, cut, build_zamba, zamba_step_leaves, 14,
+      ("embedding.table", "final_norm", "main.A_log", "tail.conv_w",
+       "shared_attn.ln1"), ZAMBA_SPEC_RESIDUAL, 13)
   rows += spec_rows
   # (d) the two-stage recipe at the depth cut
   check_training_card_vs_cpu(card, ZAMBA_ARCH, ZAMBA_UPDATE_RTOL)
-  by_path["zamba_trained_serving"], trained_rows, _ = check_zamba_training(
-      card)
+  by_path["zamba_trained_serving"], trained_rows, _ = check_cut_training(
+      cut, card, "zamba", 14)
   rows += trained_rows
+  return by_path, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: xlstm-350m — mLSTM's chunked matrix memory and sLSTM's per-head
+# recurrence, the recurrent GEMM through decode_matvec (and lowrank_gemm)
+# on f32 activations over bf16 weights; then the prefix cache.
+# ---------------------------------------------------------------------------
+
+def build_xlstm(cfg):
+  from repro_torch.models.xlstm_model import init_lm
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  return init_lm(cfg, generator=gen, device="cuda")
+
+
+def xlstm_step_leaves(lm, cfg) -> list[tuple]:
+  """(logical name, a 2-D leaf, launches a decode step) of every GEMM an
+  xlstm decode step routes to a kernel: each pair's mLSTM up, qkv and
+  down, the sLSTM's wx and out, its recurrent kernel head by head (f32
+  activations, `act_dtype`), and the head. The mLSTM's gate projection
+  (2 di, 2 heads) stays plain (`plain_gemms`)."""
+  n = cfg.num_layers // 2
+  lp = lm.pairs.layers()[0]
+  m, s = lp["mlstm"], lp["slstm"]
+  out = [(f"pairs/mlstm_{k}", m[k], n) for k in ("up", "qkv", "down")]
+  out += [("pairs/slstm_nonrec", s["wx"], n), ("pairs/slstm_out", s["out"], n),
+          (XLSTM_REC, s["rh"].layer(0), n * cfg.num_heads),
+          ("lm_head", lm.embedding.head, 1)]
+  return out
+
+
+def prefix_requests(cfg) -> list:
+  """2 x SERVE_BATCH requests, six of them opening with one shared
+  template of PREFIX_TEMPLATE tokens (fleet traffic), each with a suffix
+  of 4..8 tokens and a budget of 2..8."""
+  rng = np.random.RandomState(7)
+  template = rng.randint(1, cfg.vocab_size, size=(PREFIX_TEMPLATE,))
+  reqs = []
+  for i in range(2 * SERVE_BATCH):
+    tail = rng.randint(1, cfg.vocab_size, size=(rng.randint(4, 9),))
+    prompt = tail if i % 4 == 3 else np.concatenate([template, tail])
+    reqs.append((prompt, int(rng.randint(2, 9))))
+  return reqs
+
+
+def check_prefix_cache(lm, cfg, card, evictions: bool) -> dict:
+  """(e) LMEngine under "cuda" with a PrefixCache(PREFIX_CACHE_MB) and
+  publish_on_retire, against the same engine without one, on
+  `prefix_requests` and then a second turn of the first PREFIX_TURNS_2
+  conversations (each request's prompt, its tokens but the last, and 4
+  new ones): every request's greedy tokens equal, token for token; hits
+  (where the cache evicts nothing, `evictions` False, every second-turn
+  hit reaches the first turn's fed length, published at retirement);
+  evictions where `evictions`. Then a state
+  spliced from a snapshot at PREFIX_TEMPLATE tokens and stepped through
+  the rest of a prompt equals the cold prefill's, every leaf and the
+  logits bit for bit. TTFT p50 with and without hits is a reading.
+  Returns the cached runs' launches."""
+  from repro_torch.kernels import ops
+  from repro_torch.models.api import get_model
+  from repro_torch.serving.engine import LMEngine
+  from repro_torch.serving.prefix_cache import PrefixCache
+  api = get_model(cfg)
+  cache = PrefixCache(PREFIX_CACHE_MB)
+  cold = lm_engine(lm, cfg, "cuda")
+  hot = LMEngine(cfg, lm, batch_size=SERVE_BATCH, max_len=cold.max_len,
+                 kernel_policy="cuda", prefix_cache=cache,
+                 publish_on_retire=True, device="cuda")
+  hits = []
+  lookup = cache.lookup
+
+  def counted(tokens):
+    m, payload = lookup(tokens)
+    hits.append(m)
+    return m, payload
+  cache.lookup = counted
+
+  def serve(eng, reqs):
+    uids = [eng.submit(p, max_new_tokens=b, eos_id=None) for p, b in reqs]
+    fin = {f.uid: f for f in eng.run(temperature=0.0)}
+    return [fin[u] for u in uids]
+  rounds, launches = [], {k: 0 for k in ops.LAUNCHES}
+  reqs = prefix_requests(cfg)
+  for turn in range(2):
+    got_c = serve(cold, reqs)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    n0 = len(hits)
+    got_h = serve(hot, reqs)
+    torch.cuda.synchronize()
+    for k, n in ops.LAUNCHES.items():
+      launches[k] += n
+    for i, (a, b) in enumerate(zip(got_c, got_h)):
+      if a.tokens.tolist() != b.tokens.tolist():
+        fail(f"{cfg.name} prefix cache: turn {turn} request {i} emitted "
+             f"{b.tokens.tolist()} with the cache, {a.tokens.tolist()} "
+             "without")
+    rounds.append(dict(cold=got_c, hot=got_h, hits=hits[n0:],
+                       fed=[len(p) for p, _ in reqs]))
+    rng = np.random.RandomState(8)
+    reqs = [(np.concatenate([p, f.tokens[:-1],
+                             rng.randint(1, cfg.vocab_size, size=(4,))]), b)
+            for (p, b), f in zip(reqs[:PREFIX_TURNS_2], got_c)]
+  del cache.lookup
+  stats = hot.cache_stats()
+  first_turn = [len(p) + len(f.tokens) - 1 for (p, _), f in
+                zip(prefix_requests(cfg)[:PREFIX_TURNS_2],
+                    rounds[0]["cold"])]
+  if not any(rounds[0]["hits"]) or (not evictions and not all(
+      m >= n for m, n in zip(rounds[1]["hits"], first_turn))):
+    fail(f"{cfg.name} prefix cache: hits {[r['hits'] for r in rounds]} "
+         f"(second turn's fed lengths {first_turn})")
+  if stats["hits"] == 0 or (evictions and stats["evictions"] == 0):
+    fail(f"{cfg.name} prefix cache: stats {stats}")
+  # a splice at the template, stepped on, against the cold prefill
+  prompt = prefix_requests(cfg)[0][0]
+  m = PREFIX_TEMPLATE
+  lg_c, st_c = hot._prefill_slot(prompt)
+  _, part = hot._prefill_slot(prompt[:m])
+  start = api.splice_prefix(cfg, hot._init_state(1),
+                            api.prefix_view(cfg, part, m))
+  lg_s, st_s = hot._prefill_slot(prompt[m:], state=start, start=m)
+  leaves = []
+
+  def walk(a, b, path=""):
+    if isinstance(a, dict):
+      for k in a:
+        walk(a[k], b[k], f"{path}/{k}")
+    else:
+      leaves.append((path, torch.equal(a, b)))
+  walk(st_c, st_s)
+  if not all(ok for _, ok in leaves) or not torch.equal(lg_c, lg_s):
+    fail(f"{cfg.name} prefix cache: a spliced state differs from the cold "
+         f"one: {[p for p, ok in leaves if not ok]}, logits equal "
+         f"{torch.equal(lg_c, lg_s)}")
+
+  def p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] * 1e3 if xs else None
+  ttft_hit = [f.ttft_s for r in rounds for f, m in zip(r["hot"], r["hits"])
+              if m]
+  ttft_miss = [f.ttft_s for r in rounds for f, m in zip(r["hot"], r["hits"])
+               if not m]
+  out = dict(prefix_cache=cfg.name, card=card, layers=cfg.num_layers,
+             capacity_mb=PREFIX_CACHE_MB, requests=[len(r["hot"]) for r in
+                                                    rounds],
+             hits_by_turn=[r["hits"] for r in rounds],
+             prompt_lens_by_turn=[r["fed"] for r in rounds], stats=stats,
+             tokens_equal=True, spliced_leaves_equal=len(leaves),
+             ttft_p50_ms_without_cache=p50(
+                 [f.ttft_s for r in rounds for f in r["cold"]]),
+             ttft_p50_ms_with_cache=p50(
+                 [f.ttft_s for r in rounds for f in r["hot"]]),
+             ttft_p50_ms_hits=p50(ttft_hit), ttft_p50_ms_misses=p50(ttft_miss),
+             launches=launches)
+  print(json.dumps(out), flush=True)
+  del cold, hot
+  return launches
+
+
+def check_xlstm(card) -> tuple[dict, list[dict]]:
+  """Phase 13. Returns (launches by path, kernel rows)."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch
+  from repro_torch.models import xlstm_model as xm
+  by_path, rows = {}, []
+  cfg = configs.get_config(XLSTM_ARCH)
+  if (cfg.num_layers, cfg.d_model, cfg.num_heads) != (24, 1024, 4):
+    fail(f"{cfg.name}: {cfg}")
+  pairs = cfg.num_layers // 2
+  # (b, first) all 24 layers in bf16: decode_matvec at the decode step's
+  # shapes, its launches a step counted from `classify`
+  lm = build_xlstm(cfg)
+  leaves = xlstm_step_leaves(lm, cfg)
+  pol = dispatch.resolve_policy("cuda", SERVE_BATCH)
+  per_step = 0
+  for name, leaf, weight in leaves:
+    x = torch.zeros((SERVE_BATCH, leaf.in_dim), device="cuda",
+                    dtype=act_dtype(name, leaf.w))
+    if dispatch.classify(leaf, x, pol, name) != "decode_matvec":
+      fail(f"{cfg.name}: {name} does not classify to decode_matvec")
+    per_step += weight
+  if per_step != pairs * (5 + cfg.num_heads) + 1:
+    fail(f"{cfg.name}: {per_step} decode_matvec launches a step, not 109")
+  rows += check_cases(decode_cases(leaves, torch.Generator().manual_seed(16),
+                                   "xlstm_decode", f"{cfg.name} "))
+  # (a) the 1024-token prefill, teacher-forced: the recurrent heads launch
+  # a token at a time; (b) LMEngine, 109 launches a step; both compared
+  # on an f32 copy
+  lm32 = f32_copy(lm, cfg)
+  by_path["xlstm_prefill"] = check_prefill(
+      lm, cfg, card, set(XLSTM_GEMMS), flash=False, compare=lm32,
+      tokens=XLSTM_PREFILL_LEN, recurrent=(XLSTM_REC, pairs * cfg.num_heads),
+      drift=(xm, "_pair_block"))
+  by_path["xlstm_serving"] = check_lm_serving(lm, cfg, card, compare=lm32)
+  del lm32
+  free()
+  print(json.dumps(dict(
+      xlstm_profile=cfg.name, card=card, layers=cfg.num_layers,
+      **profile_paths(lm, cfg, "xlstm", XLSTM_PROFILE_LEN))), flush=True)
+  # (e) the prefix cache on the full model: carries copied whole
+  by_path["xlstm_prefix_cache"] = check_prefix_cache(lm, cfg, card, True)
+  del lm
+  free()
+  # (c) the self-speculative engine on the depth-cut model
+  cut = configs.get_config(XLSTM_ARCH).with_(num_layers=XLSTM_CUT_LAYERS)
+  by_path["xlstm_speculative"], spec_rows, _ = check_cut_speculative(
+      card, cut, build_xlstm, xlstm_step_leaves, 7,
+      ("embedding.table", "final_norm", "pairs.m_norm", "pairs.slstm.bias",
+       "pairs.mlstm.norm", "pairs.mlstm.ifg.w"), XLSTM_SPEC_RESIDUAL, 15)
+  rows += spec_rows
+  # (d) the two-stage recipe at the depth cut
+  check_training_card_vs_cpu(card, XLSTM_ARCH)
+  by_path["xlstm_trained_serving"], trained_rows, _ = check_cut_training(
+      cut, card, "xlstm", 17)
+  rows += trained_rows
+  # (e) the prefix cache on a transformer: KV rows sliced
+  qcfg = configs.get_config("qwen3-4b").with_(num_layers=PREFIX_QWEN_LAYERS)
+  lm = build_lm(qcfg)
+  by_path["qwen3_prefix_cache"] = check_prefix_cache(lm, qcfg, card, False)
+  del lm
+  free()
   return by_path, rows
 
 
@@ -3453,21 +3863,26 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
         entry[f"{y}_ms_by_batch"] = ds2_step_ms_by_batch(rows, name,
                                                          f"{y}_ms")
     for path, key in (("lm_decode", "llama3_8b_decode_step"),
-                      ("lm_draft", "llama3_8b_draft_step"),
-                      ("lm_draft_prefill", "llama3_8b_draft_prefill_token"),
-                      ("lm_verify", "llama3_8b_verify_window"),
-                      ("qwen3_decode", "qwen3_4b_decode_step"),
+                      ("lm_draft", "llama3_8b_8_layer_draft_step"),
+                      ("lm_draft_prefill",
+                       "llama3_8b_8_layer_draft_prefill_token"),
+                      ("lm_verify", "llama3_8b_8_layer_verify_window"),
+                      ("qwen3_decode", "qwen3_4b_12_layer_decode_step"),
                       ("qwen3_trained", "qwen3_4b_trained_step"),
                       ("whisper_encode", "whisper_small_encode"),
                       ("whisper_decode", "whisper_small_decode_step"),
                       ("whisper_lowrank", "whisper_small_truncated_encode"),
                       ("whisper_int8", "whisper_small_ptq_encode"),
-                      ("ds_decode", "deepseek_v2_lite_decode_step"),
+                      ("ds_decode", "deepseek_v2_lite_9_layer_decode_step"),
                       ("ds3_decode", "deepseek_v3_671b_4_layer_decode_step"),
                       ("ds_trained", "deepseek_v2_lite_trained_step"),
-                      ("zamba_decode", "zamba2_7b_decode_step"),
+                      ("zamba_decode", "zamba2_7b_27_layer_decode_step"),
                       ("zamba_draft", "zamba2_7b_7_layer_draft_step"),
-                      ("zamba_trained", "zamba2_7b_trained_step")):
+                      ("zamba_trained", "zamba2_7b_trained_step"),
+                      ("xlstm_decode", "xlstm_350m_decode_step"),
+                      ("xlstm_rec", "xlstm_350m_rec_head_f32_over_bf16"),
+                      ("xlstm_draft", "xlstm_350m_4_layer_draft_step"),
+                      ("xlstm_trained", "xlstm_350m_trained_step")):
       on_path = [r for r in mine if r["path"] == path]
       if on_path:
         entry[key] = _sums(on_path)
@@ -3524,14 +3939,13 @@ def main() -> int:
   t0 = time.perf_counter()
   by_path["lm_serving"] = check_lm_serving(lm, lm_cfg, card)
   phases["5_lm_serving"] = time.perf_counter() - t0
-  t0 = time.perf_counter()
-  by_path["lm_speculative"], spec_rows, _ = check_lm_speculative(
-      lm, lm_cfg, card)
-  rows += spec_rows
-  phases["7_lm_speculative"] = time.perf_counter() - t0
   del lm
   gc.collect()
   torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  by_path["lm_speculative"], spec_rows, _ = check_lm_speculative(card)
+  rows += spec_rows
+  phases["7_lm_speculative"] = time.perf_counter() - t0
   t0 = time.perf_counter()
   check_training_card_vs_cpu(card)
   by_path["ds2_trained"], trained_rows, _ = check_training(cfg, card)
@@ -3566,6 +3980,11 @@ def main() -> int:
   by_path.update(zamba_paths)
   rows += zamba_rows
   phases["12_zamba"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  xlstm_paths, xlstm_rows = check_xlstm(card)
+  by_path.update(xlstm_paths)
+  rows += xlstm_rows
+  phases["13_xlstm"] = time.perf_counter() - t0
   launches = {k: sum(n[k] for n in by_path.values()) for k in KERNELS}
   if not all(n > 0 for n in launches.values()):
     fail(f"a kernel never launched on the main paths: {launches}")

@@ -8,9 +8,10 @@ CUDA kernel for Hopper (`kernels/csrc/`), built with `nvcc` at first use.
 Ported so far: the DS2 streaming-serving path — `deepspeech2-wsj`
 config, factored/quantized GEMM leaves, the kernel dispatcher, the GRU
 layer, the DS2 model, the synthetic speech data, `StreamingSpeechServer`
-— and the dense-transformer LM — `llama3-8b` config, RMSNorm, RoPE,
-SwiGLU, GQA attention, `models.transformer`, `models.api`, a vanilla
-`LMEngine` — with both branches of `launch.serve`. All five kernels of
+— the LM families (the dense transformers, DeepSeek, zamba, xlstm) and
+Whisper through `models.api`, `LMEngine` (self-speculative, with the
+prefix cache), the paper's two-stage training and PTQ, with both
+branches of `launch.serve` and `launch.train`. All five kernels of
 the reference have a CUDA counterpart (gru_cell, decode_matvec,
 lowrank_gemm, int8_gemm, flash_attention). `bridge` carries weights over
 from the reference's checkpoint path strings.

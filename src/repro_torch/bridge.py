@@ -26,6 +26,13 @@ checkpoint path strings (`repro.checkpoint.manager`):
                "tail/" (one level), "shared_attn/ln1",
                "shared_attn/attn/wq/w", "shared_attn/ffn/w_gate/w", ...
                (unstacked)
+  xlstm:       "embedding/table", "embedding/head/w", "final_norm",
+               "pairs/m_norm", "pairs/s_norm" (pairs, d),
+               "pairs/mlstm/up/w", "pairs/mlstm/qkv/w", "pairs/mlstm/ifg/w",
+               "pairs/mlstm/down/w", "pairs/mlstm/norm",
+               "pairs/slstm/wx/w", "pairs/slstm/rh/w" (pairs, heads, hd,
+               4 hd; group "rec"), "pairs/slstm/bias", "pairs/slstm/out/w",
+               "pairs/slstm/norm" (stacked over the pairs)
   whisper:     "embedding/table" (tied), "pos_dec", "enc_layers/ln1/scale",
                "enc_layers/attn/wq/w", "enc_layers/ffn/w_in/w",
                "enc_layers/ffn/b_in", "enc_ln/bias", "dec_layers/xattn/wk/w",
@@ -65,11 +72,13 @@ from repro_torch.layers.gru import GRU
 from repro_torch.layers.mla import MLA
 from repro_torch.layers.moe import MoE
 from repro_torch.layers.norms import LayerNorm
+from repro_torch.layers.xlstm import MLSTM, SLSTM
 from repro_torch.models.deepspeech import DeepSpeech2
 from repro_torch.models.transformer import (MTP, DenseLayer, LayerStack,
                                             MoELayerStack, TransformerLM,
                                             depths)
 from repro_torch.models.whisper import Whisper, WhisperLayers
+from repro_torch.models.xlstm_model import PairStack, XlstmLM
 from repro_torch.models.zamba import MambaStack, ZambaLM, _plan
 from repro_torch.quant.leaf import QuantizedLinear
 
@@ -248,16 +257,36 @@ def _zamba(a: _Arrays, cfg: ModelConfig) -> ZambaLM:
                  shared, mamba("tail") if _plan(cfg)[2] else None)
 
 
+def _xlstm(a: _Arrays, cfg: ModelConfig) -> XlstmLM:
+  def gemm_leaf(path: str, name: str, group: str = "nonrec"):
+    return _leaf(a.take(path), name=name, group=group, cfg=cfg)
+
+  m, s = "pairs/mlstm", "pairs/slstm"
+  mlstm = MLSTM(*(gemm_leaf(f"{m}/{k}", f"pairs/mlstm_{k}")
+                  for k in ("up", "qkv", "ifg", "down")),
+                a.pop(f"{m}/norm"))
+  slstm = SLSTM(gemm_leaf(f"{s}/wx", "pairs/slstm_nonrec"),
+                gemm_leaf(f"{s}/rh", "pairs/slstm_rec", "rec"),
+                a.pop(f"{s}/bias"), gemm_leaf(f"{s}/out", "pairs/slstm_out"),
+                a.pop(f"{s}/norm"))
+  table = a.pop("embedding/table")
+  head = None if cfg.tie_embeddings else gemm_leaf("embedding/head",
+                                                   "lm_head")
+  return XlstmLM(Embedding(table, head), a.pop("final_norm"),
+                 PairStack(a.pop("pairs/m_norm"), a.pop("pairs/s_norm"),
+                           mlstm, slstm))
+
+
 _FAMILIES = {"deepspeech": _deepspeech, "transformer": _transformer,
-             "whisper": _whisper, "zamba": _zamba}
+             "whisper": _whisper, "zamba": _zamba, "xlstm": _xlstm}
 
 
 def from_reference(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, *,
                    dtypes: Optional[Mapping[str, str]] = None,
                    device=None) -> nn.Module:
   """Build the `cfg.family` model (a `DeepSpeech2`, a `TransformerLM`, a
-  `ZambaLM` or a `Whisper`) on `device` (default: the GPU) from the reference's
-  path-keyed arrays.
+  `ZambaLM`, an `XlstmLM` or a `Whisper`) on `device` (default: the GPU)
+  from the reference's path-keyed arrays.
   `dtypes` maps paths to dtype strings where an array is a raw view
   (bf16 as uint16). Every key must be used: an unknown or missing one
   raises."""

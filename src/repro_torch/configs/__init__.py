@@ -1,6 +1,6 @@
 """Architecture registry of the port: the paper's deepspeech2-wsj, the
 dense transformers (chameleon-34b, llama3-8b, glm4-9b, stablelm-3b,
-qwen3-4b), the Mamba2 hybrid zamba2-7b, the DeepSeek family
+qwen3-4b), the Mamba2 hybrid zamba2-7b, xlstm-350m, the DeepSeek family
 (deepseek-v2-lite, deepseek-v3-671b) and whisper-small, in the
 reference's order.
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 from repro_torch.configs import (chameleon_34b, deepseek_v2_lite,
                                  deepseek_v3_671b, deepspeech2_wsj, glm4_9b,
                                  llama3_8b, qwen3_4b, stablelm_3b,
-                                 whisper_small, zamba2_7b)
+                                 whisper_small, xlstm_350m, zamba2_7b)
 from repro_torch.layers.common import ModelConfig
 
 _MODULES = {
@@ -22,6 +22,7 @@ _MODULES = {
     "stablelm-3b": stablelm_3b,
     "qwen3-4b": qwen3_4b,
     "zamba2-7b": zamba2_7b,
+    "xlstm-350m": xlstm_350m,
     "deepseek-v2-lite": deepseek_v2_lite,
     "deepseek-v3-671b": deepseek_v3_671b,
     "whisper-small": whisper_small,

@@ -39,6 +39,8 @@ SIGNATURES = {
     "rk_flash_attention": (_P, _P, _P, _P, *(_I,) * 7, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the code of f32 activations over bf16 weights (kF32BF16, csrc/common.cuh)
+F32_BF16 = 2
 
 _LIB = None
 #: what the last build in this process did: seconds, library, compiler log
@@ -143,12 +145,21 @@ def require(kernel: str, *tensors: torch.Tensor) -> None:
       raise ValueError(f"{kernel}: empty operand of shape {tuple(t.shape)}")
 
 
-def dtype_code(kernel: str, *tensors: torch.Tensor) -> int:
-  """One float type (f32 or bf16) for all of `tensors`, as the C code."""
-  types = {t.dtype for t in tensors}
+def dtype_code(kernel: str, *tensors: torch.Tensor,
+               weights: tuple = ()) -> int:
+  """One float type (f32 or bf16) for all of `tensors` and `weights`, as
+  the C code. A kernel that names its `weights` apart (decode_matvec,
+  lowrank_gemm) also takes f32 `tensors` over bf16 `weights` (F32_BF16:
+  the sLSTM's f32 hidden state times its bf16 recurrent kernel); any
+  other mix raises."""
+  act, wts = {t.dtype for t in tensors}, {t.dtype for t in weights}
+  if weights and act == {torch.float32} and wts == {torch.bfloat16}:
+    return F32_BF16
+  types = act | wts
   if len(types) != 1 or next(iter(types)) not in DTYPE_CODES:
-    raise TypeError(f"{kernel}: takes f32 or bf16 operands of one type, "
-                    f"got {sorted(map(str, types))}")
+    mixed = " (or f32 activations over bf16 weights)" if weights else ""
+    raise TypeError(f"{kernel}: takes f32 or bf16 operands of one "
+                    f"type{mixed}, got {sorted(map(str, types))}")
   return DTYPE_CODES[next(iter(types))]
 
 

@@ -11,7 +11,9 @@
 
 namespace rk {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+// kF32BF16: f32 activations (x, and y) over bf16 weights, the sLSTM's
+// recurrent GEMM (an f32 hidden state times bf16 `rh`)
+enum DType { kF32 = 0, kBF16 = 1, kF32BF16 = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

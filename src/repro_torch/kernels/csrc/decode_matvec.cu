@@ -1,5 +1,6 @@
 // decode_matvec — y (b, n) = x (b, m) @ W (m, n) at serving batch, f32
-// accumulation, output in x's type (f32 or bf16).
+// accumulation, output in x's type: x, W and y all f32, all bf16, or f32 x
+// and y over a bf16 W (x staged as f32 as always, W streamed as bf16).
 //
 // Replaces: src/repro/kernels/decode_matvec.py:38 decode_matvec, the
 // Pallas kernel that keeps x resident in VMEM and streams W tile by tile.
@@ -34,5 +35,8 @@ extern "C" int rk_decode_matvec(const void* x, const void* w, void* y, void* par
   if (dtype == rk::kBF16)
     return rk::launch_matvec<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
         x, w, y, p, c, b, m, n, lanes, split, kper, s);
+  if (dtype == rk::kF32BF16)
+    return rk::launch_matvec<float, __nv_bfloat16, float>(x, w, y, p, c, b, m, n, lanes, split,
+                                                          kper, s);
   return cudaErrorInvalidValue;
 }

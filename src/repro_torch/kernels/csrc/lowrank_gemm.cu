@@ -1,12 +1,14 @@
 // lowrank_gemm — y (b, n) = (x (b, m) @ U (m, r)) @ V (r, n), the paper's
-// factored inference GEMM, with the rank intermediate t kept in f32.
+// factored inference GEMM, with the rank intermediate t kept in f32. TX is
+// the type of x and y, TW that of U and V: both f32, both bf16, or f32
+// activations over bf16 factors (the sLSTM's recurrent GEMM).
 //
 // Replaces: src/repro/kernels/lowrank_gemm.py:44 lowrank_gemm. On the TPU
 // the grid runs in order on one core, so t lives in VMEM scratch carried
 // from the m-steps of phase 1 to the n-steps of phase 2 and never reaches
 // HBM.
 //
-// What bounds it on the H100: the bytes of U and V, r*(m + n)*sizeof(T),
+// What bounds it on the H100: the bytes of U and V, r*(m + n)*sizeof(TW),
 // over 3.35 TB/s (2*b*r*(m + n) operations are far below the compute
 // roofline at b <= 16). At the DS2 shapes that is <= 2.6 MB a call, about
 // 20 KB an SM: the call is bound by latency (launches, DRAM round trips,
@@ -92,12 +94,12 @@ __device__ __forceinline__ void red_release(int* p) {
   asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(p) : "memory");
 }
 
-template <typename T, int R>
+template <typename TX, typename TW, int R>
 __global__ void __launch_bounds__(rk::mv::kThreads, Resident<R>::kBlocks)
-lowrank_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __restrict__ v,
-               float* t, T* __restrict__ y, float* part1, float* part2, int* count, int b, int m,
+lowrank_kernel(const TX* __restrict__ x, const TW* __restrict__ u, const TW* __restrict__ v,
+               float* t, TX* __restrict__ y, float* part1, float* part2, int* count, int b, int m,
                int r, int n, Grid g, bool use_slab, bool aligned_u, bool aligned_v) {
-  constexpr int kCols = kLanes * rk::mv::Lane<T>::kVec;
+  constexpr int kCols = kLanes * rk::mv::Lane<TW>::kVec;
   __shared__ __align__(16) rk::mv::Smem sm;
   __shared__ int ticket;
   extern __shared__ __align__(16) uint4 slab[];
@@ -110,7 +112,7 @@ lowrank_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __rest
   if (it < n1) {  // phase 1: one k range of one tile of t = x @ U
     const int bx = it % g.gx1, by = it / g.gx1 % g.split1, bz = it / g.gx1 / g.split1;
     const int row0 = bz * rk::mv::kBatchTile;
-    rk::mv::matvec_block<T, T, float, R, kLanes, rk::mv::kStageLoop, false>(
+    rk::mv::matvec_block<TX, TW, float, R, kLanes, rk::mv::kStageLoop, false>(
         x, u, nullptr, t, g.split1 > 1 ? part1 : nullptr, b, m, r, r, g.kper1, aligned_u, bx,
         by, bz, sm);
     if (g.split1 == 1 ||
@@ -129,8 +131,8 @@ lowrank_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __rest
   const int row0 = bz * rk::mv::kBatchTile;
   if (use_slab) {
     const int k0 = by * g.kper2;
-    const int col0 = bx * kCols + threadIdx.x % kLanes * rk::mv::Lane<T>::kVec;
-    if (col0 < n) rk::mv::copy_slab<T, kLanes>(slab, v, n, k0, min(r, k0 + g.kper2) - k0, col0);
+    const int col0 = bx * kCols + threadIdx.x % kLanes * rk::mv::Lane<TW>::kVec;
+    if (col0 < n) rk::mv::copy_slab<TW, kLanes>(slab, v, n, k0, min(r, k0 + g.kper2) - k0, col0);
   }
   unsigned past = 0;  // phase-2 blocks past the wait before this one
   if (threadIdx.x == 0) {
@@ -141,17 +143,17 @@ lowrank_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __rest
   float* p2 = g.split2 > 1 ? part2 : nullptr;
   if (use_slab) {
     rk::mv::wait_slab();
-    rk::mv::matvec_block<float, T, T, R, kLanes, rk::mv::kStageFresh, true>(
+    rk::mv::matvec_block<float, TW, TX, R, kLanes, rk::mv::kStageFresh, true>(
         t, v, slab, y, p2, b, r, n, n, g.kper2, aligned_v, bx, by, bz, sm);
   } else {
-    rk::mv::matvec_block<float, T, T, R, kLanes, rk::mv::kStageFresh, false>(
+    rk::mv::matvec_block<float, TW, TX, R, kLanes, rk::mv::kStageFresh, false>(
         t, v, nullptr, y, p2, b, r, n, n, g.kper2, aligned_v, bx, by, bz, sm);
   }
   if (g.split2 > 1)
     rk::mv::last_sums<kCols>(part2, count + kTiles + g.gz * g.gx1 + bz * g.gx2 + bx, b, n,
                              g.split2, bx * kCols, row0, min(R, b - row0), sm.last,
                              [&](int row, int col, float s) {
-                               y[(size_t)row * n + col] = rk::from_f<T>(s);
+                               y[(size_t)row * n + col] = rk::from_f<TX>(s);
                              });
   // the last phase-2 block past the wait: nobody reads the count of
   // published t tiles again in this launch
@@ -166,11 +168,11 @@ bool covers(int k, int split, int kper) {
 // work: t (b * r floats), then phase 1's partial sums (split1 * b * r,
 // when split1 > 1), then phase 2's (split2 * b * n, when split2 > 1).
 // count: 3 + gz * (gx1 + gx2) zeroed ints (left zeroed).
-template <typename T>
+template <typename TX, typename TW>
 cudaError_t launch(const void* x, const void* u, const void* v, void* y, float* work,
                    int* count, int b, int m, int r, int n, int split1, int kper1, int split2,
                    int kper2, int slab, cudaStream_t s) {
-  constexpr int V = rk::mv::Lane<T>::kVec, kCols = kLanes * V;
+  constexpr int V = rk::mv::Lane<TW>::kVec, kCols = kLanes * V;
   if (b <= 0 || n <= 0 || !covers(m, split1, kper1) || !covers(r, split2, kper2) ||
       work == nullptr || count == nullptr)
     return cudaErrorInvalidValue;
@@ -184,20 +186,20 @@ cudaError_t launch(const void* x, const void* u, const void* v, void* y, float* 
   float* t = work;
   float* part1 = t + (size_t)b * r;
   float* part2 = part1 + (split1 > 1 ? (size_t)split1 * b * r : 0);
-  const int slab_bytes = kper2 * kCols * (int)sizeof(T);
+  const int slab_bytes = kper2 * kCols * (int)sizeof(TW);
   bool use_slab = false;
   RK_DISPATCH_ROWS(b, {
     use_slab = slab != 0 && aligned_v && slab_bytes <= kSlabBytes &&
                kper2 <= rk::mv::kXsFloats / R;  // one chunk of staged t a range
-    const auto kernel = lowrank_kernel<T, R>;
+    const auto kernel = lowrank_kernel<TX, TW, R>;
     if (use_slab) {
       const cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSlabBytes);
       if (err != cudaSuccess) return err;
     }
     kernel<<<(unsigned)blocks, rk::mv::kThreads, use_slab ? slab_bytes : 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(u), static_cast<const T*>(v), t,
-        static_cast<T*>(y), part1, part2, count, b, m, r, n, g, use_slab, aligned_u, aligned_v);
+        static_cast<const TX*>(x), static_cast<const TW*>(u), static_cast<const TW*>(v), t,
+        static_cast<TX*>(y), part1, part2, count, b, m, r, n, g, use_slab, aligned_u, aligned_v);
   });
   return cudaGetLastError();
 }
@@ -211,9 +213,13 @@ extern "C" int rk_lowrank_gemm(const void* x, const void* u, const void* v, void
   float* w = static_cast<float*>(work);
   int* c = static_cast<int*>(count);
   if (dtype == rk::kF32)
-    return launch<float>(x, u, v, y, w, c, b, m, r, n, split1, kper1, split2, kper2, slab, s);
+    return launch<float, float>(x, u, v, y, w, c, b, m, r, n, split1, kper1, split2, kper2, slab,
+                                s);
   if (dtype == rk::kBF16)
-    return launch<__nv_bfloat16>(x, u, v, y, w, c, b, m, r, n, split1, kper1, split2, kper2,
-                                 slab, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, u, v, y, w, c, b, m, r, n, split1, kper1,
+                                                split2, kper2, slab, s);
+  if (dtype == rk::kF32BF16)
+    return launch<float, __nv_bfloat16>(x, u, v, y, w, c, b, m, r, n, split1, kper1, split2,
+                                        kper2, slab, s);
   return cudaErrorInvalidValue;
 }

@@ -178,9 +178,10 @@ def address(t: torch.Tensor | None) -> int | None:
 
 
 def decode_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-  """x: (b, m), w: (m, n), both f32 or both bf16, on one CUDA device."""
+  """x: (b, m), w: (m, n), both f32, both bf16, or f32 x over a bf16 w,
+  on one CUDA device; y in x's type."""
   _build.require("decode_matvec", x, w)
-  code = _build.dtype_code("decode_matvec", x, w)
+  code = _build.dtype_code("decode_matvec", x, weights=(w,))
   if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
     raise ValueError(f"decode_matvec: shapes {tuple(x.shape)} @ "
                      f"{tuple(w.shape)}")

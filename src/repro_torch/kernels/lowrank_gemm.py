@@ -150,14 +150,15 @@ def lowrank_plan(b: int, m: int, r: int, n: int, *, w_bytes: int = 2,
 
 def lowrank_gemm(x: torch.Tensor, u: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
-  """x: (b, m), u: (m, r), v: (r, n), one float type, one CUDA device."""
+  """x: (b, m), u: (m, r), v: (r, n) on one CUDA device: one float type,
+  or f32 x over bf16 u and v; y in x's type."""
   _build.require("lowrank_gemm", x, u, v)
   if x.ndim != 2 or u.ndim != 2 or v.ndim != 2 or \
       x.shape[1] != u.shape[0] or u.shape[1] != v.shape[0]:
     raise ValueError(f"lowrank_gemm: shapes {tuple(x.shape)} @ "
                      f"{tuple(u.shape)} @ {tuple(v.shape)}")
   (b, m), (r, n) = x.shape, v.shape
-  return _launch(x, u, v, lowrank_plan(b, m, r, n, w_bytes=x.element_size(),
+  return _launch(x, u, v, lowrank_plan(b, m, r, n, w_bytes=u.element_size(),
                                        sms=sm_count(x.device.index or 0)))
 
 
@@ -166,10 +167,10 @@ def _launch(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
   """The fused launch of plan `p` (`lowrank_gemm`'s, or a grid the tests
   force) on CUDA operands of `lowrank_gemm`'s shapes."""
   _build.require("lowrank_gemm", x, u, v)
-  code = _build.dtype_code("lowrank_gemm", x, u, v)
+  code = _build.dtype_code("lowrank_gemm", x, weights=(u, v))
   x, u, v = x.contiguous(), u.contiguous(), v.contiguous()
   (b, m), (r, n) = x.shape, v.shape
-  if (p.b, p.m, p.r, p.n, p.vec) != (b, m, r, n, 16 // x.element_size()):
+  if (p.b, p.m, p.r, p.n, p.vec) != (b, m, r, n, 16 // u.element_size()):
     raise ValueError(f"lowrank_gemm: {p} is not a plan for these operands")
   work, count = workspace(x, p), counters(x, p)
   y = torch.empty((b, n), dtype=x.dtype, device=x.device)

@@ -1,8 +1,9 @@
 """Serving entry point of the port: drives a queue of mixed-length
 requests through the continuous-batching `LMEngine` (vanilla, or
-self-speculative with the truncated-SVD draft: `--speculate`), or streams
-DS2 speech through the `StreamingSpeechServer` — the counterpart of
-`repro.launch.serve` without the prefix cache.
+self-speculative with the truncated-SVD draft: `--speculate`), with the
+radix-trie prefix cache (`--prefix-cache`: most requests then open with
+one shared template), or streams DS2 speech through the
+`StreamingSpeechServer` — the counterpart of `repro.launch.serve`.
 
 Examples (on a machine with a GPU; `--device cpu` runs the plain path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
@@ -13,6 +14,8 @@ Examples (on a machine with a GPU; `--device cpu` runs the plain path):
       --device cpu --speculate 3 --draft-rank 8 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --device cpu --speculate 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+      --device cpu --prefix-cache --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepspeech2-wsj \
       --full --kernels cuda --batch 4
 """
@@ -29,6 +32,7 @@ from repro_torch.data.speech import SpeechDataConfig, batch_at
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_model
 from repro_torch.serving.engine import LMEngine, StreamingSpeechServer
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.speculative import (RankController,
                                              make_draft_params)
 
@@ -82,6 +86,13 @@ def main(argv=None) -> None:
                   help="rank change per --adapt-rank adjustment")
   ap.add_argument("--rank-interval", type=int, default=8,
                   help="engine iterations per --adapt-rank measurement")
+  ap.add_argument("--prefix-cache", action="store_true",
+                  help="LM: radix-trie prefix cache: shared prompt "
+                       "prefixes splice from cached decode-state snapshots "
+                       "and only the suffix is prefilled (greedy output "
+                       "equals serving without it)")
+  ap.add_argument("--prefix-cache-mb", type=float, default=256.0,
+                  help="byte-accounted LRU capacity of --prefix-cache")
   ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
   ap.add_argument("--seed", type=int, default=0)
   args = ap.parse_args(argv)
@@ -97,7 +108,7 @@ def main(argv=None) -> None:
   # a full-width LM is drawn on the card (a CPU draw of 8B values takes
   # minutes); DS2 and the smoke configs draw on the CPU
   on_card = (args.full and device.type == "cuda"
-             and cfg.family in ("transformer", "zamba"))
+             and cfg.family in ("transformer", "zamba", "xlstm"))
   gen_device = device if on_card else "cpu"
   gen = torch.Generator(device=gen_device).manual_seed(args.seed)
   params = get_model(cfg).init(cfg, generator=gen, device=device)
@@ -143,11 +154,14 @@ def serve_lm(args, cfg, params, device, where, draft=None) -> None:
     controller = RankController(band=tuple(args.rank_band),
                                 step=args.rank_step,
                                 interval=args.rank_interval)
+  cache = (PrefixCache(capacity_mb=args.prefix_cache_mb)
+           if args.prefix_cache else None)
   engine = LMEngine(cfg, params, batch_size=args.batch,
                     max_len=args.max_len, kernel_policy=args.kernels,
                     eos_id=args.eos_id, speculate=args.speculate,
                     draft_params=draft, draft_rank=args.draft_rank,
-                    rank_controller=controller, device=device)
+                    rank_controller=controller, prefix_cache=cache,
+                    device=device)
   spec = ""
   if args.speculate:
     from repro_torch.core.factored import count_params
@@ -156,8 +170,13 @@ def serve_lm(args, cfg, params, device, where, draft=None) -> None:
           f"(target {count_params(params)})")
   rng = np.random.RandomState(args.seed)
   lo, hi = max(1, args.prompt_len // 2), 2 * args.prompt_len
+  # with a prefix cache, fleet traffic: most requests open with a shared
+  # template, so the cache has prefixes to hit
+  shared = rng.randint(1, cfg.vocab_size, size=(max(2, args.prompt_len),))
   for _ in range(args.num_requests or args.batch):
     prompt = rng.randint(1, cfg.vocab_size, size=(rng.randint(lo, hi + 1),))
+    if cache is not None and rng.rand() < 0.8:
+      prompt = np.concatenate([shared, prompt])
     engine.submit(prompt, max_new_tokens=int(rng.randint(1, args.steps + 1)))
   finished, dt = _timed(device, lambda: engine.run(
       temperature=args.temperature))
@@ -172,6 +191,11 @@ def serve_lm(args, cfg, params, device, where, draft=None) -> None:
     if args.adapt_rank:
       spec += (f", draft rank {engine.draft_rank} "
                f"({len(engine.rank_history)} adjustments)")
+  if cache is not None:
+    cs = engine.cache_stats()
+    spec += (f", cache hit rate {cs['hit_rate']:.2f} ({cs['entries']} "
+             f"entries, {cs['bytes'] / (1 << 20):.1f} MB, "
+             f"{cs['evictions']} evictions)")
   print(f"served {len(finished)} requests ({tokens} tokens) through "
         f"{args.batch} slots in {dt:.3f}s on {where} ({tokens / dt:.1f} "
         f"tok/s, TTFT p50 {ttft_p50:.1f} ms, occupancy "

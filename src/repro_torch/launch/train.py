@@ -1,5 +1,5 @@
 """Training entry point of the port: the deepspeech, transformer (dense
-and DeepSeek), zamba and whisper branches of `repro.launch.train`, with
+and DeepSeek), zamba, xlstm and whisper branches of `repro.launch.train`, with
 its flags and `--device`. A DeepSeek config's loss lines also print the MoE
 aux loss and, with MTP, the MTP head's cross-entropy.
 
@@ -13,6 +13,8 @@ Examples (on a machine with a GPU; `--device cpu` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+      --device cpu --steps 6 --two-stage --transition 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
       --device cpu --steps 6 --two-stage --transition 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepspeech2-wsj \
       --full --steps 8 --batch 16 --two-stage --transition 4
@@ -99,7 +101,7 @@ def main(argv=None) -> dict:
           args.batch, args.seq, cfg.d_model).astype(np.float32)
       return {"frames": frames, "tokens": b["tokens"],
               "targets": b["targets"]}
-  else:                 # the token LMs: transformer and zamba
+  else:                 # the token LMs: transformer, zamba and xlstm
     dcl = lm_data.LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch, seed=args.seed)
     gen = lambda i: lm_data.batch_at(dcl, i)  # noqa: E731

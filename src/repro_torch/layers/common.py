@@ -58,10 +58,10 @@ class MLAConfig:
 class ModelConfig:
   """The reference's `ModelConfig`, cut to the fields the ported
   families read: the transformer (qwen3's `qk_norm`, DeepSeek's MoE,
-  MLA and MTP head included), zamba's Mamba2 hybrid, Whisper's
+  MLA and MTP head included), zamba's Mamba2 hybrid, xLSTM, Whisper's
   encoder-decoder and DS2."""
   name: str
-  family: str                   # transformer | zamba | whisper | deepspeech
+  family: str    # transformer | zamba | xlstm | whisper | deepspeech
   num_layers: int
   d_model: int
   num_heads: int

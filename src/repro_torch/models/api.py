@@ -2,17 +2,20 @@
 `repro.models.api`, as far as serving and training need it.
 
 `get_model(cfg)` returns a `ModelApi` for the `transformer`, `zamba`,
-`whisper` and `deepspeech` families with `init`, `forward`, `encode` (whisper's
-encoder), `loss_fn`,
-`init_decode_state`, `decode_step`, `decode_state_batch_axes`, the
-speculative-rewind
+`xlstm`, `whisper` and `deepspeech` families with `init`, `forward`,
+`encode` (whisper's encoder), `loss_fn`, `init_decode_state`,
+`decode_step`, `decode_state_batch_axes`, the speculative-rewind
 contract `decode_state_carry`, the batched window `decode_window` (and
-its oracle `decode_window_sequential`) and the slot surgery
-`insert_slot` (over every stack's cache: a DeepSeek state has "dense"
-and "moe"). Decode states are nested dicts of tensors; `insert_slot`
-writes into the batched state in place (the reference returns a new
-tree). `cast_kv_cache` narrows only attention-KV leaves. The other
-families and the prefix-snapshot contract come with their slices.
+its oracle `decode_window_sequential`), the slot surgery (`insert_slot`,
+`extract_slot`, `reset_slot`, over every stack's cache: a DeepSeek state
+has "dense" and "moe") and the prefix-snapshot contract
+(`decode_state_length_axes`, `prefix_view`, `slot_snapshot`,
+`splice_prefix`). Decode states are nested dicts of tensors;
+`insert_slot`, `reset_slot` and `splice_prefix` write into the state
+they are given, in place (the reference returns a new tree), and
+`extract_slot`, `prefix_view` and `slot_snapshot` return copies, which a
+later in-place step does not change. `cast_kv_cache` narrows only
+attention-KV leaves.
 """
 from __future__ import annotations
 
@@ -22,13 +25,15 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.layers.common import ModelConfig
-from repro_torch.models import deepspeech, transformer, whisper, zamba
+from repro_torch.models import (deepspeech, transformer, whisper,
+                                xlstm_model, zamba)
 
 __all__ = ["KV_CACHE_KEYS", "ModelApi", "cast_kv_cache", "get_model"]
 
 #: leaf names that tag an attention KV cache inside a decode state; every
-#: other leaf (GRU hidden states, ...) is a recurrent carry kept at its
-#: working precision
+#: other leaf (GRU hidden states, SSM and xLSTM carries, Whisper's encoder
+#: memory) is a carry or a step-invariant leaf, kept at its working
+#: precision and copied whole into a prefix snapshot
 KV_CACHE_KEYS = frozenset({"k", "v", "c_kv", "k_rope"})
 
 
@@ -68,7 +73,7 @@ class ModelApi:
   decode_state_batch_axes: Optional[Callable] = None
   # cfg -> nested dict of bools of the decode state's structure: True for
   # read-modify-write carries (GRU hiddens, Mamba2 SSM states and conv
-  # tails) that a speculative rewind
+  # tails, xLSTM's C, n, m and h, c, n, m) that a speculative rewind
   # restores from a pre-draft snapshot and replays through the accepted
   # prefix; False for attention KV rows, written at absolute positions,
   # whose rewind is the position counter alone
@@ -134,6 +139,70 @@ class ModelApi:
     _map(put, state, slot_state, self._slot_axes(cfg))
     return state
 
+  def extract_slot(self, cfg: ModelConfig, state: dict, slot: int) -> dict:
+    """A copy of slot `slot` of `state`, batch 1."""
+    return _map(lambda _, x, ax: x.narrow(ax, slot, 1).clone(), state,
+                self._slot_axes(cfg))
+
+  def reset_slot(self, cfg: ModelConfig, state: dict, slot: int, *,
+                 max_len: Optional[int] = None) -> dict:
+    """Slot `slot` of `state` back to its init value (zero KV rows, fresh
+    carries), in place; every other slot untouched. Returns `state`."""
+    device = _first_leaf(state).device
+    fresh = self.init_decode_state(cfg, 1, max_len, device=device)
+    return self.insert_slot(cfg, state, fresh, slot)
+
+  # -- prefix snapshots (the prefix-cache contract) -------------------------
+  # A decode state after m tokens has three kinds of leaf: positional KV
+  # (attention k/v, MLA c_kv/k_rope), of which only rows [0, m) are ever
+  # read under the causal mask, so a snapshot keeps those rows; carries
+  # (SSM states, conv tails, xLSTM's memories, GRU hiddens), copied whole
+  # and valid at exactly m, never sliced to a shorter prefix; and
+  # step-invariant leaves (Whisper's encoder memory), copied whole.
+
+  def decode_state_length_axes(self, cfg: ModelConfig) -> dict:
+    """Per leaf, the axis a decode position indexes: the axis after the
+    batch axis for attention-KV leaves, -1 for carries and step-invariant
+    leaves, which have no positional extent."""
+    return _map(lambda key, ax: ax + 1 if key in KV_CACHE_KEYS else -1,
+                self._slot_axes(cfg))
+
+  def prefix_view(self, cfg: ModelConfig, slot_state: dict,
+                  length: int) -> dict:
+    """A snapshot (a copy) of a batch-1 decode state after exactly
+    `length` tokens: KV leaves cut to rows [0, length), every other leaf
+    whole. `slot_state` must be the state after `length` tokens: carries
+    are valid only there."""
+    return _map(lambda _, x, ax: (x if ax < 0 else x.narrow(ax, 0, length)
+                                  ).clone(),
+                slot_state, self.decode_state_length_axes(cfg))
+
+  def slot_snapshot(self, cfg: ModelConfig, state: dict, slot: int,
+                    length: int) -> dict:
+    """`extract_slot` and `prefix_view`: the snapshot of one live slot's
+    first `length` positions, copied once."""
+    view = _map(lambda _, x, ax: x.narrow(ax, slot, 1), state,
+                self._slot_axes(cfg))
+    return self.prefix_view(cfg, view, length)
+
+  def splice_prefix(self, cfg: ModelConfig, fresh: dict,
+                    snapshot: dict) -> dict:
+    """The inverse of `prefix_view`, into a fresh batch-1 state in place:
+    KV rows land at [0, m) and the zeros beyond stay, what a cold prefill
+    of those m tokens leaves there; every other leaf is the snapshot's.
+    Returns `fresh`."""
+    def put(_, f, s, ax):
+      (f if ax < 0 else f.narrow(ax, 0, s.shape[ax])).copy_(s)
+      return f
+    _map(put, fresh, snapshot, self.decode_state_length_axes(cfg))
+    return fresh
+
+
+def _first_leaf(tree):
+  while isinstance(tree, dict):
+    tree = next(iter(tree.values()))
+  return tree
+
 
 def get_model(cfg: ModelConfig) -> ModelApi:
   fam = cfg.family
@@ -154,6 +223,15 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_state_batch_axes=zamba.decode_state_batch_axes,
         decode_state_carry=zamba.decode_state_carry,
         decode_window_batched=zamba.decode_window)
+  if fam == "xlstm":
+    return ModelApi(
+        family=fam, init=xlstm_model.init_lm, loss_fn=xlstm_model.loss_fn,
+        forward=xlstm_model.forward,
+        init_decode_state=xlstm_model.init_decode_state,
+        decode_step=xlstm_model.decode_step,
+        decode_state_batch_axes=xlstm_model.decode_state_batch_axes,
+        decode_state_carry=xlstm_model.decode_state_carry,
+        decode_window_batched=xlstm_model.decode_window)
   if fam == "whisper":
     return ModelApi(
         family=fam, init=whisper.init_model, loss_fn=whisper.loss_fn,
@@ -172,4 +250,4 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_state_batch_axes=deepspeech.decode_state_batch_axes,
         decode_state_carry=deepspeech.decode_state_carry,
         decode_window_batched=deepspeech.api_decode_window)
-  raise ValueError(f"model family {fam!r} is not ported yet")
+  raise ValueError(f"unknown model family: {fam!r}")

@@ -25,9 +25,22 @@ are cloned before the draft and the window, and a rejected suffix is
 undone by `merge_rewind` and a masked replay of the accepted prefix
 (every slot's carries kept past its own accepted length); when every
 live slot accepts its whole window, the target's carries stand and the
-draft catches up with one step. The prefix cache and meshes come with
-later slices and raise if asked for; `compile_stats` has no counterpart
-(nothing is compiled).
+draft catches up with one step.
+
+With `prefix_cache=PrefixCache(...)` admission looks up the longest
+cached prefix of the prompt (at most plen - 1 tokens, so the suffix
+feeds at least one), splices its snapshot into a fresh batch-1 state
+(`ModelApi.splice_prefix`) and steps only the suffix from the cached
+position. Where the cache has seen a longer shared prefix than any entry
+covers (two prompts forking after a common template), the suffix's steps
+stop at the fork and the state there is published first. The full
+prompt's snapshot is published after admission, and with
+`publish_on_retire=True` a retiring slot publishes its conversation
+(prompt and generated tokens but the last). A splice is bit for bit the
+cold state at its length, so greedy serving with the cache emits the
+tokens serving without it emits. Meshes come with a later slice and
+raise if asked for; `compile_stats` has no counterpart (nothing is
+compiled).
 
 `StreamingSpeechServer` keeps the reference's two surfaces (a
 continuous-batching fleet, and the lockstep chunk API) over one masked
@@ -52,6 +65,7 @@ from repro_torch.kernels.dispatch import resolve_policy
 from repro_torch.layers.common import ModelConfig
 from repro_torch.models import deepspeech
 from repro_torch.models.api import cast_kv_cache, get_model
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.speculative import (RankController,
                                              accept_longest_prefix,
                                              accept_sampled,
@@ -100,8 +114,7 @@ class _SlotState:
 
 
 #: LMEngine options of the reference that later slices port
-_LATER = {"prefix_cache": "the prefix cache",
-          "publish_on_retire": "the prefix cache", "mesh": "distribution"}
+_LATER = {"mesh": "distribution"}
 
 
 def _host_probs(logits: torch.Tensor, temperature: float) -> np.ndarray:
@@ -129,7 +142,12 @@ class LMEngine:
   every unfactored tensor with `params`) and verifies them in one
   window; the policy's `decode_matvec` bound widens to b * (k+1) rows
   (at most 16). `rank_controller` walks `draft_rank` against an
-  accept-rate band, rebuilding the draft."""
+  accept-rate band, rebuilding the draft.
+
+  `prefix_cache` (a `PrefixCache`, which engines may share) splices
+  cached prompt prefixes at admission and keeps every admitted prompt's
+  snapshot; `publish_on_retire` also keeps each retired conversation's
+  (see the module docstring)."""
 
   def __init__(self, model_cfg: ModelConfig, params: Any, *,
                batch_size: int, max_len: int, cache_dtype=None,
@@ -137,7 +155,8 @@ class LMEngine:
                eos_id: Optional[int] = None, speculate: int = 0,
                draft_params: Any = None, draft_rank: Optional[int] = None,
                rank_controller: Optional[RankController] = None,
-               device=None, **later):
+               prefix_cache: Optional[PrefixCache] = None,
+               publish_on_retire: bool = False, device=None, **later):
     for key, val in later.items():
       if key not in _LATER:
         raise TypeError(f"LMEngine got an unexpected argument {key!r}")
@@ -189,6 +208,9 @@ class LMEngine:
     self.rank_controller = rank_controller
     self.draft_rank = draft_rank
     self.rank_history: list = []   # (decode_steps, old_rank, new_rank)
+    self._cache = prefix_cache
+    self.publish_on_retire = publish_on_retire
+    self._pending_publish: list = []   # (slot, key tokens, fed length)
     self._queue: collections.deque = collections.deque()
     self._slots: list = [_SlotState() for _ in range(batch_size)]
     self._finished: dict = {}
@@ -234,7 +256,17 @@ class LMEngine:
     self._queue.clear()
     self._slots = [_SlotState() for _ in range(self.batch)]
     self._finished = {}
+    self._pending_publish = []
+    # the prefix cache stays: engines may share it, and its snapshots
+    # hold on their own
     self._reset_counters()
+
+  def cache_stats(self) -> dict:
+    """The prefix cache's counters (`PrefixCache.stats()`); an engine
+    without a cache gives the same keys, zero."""
+    if self._cache is None:
+      return PrefixCache.zero_stats()
+    return self._cache.stats()
 
   # -- request lifecycle ----------------------------------------------------
 
@@ -290,9 +322,31 @@ class LMEngine:
         uid=s.req.uid, prompt=s.req.prompt,
         tokens=np.asarray(s.tokens, np.int32), finish_reason=reason,
         ttft_s=s.ttft_s)
+    if self._cache is not None and self.publish_on_retire:
+      # the conversation fed so far (the prompt and every generated token
+      # but the last, never fed) is an entry for the next turn. Its
+      # snapshot waits for the caller's flush: a speculative rewind may
+      # still be due
+      fed = s.req.prompt.size + len(s.tokens) - 1
+      if fed > 0:
+        key = np.concatenate([s.req.prompt,
+                              np.asarray(s.tokens[:-1], np.int32)])
+        self._pending_publish.append((slot, key, fed))
     # no state scrub: the slot keeps stepping masked (position 0) and the
     # next admit writes a whole fresh prefilled state over its rows
     self._slots[slot] = _SlotState()
+
+  def _flush_retire_publish(self, *, invalid_slots=()) -> None:
+    """Publish the conversations `_retire` queued, but those of
+    `invalid_slots`: under the speculative full-accept fast path a
+    retired slot that took only part of its window holds post-window
+    carries, not the committed ones. Target snapshots only: on a hit the
+    draft prefills the whole prompt."""
+    for slot, key, fed in self._pending_publish:
+      if slot not in invalid_slots:
+        self._cache.insert(key, (self.api.slot_snapshot(
+            self.cfg, self.state, slot, fed), None))
+    self._pending_publish.clear()
 
   def _record_token(self, slot: int, tok: int, pos: int) -> bool:
     """Append a sampled token; retire the slot if the request is done.
@@ -314,30 +368,67 @@ class LMEngine:
       return False
     return True
 
-  def _prefill_slot(self, prompt: np.ndarray, step=None
+  def _prefill_slot(self, tokens: np.ndarray, step=None,
+                    state: Optional[dict] = None, start: int = 0
                     ) -> tuple[torch.Tensor, dict]:
-    """Feed `prompt` into a fresh batch-1 state, one decode step per
-    token (`step`: the target's, or the draft's); returns (last logits
-    (1, 1, v) f32, state). The reference pads the prompt to a pow2 bucket
-    (one jit program per bucket) and masks the steps past its length
-    back to the old state; eager PyTorch feeds exactly the prompt's
-    tokens, which leaves the same state."""
+    """Feed `tokens` at positions start, start + 1, ... into a batch-1
+    state (default: a fresh one, at start 0), one decode step per token
+    (`step`: the target's, or the draft's); returns (last logits (1, 1,
+    v) f32, state). The reference pads the tokens to a pow2 bucket (one
+    jit program per bucket) and masks the steps past their length back
+    to the old state; eager PyTorch feeds exactly the tokens, which
+    leaves the same state."""
     step = step or self._step
-    state = self._init_state(1)
-    toks = torch.as_tensor(prompt, dtype=torch.int64,
+    if state is None:
+      state = self._init_state(1)
+    toks = torch.as_tensor(tokens, dtype=torch.int64,
                            device=self.device).view(1, -1)
-    pos = torch.arange(prompt.size, device=self.device)
+    pos = torch.arange(start, start + tokens.size, device=self.device)
     logits = None
-    for t in range(prompt.size):
+    for t in range(tokens.size):
       logits, state = step(state, toks[:, t:t + 1], pos[t:t + 1])
     return logits.to(torch.float32), state
 
+  def _splice(self, snapshot: dict) -> dict:
+    return self.api.splice_prefix(self.cfg, self._init_state(1), snapshot)
+
   def _admit(self, req: Request, slot: int, temperature: float) -> None:
     """Prefill `req` into a fresh batch-1 state, splice it into `slot`,
-    and sample its first token from the prefill's last logits."""
+    and sample its first token from the prefill's last logits.
+
+    With a prefix cache the prefill starts from the longest cached prefix
+    of prompt[:plen - 1] (the suffix feeds at least one token, whose
+    logits give the first token), stops first at a fork the cache has
+    seen (`PrefixCache.common_prefix_len`, at least `fork_min_tokens`
+    past the hit) to publish the state there, and publishes the full
+    prompt's state at the end. A speculative engine's draft splices the
+    hit's draft snapshot where it has one, and prefills the whole prompt
+    otherwise."""
     t_admit = time.perf_counter()
     plen = req.prompt.size
-    last, slot_state = self._prefill_slot(req.prompt)
+    cached, draft_snap, start, fork = 0, None, None, 0
+    if self._cache is not None and plen > 1:
+      cached, payload = self._cache.lookup(req.prompt[:plen - 1])
+      if cached:
+        target_snap, draft_snap = payload
+        start = self._splice(target_snap)
+      # entries sit at whole inserted prompts, so two prompts sharing a
+      # template but parting before any entry's end would never hit each
+      # other: where the cache has seen a deep enough shared prefix, the
+      # prefill stops there and publishes it (carries are valid only at
+      # the length a prefill stopped at)
+      common = self._cache.common_prefix_len(req.prompt[:plen - 1])
+      if common - cached >= self._cache.fork_min_tokens:
+        fork = common
+    draft_from = cached       # a draft snapshot is valid before the fork
+    if fork:
+      _, start = self._prefill_slot(req.prompt[cached:fork], state=start,
+                                    start=cached)
+      self._cache.insert(req.prompt[:fork],
+                         (self.api.prefix_view(self.cfg, start, fork), None))
+      cached = fork
+    last, slot_state = self._prefill_slot(req.prompt[cached:], state=start,
+                                          start=cached)
     self.state = self.api.insert_slot(self.cfg, self.state, slot_state, slot)
     self.positions[slot] = plen
     self._slots[slot] = _SlotState(req=req, remaining=req.max_new_tokens,
@@ -346,13 +437,28 @@ class LMEngine:
     # admission: the draft only ever proposes
     tok = int(self._sample(last, temperature)[0, 0])
     self._slots[slot].ttft_s = time.perf_counter() - t_admit
+    draft_slot = None
     if self._record_token(slot, tok, plen):
       self._slots[slot].next_tok = tok
       if self.speculate:
         # only a slot that survives admission drafts: the draft consumes
         # the prompt into its own state
-        _, draft_slot = self._prefill_slot(req.prompt, self._draft_step)
+        if draft_snap is not None:
+          _, draft_slot = self._prefill_slot(
+              req.prompt[draft_from:], self._draft_step,
+              self._splice(draft_snap), draft_from)
+        else:
+          _, draft_slot = self._prefill_slot(req.prompt, self._draft_step)
         self.api.insert_slot(self.cfg, self.draft_state, draft_slot, slot)
+    if self._cache is not None:
+      # the full prompt: slot_state holds exactly plen tokens
+      self._cache.insert(req.prompt, (
+          self.api.prefix_view(self.cfg, slot_state, plen),
+          None if draft_slot is None else
+          self.api.prefix_view(self.cfg, draft_slot, plen)))
+    # a request that retired in admission queued its publish; the batch
+    # state already holds its rows
+    self._flush_retire_publish()
 
   def _admit_from_queue(self, temperature: float) -> None:
     slot = 0
@@ -381,6 +487,8 @@ class LMEngine:
       if self._slots[i].active and self._record_token(
           i, int(toks[i, 0]), int(self.positions[i])):
         self._slots[i].next_tok = int(toks[i, 0])
+    # the stepped state is final: retired conversations publish
+    self._flush_retire_publish()
 
   def _decode_all_speculative(self, temperature: float) -> None:
     """One speculative iteration for every slot: draft k, verify k+1 in
@@ -473,11 +581,13 @@ class LMEngine:
       self.accepted_tokens += min(int(accept[i]), int(commit[i]))
     self.positions = np.where(active, self.positions + commit,
                               self.positions)
+    replayed = False
     if self._has_carry:
       # retired slots take garbage (their next admit writes a whole
       # fresh state), so only the surviving slots decide the rewind
       live = [i for i in range(self.batch) if self._slots[i].active]
       if any(commit[i] != k + 1 for i in live):
+        replayed = True
         self.state = self._replay(
             self._step, merge_rewind(self.state, snap, self._carry),
             window, commit, pos0)
@@ -491,6 +601,16 @@ class LMEngine:
         # d_k) catches up with one step
         _, self.draft_state = self._draft_step(self.draft_state, cur,
                                                pos0 + k)
+    # a retired slot's carries are its committed ones where the replay
+    # ran (it steps every slot to its own commit) or where it took its
+    # whole window; under the fast path a slot that took part of it holds
+    # post-window carries, and its publish drops (KV rows [0, fed) are
+    # right in every case)
+    invalid = ()
+    if self._has_carry and not replayed:
+      invalid = {s for s, _, _ in self._pending_publish
+                 if commit[s] != k + 1}
+    self._flush_retire_publish(invalid_slots=invalid)
     self._maybe_adapt_rank()
 
   def _snapshot(self, state: dict) -> dict:

@@ -4,11 +4,11 @@ stage-2 fine-tune), trace-norm diagnostics, checkpoint and restart.
 
 Counterpart of `repro.training.trainer`, for the deepspeech,
 transformer (dense and DeepSeek: its loss adds the MoE aux loss and the
-MTP head's) and whisper families. A step is the forward and backward of
-every microbatch (autograd, with no kernel policy: no kernel has a
-backward), the regularizer, and an in-place AdamW update. A transformer
-batch {tokens, targets} goes to the trainer's device as int64 tensors
-before the step, a whisper batch {frames, tokens, targets} as f32
+MTP head's), zamba, xlstm and whisper families. A step is the forward
+and backward of every microbatch (autograd, with no kernel policy: no
+kernel has a backward), the regularizer, and an in-place AdamW update.
+A token batch {tokens, targets} (transformer, zamba, xlstm) goes to the
+trainer's device as int64 tensors before the step, a whisper batch {frames, tokens, targets} as f32
 frames and int64 tokens. The transition replaces the factored leaves
 (full rank -> truncated), so it makes new parameters, turns their
 gradients on, and starts new optimizer moments.
@@ -221,7 +221,7 @@ class Trainer:
   def train_step(self, batch: dict) -> dict:
     self.maybe_transition()
     t0 = time.perf_counter()
-    if self.api.family in ("transformer", "zamba"):
+    if self.api.family in ("transformer", "zamba", "xlstm"):
       batch = shard_batch(batch, self.device)
     elif self.api.family == "whisper":
       batch = {"frames": torch.as_tensor(batch["frames"], dtype=torch.float32,

@@ -71,8 +71,10 @@ def test_launchers_validate_operands(cuda):
   from repro_torch.kernels.decode_matvec import decode_matvec
   from repro_torch.kernels.gru_cell import gru_cell
   x = torch.ones(2, 128, device=cuda)
+  # f32 activations over bf16 weights are the one mix taken (the sLSTM's
+  # recurrent GEMM); bf16 activations over f32 weights are refused
   with pytest.raises(TypeError):
-    decode_matvec(x, torch.ones(128, 64, device=cuda, dtype=torch.bfloat16))
+    decode_matvec(x.bfloat16(), torch.ones(128, 64, device=cuda))
   with pytest.raises(ValueError):
     decode_matvec(x, torch.ones(127, 64, device=cuda))
   with pytest.raises(TypeError, match="bias"):
@@ -865,3 +867,65 @@ def test_deepseek_smoke_decode_through_kernels_matches_plain(cuda):
                                    toks[:, 4 + t:5 + t], pos + 4 + t,
                                    cfg)[0][:, 0] for t in range(4)]
   torch.testing.assert_close(got, torch.stack(steps, 1), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_mixed_f32_activations_over_bf16_weights(cuda, b):
+  """decode_matvec and lowrank_gemm take f32 x over bf16 weights (the
+  sLSTM's recurrent GEMM: xlstm-350m's per-head (256, 1024) `rh`, and a
+  rank-128 factored one), f32 out, within 1e-4 of the plain versions,
+  which upcast both operands."""
+  from repro_torch.kernels.decode_matvec import decode_matvec
+  from repro_torch.kernels.lowrank_gemm import lowrank_gemm
+  x = torch.from_numpy(rnd(0, (b, 256))).to(cuda)
+  w = torch.from_numpy(rnd(1, (256, 1024), 0.05)).to(cuda, torch.bfloat16)
+  u = torch.from_numpy(rnd(2, (256, 128), 0.1)).to(cuda, torch.bfloat16)
+  v = torch.from_numpy(rnd(3, (128, 1024), 0.1)).to(cuda, torch.bfloat16)
+  y = decode_matvec(x, w)
+  assert y.dtype == torch.float32
+  torch.testing.assert_close(y, ref.decode_matvec(x, w), rtol=1e-4, atol=1e-4)
+  y = lowrank_gemm(x, u, v)
+  assert y.dtype == torch.float32
+  torch.testing.assert_close(y, ref.lowrank_gemm(x, u, v), rtol=1e-4,
+                             atol=1e-4)
+  with pytest.raises(TypeError):
+    lowrank_gemm(x.bfloat16(), u.float(), v.float())
+
+
+def test_xlstm_smoke_decode_through_kernels_matches_plain(cuda):
+  """xlstm-350m's smoke config at d 512 and 2 heads (each `rh` head
+  (256, 1024) reaches the 128-lane gate): 4 batch-2 decode steps under
+  the "cuda" policy. In bf16 every GEMM routes to decode_matvec (the
+  recurrent heads on f32 activations over bf16 weights) but the gate
+  projection, one launch a route, finite logits; in f32 the logits are
+  the plain policy's within 1e-4 (in bf16 one flipped rounding reaches
+  the mLSTM's normaliser, which divides by a sum that cancels)."""
+  from repro_torch import configs
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.models import xlstm_model
+  b = 2
+  toks = torch.from_numpy(np.random.RandomState(0).randint(
+      1, 512, size=(b, 4))).to(cuda)
+  pol = dispatch.resolve_policy("cuda", b)
+  for dtype in (torch.bfloat16, torch.float32):
+    cfg = configs.get_smoke("xlstm-350m").with_(d_model=512, dtype=dtype)
+    params = xlstm_model.init_lm(
+        cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    states = {p: xlstm_model.init_decode_state(cfg, b, device=cuda)
+              for p in ("cuda", "plain")}
+    ops.reset_launches()
+    log = []
+    for t in range(4):
+      want, _ = xlstm_model.decode_step(params, states["plain"],
+                                        toks[:, t:t + 1], None, cfg)
+      with dispatch.record_dispatch() as step_log:
+        got, _ = xlstm_model.decode_step(params, states["cuda"],
+                                         toks[:, t:t + 1], None, cfg, pol)
+      log += step_log
+      assert bool(torch.isfinite(got.float()).all())
+      if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert {n for n, r in log if r == "jnp"} == {"pairs/mlstm_ifg"}
+    assert ("pairs/slstm_rec", "decode_matvec") in log
+    assert ops.LAUNCHES["decode_matvec"] == sum(
+        r == "decode_matvec" for _, r in log)

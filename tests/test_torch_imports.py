@@ -44,7 +44,9 @@ def test_port_imports_neither_jax_nor_reference():
           "layers/norms.py", "layers/ffn.py", "layers/attention.py",
           "kernels/dispatch.py", "layers/mla.py", "layers/moe.py",
           "configs/deepseek_v2_lite.py",
-          "configs/deepseek_v3_671b.py"} <= names
+          "configs/deepseek_v3_671b.py", "configs/xlstm_350m.py",
+          "layers/xlstm.py", "models/xlstm_model.py",
+          "serving/prefix_cache.py"} <= names
   bad = [(f.relative_to(PORT), mod) for f in files
          for mod in _imported_modules(f)
          if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
@@ -96,8 +98,8 @@ def test_lm_entry_points_default_to_the_gpu(monkeypatch):
 def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
   """`Trainer` and `launch.train` run on the GPU unless asked for the
   CPU; with no GPU they raise. On the CPU the launcher trains the DS2
-  smoke model through both stages and a transformer's; a family without
-  a port (xlstm) and a mesh are not ported yet and say so."""
+  smoke model through both stages and a transformer's; a family neither
+  package has, and a mesh (not ported yet), are refused and say so."""
   from repro_torch import configs
   from repro_torch.launch import train
   from repro_torch.training import TrainConfig, Trainer
@@ -109,8 +111,8 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
     train.main(["--arch", "deepspeech2-wsj", "--steps", "1"])
   with pytest.raises(NotImplementedError, match="Distribution"):
     Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
-  with pytest.raises(ValueError, match="not ported yet"):
-    Trainer(cfg.with_(family="xlstm"), TrainConfig(), device="cpu")
+  with pytest.raises(ValueError, match="unknown model family"):
+    Trainer(cfg.with_(family="rwkv"), TrainConfig(), device="cpu")
   lm_out = train.main(["--arch", "llama3-8b", "--device", "cpu", "--steps",
                        "1", "--batch", "2", "--seq", "8"])
   assert lm_out["final_loss"] > 0
@@ -162,3 +164,30 @@ def test_deepseek_entry_points_default_to_the_gpu(monkeypatch):
   assert params.moe_layers.moe.router.dtype == torch.float32
   state = init_decode_state(cfg, 2, 16, device="cpu")
   assert state["moe"]["c_kv"].shape == (3, 2, 16, 32)
+
+
+def test_xlstm_entry_points_default_to_the_gpu(monkeypatch):
+  """xlstm and the prefix cache through the same entry points: with no
+  GPU, not asking for the CPU raises; on the CPU the model, its all-carry
+  decode state and an engine with a prefix cache are built there."""
+  from repro_torch import configs
+  from repro_torch.models.xlstm_model import init_decode_state, init_lm
+  from repro_torch.serving import LMEngine
+  from repro_torch.serving.prefix_cache import PrefixCache
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  cfg = configs.get_smoke("xlstm-350m")
+  gen = torch.Generator().manual_seed(0)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_lm(cfg, generator=gen)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_decode_state(cfg, 2)
+  params = init_lm(cfg, generator=gen, device="cpu")
+  assert params.pairs.slstm.rh.w.shape == (2, 2, 64, 256)
+  assert init_decode_state(cfg, 2, device="cpu")["mlstm"]["C"].shape == \
+      (2, 2, 2, 128, 128)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    LMEngine(cfg, params, batch_size=2, max_len=16,
+             prefix_cache=PrefixCache(1))
+  eng = LMEngine(cfg, params, batch_size=2, max_len=16, device="cpu",
+                 prefix_cache=PrefixCache(1), publish_on_retire=True)
+  assert eng.cache_stats()["capacity_bytes"] == 1 << 20
