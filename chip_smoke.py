@@ -250,10 +250,11 @@
    decode step but the mLSTM's gate projection must classify to
    `decode_matvec` (per pair up, qkv, down, wx, out and the 4 recurrent
    heads on f32 activations, and the head: 109 launches a step), held
-   and timed, warm and cold. (a) One 1024-token batch-1 prefill under
-   both policies through `check_prefill(recurrent=)`, teacher-forced:
-   the layer GEMMs stay plain and each token of each pair launches 4
-   recurrent `decode_matvec`s (49,152); log-probs at every position
+   and timed, warm and cold. (a) One `XLSTM_PREFILL_LEN`-token (1024)
+   batch-1 prefill under both policies through
+   `check_prefill(recurrent=)`, teacher-forced: the layer GEMMs stay
+   plain and each token of each pair launches 4 recurrent
+   `decode_matvec`s (49,152); log-probs at every position
    compared on an f32 copy (F32_LOGPROB_ATOL; the bf16 difference and
    the drift after each pair are printed, see the comment above
    `XLSTM_PROFILE_LEN`). (b) Phase 5's `LMEngine` serving (109 launches
@@ -278,7 +279,24 @@
    on qwen3-4b at full width cut to `PREFIX_QWEN_LAYERS` (4) layers (KV
    rows sliced; no eviction, so every second-turn hit reaches the first
    turn's fed length).
-14. Prints each phase's seconds, the card line, `{"kernels": [...]}`
+14. Distribution, after phase 13, on an NCCL world of one
+   (`dist.make_mesh((1, 1), ("data", "model"))`, which initialises it).
+   (a) Full-width `deepspeech2-wsj` trained as phase 6 (bf16, 8 steps of
+   batch 16 through the transition) with `optimizer="q_adam"` under
+   `Trainer(mesh=)` and again with no mesh: the losses, stages and every
+   parameter must be equal bit for bit; q_adam's moment bytes
+   (`torch.cuda.memory_allocated` around its init on the mesh's
+   parameters) must stay under `Q_ADAM_BYTES_RATIO` of AdamW's; both
+   trained stage-2 models (the mesh's gathered) are served as phase 6
+   serves its own, with equal labels and launch counts. (b)
+   `LMEngine(mesh=)` on `qwen3-4b` at full width cut to
+   `PREFIX_QWEN_LAYERS` layers against `mesh=None`, phase 5's 8
+   requests under "cuda": tokens and `decode_matvec` launches equal.
+   (c) `compressed_grad_mean` through the world's all-reduces, within
+   `COMPRESS_REL` of the exact mean. Two ranks sharing the card (gloo
+   on CUDA tensors) are not run: DTensor's all-gather dies there
+   (`chip_gloo_probe.py`).
+15. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
    failure raises: the script exits non-zero and prints no result line.
@@ -531,9 +549,9 @@ XLSTM_SPEC_RESIDUAL = 0.0025
 #: precisions and the residual stream's drift after each pair: on an H100
 #: 80GB HBM3 at 700 W the bf16 policies were 0.0019 apart after the first
 #: pair and 0.045 after the 12th (the f32 ones 2.3e-7 and 2.3e-5), and
-#: their 1024 positions' log-probs 0.92 apart with 117 argmax flips (f32:
-#: 4.1e-4, none). The two differ only in the order the recurrent GEMM
-#: sums in; one flipped bf16 rounding of the sLSTM's output then reaches
+#: a 1024-token prefill's log-probs 0.92 apart with 117 argmax flips
+#: (f32: 4.1e-4, none). The two differ only in the order the recurrent
+#: GEMM sums in; one flipped bf16 rounding of the sLSTM's output then reaches
 #: the next mLSTM, whose normaliser max(|q . n|, exp(-m)) divides by a
 #: sum that cancels, and serving parted by 0.30 at its first call. The
 #: CPU tests hold each bf16 block to the reference's own bf16 rounding.
@@ -1427,11 +1445,13 @@ def lm_requests(cfg) -> list:
   return reqs
 
 
-def lm_engine(lm, cfg, policy: str):
-  """An LMEngine at SERVE_BATCH slots, warmed up and reset."""
+def lm_engine(lm, cfg, policy: str, mesh=None):
+  """An LMEngine at SERVE_BATCH slots (on `mesh` where given), warmed up
+  and reset."""
   from repro_torch.serving.engine import LMEngine
   eng = LMEngine(cfg, lm, batch_size=SERVE_BATCH, max_len=64,
-                 kernel_policy=policy, device=lm.final_norm.device)
+                 kernel_policy=policy, mesh=mesh,
+                 device=None if mesh is not None else lm.final_norm.device)
   eng.submit(np.arange(1, 5), max_new_tokens=2)
   eng.run()
   eng.reset()
@@ -2120,10 +2140,12 @@ def run_speculative(lm, cfg, card, draft, built: dict) -> tuple[dict, dict]:
 # Phase 6: training — the two-stage recipe at full width, then served.
 # ---------------------------------------------------------------------------
 
-def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None):
+def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None, mesh=None,
+                 optimizer="adamw"):
   """`launch/train.py`'s trainer: two stages (trace norm, transition at
   TRAIN_TRANSITION), its plan, cosine LR (or a constant `lr`), random
-  weights from seed 0 (a CPU generator's, unless `generator`)."""
+  weights from seed 0 (a CPU generator's, unless `generator`); on `mesh`
+  with `optimizer` where given (phase 14)."""
   from repro_torch.core.compress import FactorizationPlan
   from repro_torch.core.schedule import TwoStageSchedule, cosine_schedule
   from repro_torch.core.svd import TruncationSpec
@@ -2137,11 +2159,13 @@ def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None):
   lr = cosine_schedule(1e-3, TRAIN_STEPS // 10, TRAIN_STEPS) if lr is None \
       else lr
   return Trainer(cfg, TrainConfig(lr=lr, checkpoint_dir=str(ckpt_dir),
-                                  async_checkpoint=False),
+                                  async_checkpoint=False,
+                                  optimizer=optimizer),
                  schedule=sched,
                  plan=FactorizationPlan(min_dim=32, exclude=("*embed*",)),
                  generator=generator or torch.Generator().manual_seed(0),
-                 device=device)
+                 device=device, mesh=mesh,
+                 batch_size=TRAIN_BATCH if mesh is not None else 0)
 
 
 def train_batch(cfg, step: int) -> dict:
@@ -3744,8 +3768,9 @@ def check_xlstm(card) -> tuple[dict, list[dict]]:
     fail(f"{cfg.name}: {per_step} decode_matvec launches a step, not 109")
   rows += check_cases(decode_cases(leaves, torch.Generator().manual_seed(16),
                                    "xlstm_decode", f"{cfg.name} "))
-  # (a) the 1024-token prefill, teacher-forced: the recurrent heads launch
-  # a token at a time; (b) LMEngine, 109 launches a step; both compared
+  # (a) the XLSTM_PREFILL_LEN-token prefill, teacher-forced: the
+  # recurrent heads launch a token at a time; (b) LMEngine, 109 launches
+  # a step; both compared
   # on an f32 copy
   lm32 = f32_copy(lm, cfg)
   by_path["xlstm_prefill"] = check_prefill(
@@ -3781,6 +3806,160 @@ def check_xlstm(card) -> tuple[dict, list[dict]]:
   del lm
   free()
   return by_path, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: distribution — DeviceMesh / DTensor on an NCCL world of one.
+# Two ranks sharing the card through gloo are not run: DTensor's
+# all-gather fails there (`chip_gloo_probe.py`; PERF.md, Findings).
+# ---------------------------------------------------------------------------
+
+#: the reference's bound on int8 moment bytes against AdamW's f32 ones
+Q_ADAM_BYTES_RATIO = 0.3
+#: the compressed mean's bound against the exact one (tests/test_dist.py)
+COMPRESS_REL = 0.02
+
+
+def _median_ms(steps: list, stage: int) -> float:
+  """A stage's median step, its first step (new shapes) left out."""
+  walls = [m["wall_s"] for m in steps if m["stage"] == stage]
+  return statistics.median(walls[1:]) * 1e3
+
+
+def _moment_bytes(init, params) -> int:
+  """Device bytes an optimizer's init allocates for `params`."""
+  torch.cuda.synchronize()
+  before = torch.cuda.memory_allocated()
+  state = init(params)
+  torch.cuda.synchronize()
+  used = torch.cuda.memory_allocated() - before
+  del state
+  return used
+
+
+def check_mesh_of_one(cfg, card, mesh) -> tuple[dict, dict]:
+  """(a) Full-width deepspeech2-wsj trained as phase 6 with q_adam, on
+  `mesh` (a size-one NCCL mesh) and with none: losses and every
+  parameter equal bit for bit; q_adam's moment bytes against AdamW's;
+  the mesh-trained stage-2 model served as phase 6 serves its own, with
+  the launches of the mesh=None model's. Returns (launches, summary)."""
+  from repro_torch.core.factored import frozen, param_tree
+  from repro_torch.dist.sharding import gather_params, is_dtensor
+  from repro_torch.optim import adamw, q_adam
+  ckpt = ROOT / "build" / "mesh_ckpt"
+  runs = {}
+  for name, m in (("mesh", mesh), ("none", None)):
+    tr = make_trainer(cfg, "cuda", ckpt, mesh=m, optimizer="q_adam")
+    if m is not None and not all(is_dtensor(p) for p in tr.params.parameters()):
+      fail("mesh trainer: a parameter is not a DTensor")
+    steps = [tr.train_step(train_batch(cfg, i)) for i in range(TRAIN_STEPS)]
+    runs[name] = (tr, steps)
+  (tr_m, steps_m), (tr_n, steps_n) = runs["mesh"], runs["none"]
+  losses_m = [s["loss"] for s in steps_m]
+  losses_n = [s["loss"] for s in steps_n]
+  if losses_m != losses_n or [s["stage"] for s in steps_m] != \
+      [s["stage"] for s in steps_n]:
+    fail(f"mesh of one: losses {losses_m} != {losses_n}")
+  pm, pn = param_tree(gather_params(tr_m.params)), param_tree(tr_n.params)
+  if sorted(pm) != sorted(pn):
+    fail("mesh of one: parameter trees differ")
+  differ = [k for k in pn if not torch.equal(pm[k], pn[k])]
+  if differ:
+    fail(f"mesh of one: {len(differ)} leaves differ, first {differ[:3]}")
+  q_bytes = _moment_bytes(q_adam.init, tr_m.params)
+  a_bytes = _moment_bytes(adamw.init, tr_m.params)
+  if not q_bytes < Q_ADAM_BYTES_RATIO * a_bytes:
+    fail(f"q_adam moments {q_bytes} B, AdamW's {a_bytes} B")
+  utts = utterances(cfg)
+  served = {}
+  for name, tr in (("mesh", tr_m), ("none", tr_n)):
+    params = frozen(gather_params(tr.params) if name == "mesh"
+                    else copy.deepcopy(tr.params))
+    res, _, _, launches, _ = serve(cfg, params, utts, "cuda")
+    served[name] = ({r.uid: r.labels for r in res}, launches)
+  if served["mesh"] != served["none"] or \
+      served["mesh"][1]["lowrank_gemm"] == 0:
+    fail(f"mesh of one: serving differs: {served['mesh'][1]} vs "
+         f"{served['none'][1]}")
+  summary = dict(
+      mesh_of_one=cfg.name, card=card, optimizer="q_adam",
+      steps=TRAIN_STEPS, transition_step=TRAIN_TRANSITION,
+      losses=losses_m, bit_for_bit=True,
+      median_step_ms={f"stage{s}": {"mesh": _median_ms(steps_m, s),
+                                    "none": _median_ms(steps_n, s)}
+                      for s in (1, 2)},
+      q_adam_moment_bytes=q_bytes, adamw_moment_bytes=a_bytes,
+      q_adam_ratio=q_bytes / a_bytes, serving_launches=served["mesh"][1])
+  print(json.dumps(summary), flush=True)
+  return served["mesh"][1], summary
+
+
+def check_lm_on_mesh_of_one(card, mesh) -> tuple[dict, dict]:
+  """(b) qwen3-4b at full width cut to PREFIX_QWEN_LAYERS: LMEngine on
+  `mesh` against mesh=None under "cuda", phase 5's 8 requests, greedy:
+  tokens and decode_matvec launches equal."""
+  from repro_torch import configs
+  qcfg = configs.get_config("qwen3-4b").with_(num_layers=PREFIX_QWEN_LAYERS)
+  lm = build_lm(qcfg)
+  reqs = lm_requests(qcfg)
+  out = {}
+  for name, m in (("none", None), ("mesh", mesh)):
+    eng = lm_engine(lm, qcfg, "cuda", mesh=m)
+    fin, dt, launches = timed_run(eng, reqs)
+    out[name] = ({f.uid: f.tokens.tolist() for f in fin}, launches, dt,
+                 sum(len(f.tokens) for f in fin))
+    del eng
+    free()
+  del lm
+  free()
+  if out["mesh"][:2] != out["none"][:2] or \
+      out["mesh"][1]["decode_matvec"] == 0:
+    fail(f"LMEngine on a mesh of one: tokens or launches differ "
+         f"({out['mesh'][1]} vs {out['none'][1]})")
+  summary = dict(lm_on_mesh=qcfg.name, layers=PREFIX_QWEN_LAYERS, card=card,
+                 launches=out["mesh"][1], tokens=out["mesh"][3],
+                 tok_per_s={k: v[3] / v[2] for k, v in out.items()})
+  print(json.dumps(summary), flush=True)
+  return out["mesh"][1], summary
+
+
+def check_compressed_mean(card) -> dict:
+  """`compressed_grad_mean` over the NCCL world of one: the int8 payload's
+  all-reduce SUM and the scale's MAX on the card, the mean within
+  COMPRESS_REL of the exact one and the residual what the int8 rounding
+  dropped."""
+  import torch.distributed as dist
+  from repro_torch.optim.compress import compressed_grad_mean
+  g = torch.randn((1024, 1024), device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(5))
+  mean, err = compressed_grad_mean({"g": g}, {"g": torch.zeros_like(g)},
+                                   dist.group.WORLD)
+  rel = float((mean["g"] - g).norm() / g.norm())
+  half_step = float(g.abs().max()) / 254.0     # half of one int8 step
+  if rel > COMPRESS_REL or float(err["g"].abs().max()) > half_step * 1.001:
+    fail(f"compressed mean: {rel:.3g} from the exact one")
+  out = dict(compressed_mean=list(g.shape), card=card, rel=rel)
+  print(json.dumps(out), flush=True)
+  return out
+
+
+def check_distribution(card) -> tuple[dict, dict]:
+  """Phase 14. Returns (launches by path, summaries)."""
+  import torch.distributed as dist
+  from repro_torch import configs
+  from repro_torch.dist import make_mesh
+  by_path, out = {}, {}
+  mesh = make_mesh((1, 1), ("data", "model"))      # an NCCL world of one
+  if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+    fail(f"mesh of one: {dist.get_backend()}, {dist.get_world_size()}")
+  cfg = configs.get_config("deepspeech2-wsj")
+  by_path["ds2_mesh_trained"], out["a"] = check_mesh_of_one(cfg, card, mesh)
+  free()
+  by_path["qwen3_mesh_serving"], out["b"] = check_lm_on_mesh_of_one(card,
+                                                                    mesh)
+  out["compress"] = check_compressed_mean(card)
+  dist.destroy_process_group()
+  return by_path, out
 
 
 def _sums(rows: list[dict]) -> dict:
@@ -3985,7 +4164,12 @@ def main() -> int:
   by_path.update(xlstm_paths)
   rows += xlstm_rows
   phases["13_xlstm"] = time.perf_counter() - t0
-  launches = {k: sum(n[k] for n in by_path.values()) for k in KERNELS}
+  t0 = time.perf_counter()
+  dist_paths, _ = check_distribution(card)
+  by_path.update(dist_paths)
+  phases["14_distribution"] = time.perf_counter() - t0
+  launches = {k: sum(n.get(k, 0) for n in by_path.values())
+              for k in KERNELS}
   if not all(n > 0 for n in launches.values()):
     fail(f"a kernel never launched on the main paths: {launches}")
   if not all(math.isfinite(r["max_abs_err"]) for r in rows):

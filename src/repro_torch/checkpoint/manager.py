@@ -58,6 +58,9 @@ def to_host(leaf: Any) -> tuple[np.ndarray, str]:
   """A leaf as a numpy array that owns its data, and its dtype string
   (bf16: the uint16 view and "bfloat16")."""
   if isinstance(leaf, torch.Tensor):
+    from repro_torch.dist.sharding import is_dtensor
+    if is_dtensor(leaf):
+      leaf = leaf.full_tensor()          # gathered whole, on every rank
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
       return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -112,12 +115,22 @@ class CheckpointManager:
            blocking: bool = True) -> None:
     """Copy every leaf to the host and persist. blocking=False writes on a
     background thread (the copy is made here, so the live tree can keep
-    changing)."""
+    changing); a write still in flight finishes first, whichever kind
+    this one is (two writes of one step would race on its directory). In
+    a world of several ranks every rank gathers its DTensors (a
+    collective), rank 0 alone writes, blocking, and the ranks meet at a
+    barrier after the write."""
     host = [(p, *to_host(x)) for p, x in flatten(tree)]
+    self.wait()
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+      if dist.get_rank() == 0:
+        self._write(step, host, extra)
+      dist.barrier()
+      return
     if blocking:
       self._write(step, host, extra)
     else:
-      self.wait()
       self._thread = threading.Thread(
           target=self._write, args=(step, host, extra), daemon=True)
       self._thread.start()
@@ -188,18 +201,27 @@ class CheckpointManager:
     return (np.load(os.path.join(self._step_dir(step), ent["file"])),
             ent["dtype"])
 
-  def restore(self, template: Any, *, step: Optional[int] = None
-              ) -> tuple[Any, dict]:
+  def restore(self, template: Any, *, step: Optional[int] = None,
+              shardings: Any = None) -> tuple[Any, dict]:
     """Rebuild `template`'s structure with the stored leaves; returns
     (tree, manifest extra). Tensors land on the template tensor's device
     (in the stored dtype), Python ints stay ints. A missing leaf raises
     KeyError, a wrong shape ValueError; a stored leaf the template does
     not name warns (a calibrated tree restored into an uncalibrated
-    template would otherwise change serving numerics quietly)."""
+    template would otherwise change serving numerics quietly).
+
+    `shardings` (a tree matching `template`, or `param_shardings`' dict
+    for a module, of `dist.sharding.NamedSharding`) lays each leaf out
+    as a DTensor by the placements given: the elastic path, where a
+    checkpoint saved on any layout lands on this one. Without it a
+    DTensor leaf of the template keeps the template's layout."""
+    from repro_torch.dist import sharding as shd
     step = self._resolve(step)
     d = self._step_dir(step)
     manifest = self.manifest(step)
     consumed = set()
+    by_path = {} if shardings is None else {
+        p.replace(".", "/"): s for p, s in flatten(shardings)}
 
     def take(pstr: str, t: Any) -> Any:
       consumed.add(pstr)
@@ -214,7 +236,12 @@ class CheckpointManager:
       if isinstance(t, (bool, int)):
         return type(t)(arr)
       if isinstance(t, torch.Tensor):
-        return from_host(arr, ent["dtype"]).to(t.device)
+        x = from_host(arr, ent["dtype"]).to(t.device)
+        if pstr in by_path:
+          return shd.lay_out(x, by_path[pstr])
+        if shd.is_dtensor(t):
+          return shd.distribute_tensor_local(x, t.device_mesh, t.placements)
+        return x
       return arr
 
     tree = _rebuild(template, "", take)

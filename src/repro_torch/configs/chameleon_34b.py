@@ -10,6 +10,8 @@ CONFIG = ModelConfig(
     d_ff=22016, vocab_size=65536, rope_theta=10000.0,
 )
 
+SKIP_SHAPES = ("long_500k",)  # full attention: 500k dense KV not supported
+
 SMOKE = ModelConfig(
     name="chameleon-34b-smoke", family="transformer",
     num_layers=2, d_model=128, num_heads=8, num_kv_heads=2,

@@ -15,6 +15,8 @@ CONFIG = ModelConfig(
     conv_channels=32, time_stride=2,
 )
 
+SKIP_SHAPES = ("long_500k",)
+
 SMOKE = ModelConfig(
     name="deepspeech2-wsj-smoke", family="deepspeech",
     num_layers=3, d_model=96, num_heads=1, num_kv_heads=1,

@@ -9,6 +9,8 @@ CONFIG = ModelConfig(
     d_ff=13696, vocab_size=151552, rope_theta=10000.0,
 )
 
+SKIP_SHAPES = ("long_500k",)
+
 SMOKE = ModelConfig(
     name="glm4-9b-smoke", family="transformer",
     num_layers=2, d_model=128, num_heads=8, num_kv_heads=2,

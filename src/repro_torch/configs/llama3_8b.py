@@ -9,6 +9,8 @@ CONFIG = ModelConfig(
     d_ff=14336, vocab_size=128256, rope_theta=500000.0,
 )
 
+SKIP_SHAPES = ("long_500k",)
+
 SMOKE = ModelConfig(
     name="llama3-8b-smoke", family="transformer",
     num_layers=2, d_model=128, num_heads=8, num_kv_heads=2,

@@ -10,6 +10,8 @@ CONFIG = ModelConfig(
     rope_theta=1000000.0,
 )
 
+SKIP_SHAPES = ("long_500k",)
+
 SMOKE = ModelConfig(
     name="qwen3-4b-smoke", family="transformer",
     num_layers=2, d_model=128, num_heads=8, num_kv_heads=2,

@@ -9,6 +9,8 @@ CONFIG = ModelConfig(
     d_ff=6912, vocab_size=50304, rope_theta=10000.0,
 )
 
+SKIP_SHAPES = ("long_500k",)
+
 SMOKE = ModelConfig(
     name="stablelm-3b-smoke", family="transformer",
     num_layers=2, d_model=128, num_heads=8, num_kv_heads=8,

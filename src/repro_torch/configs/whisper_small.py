@@ -12,6 +12,8 @@ CONFIG = ModelConfig(
     max_source_positions=1500,
 )
 
+SKIP_SHAPES = ("long_500k",)
+
 SMOKE = ModelConfig(
     name="whisper-small-smoke", family="whisper",
     num_layers=2, encoder_layers=2, d_model=128, num_heads=4,

@@ -11,6 +11,8 @@ CONFIG = ModelConfig(
     d_ff=0, vocab_size=50304,
 )
 
+SKIP_SHAPES = ()
+
 SMOKE = ModelConfig(
     name="xlstm-350m-smoke", family="xlstm",
     num_layers=4, d_model=128, num_heads=2, num_kv_heads=2,

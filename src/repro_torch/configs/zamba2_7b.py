@@ -11,6 +11,8 @@ CONFIG = ModelConfig(
     d_ff=14336, vocab_size=32000, ssm_state=64, attn_every=6,
 )
 
+SKIP_SHAPES = ()
+
 SMOKE = ModelConfig(
     name="zamba2-7b-smoke", family="zamba",
     num_layers=5, d_model=128, num_heads=4, num_kv_heads=4,

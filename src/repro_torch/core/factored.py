@@ -143,7 +143,10 @@ def normal(shape: tuple, std: float, generator: torch.Generator,
   """N(0, std^2) from `generator`. A CPU generator draws f32 on the CPU,
   then the values move: the same seed gives the same weights on every
   device. A CUDA generator draws on its device, straight in `dtype` (a
-  full-width LM would need ~32 GB of f32 host draws otherwise)."""
+  full-width LM would need ~32 GB of f32 host draws otherwise). On the
+  `meta` device nothing is drawn (`configs.specs`)."""
+  if torch.device(device).type == "meta":
+    return torch.empty(shape, dtype=dtype, device="meta")
   if generator.device.type == "cpu":
     w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
     return w.to(device=device, dtype=dtype)

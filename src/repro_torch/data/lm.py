@@ -9,8 +9,8 @@ batch can be drawn again, so a restart needs no loader state.
 
 A copy of `repro.data.lm`: the same numpy `RandomState` draws in the
 same order, so both packages draw bit-equal batches. `shard_batch`
-places a batch on one device (the reference's takes a mesh's sharding;
-a mesh is not ported yet).
+places a batch on one device, or with a mesh lays its rows out over the
+mesh's data axes (`dist.sharding.batch_shardings`).
 """
 from __future__ import annotations
 
@@ -60,8 +60,21 @@ def stream(cfg: LMDataConfig, start_step: int = 0) -> Iterator[dict]:
     step += 1
 
 
-def shard_batch(batch: dict, device: DeviceLike = None) -> dict:
-  """A host batch as int64 tensors on `device` (default: the GPU)."""
+def shard_batch(batch: dict, device: DeviceLike = None, *, mesh=None,
+                global_batch: int = 0) -> dict:
+  """A host batch as int64 tensors on `device` (default: the GPU). With
+  a `mesh`, DTensors whose rows of `global_batch` (default: the batch's
+  own) lie on the data axes; every rank passes the whole host batch and
+  keeps its rows."""
+  if mesh is not None:
+    from repro_torch.dist import sharding as shd
+    from repro_torch.layers.common import ShapeConfig
+    device = shd.mesh_device(mesh)
   dev = resolve_device(device)
-  return {k: torch.as_tensor(np.asarray(v), dtype=torch.int64, device=dev)
-          for k, v in batch.items()}
+  out = {k: torch.as_tensor(np.asarray(v), dtype=torch.int64, device=dev)
+         for k, v in batch.items()}
+  if mesh is None:
+    return out
+  rows = global_batch or next(iter(out.values())).shape[0]
+  shape = ShapeConfig("batch", "train", 0, rows)
+  return shd.distribute_tree(out, shd.batch_shardings(out, mesh, shape))

@@ -40,6 +40,35 @@ time loop, the layer stacks of the transformer and of Whisper's
 `encode`/`decode_*`. The port runs those loops in Python, so each of
 them is marked with `scanned()`, inside which the observers see nothing:
 the two packages' calibration dicts then hold the same keys.
+
+DTensor operands (a mesh, `dist.sharding`). The kernels take raw
+pointers, so a DTensor never reaches one: the regime is classified on
+the global shapes, as on one device, and each kernel runs on local
+shards where the weight's layout makes the product local, with rows
+sharded over the data axes staying where they are:
+
+  gemm, a column-parallel w (n split on "model"): x whole on the model
+    axis, one launch on the local columns, y split the same way;
+  gemm, a row-parallel w (m split): x split along m (a local slice),
+    one launch gives a partial sum, all-reduced over the model axis;
+  gemm, a factored leaf in the rank-local layout (u split on m, v on
+    n): x split along m, `decode_matvec` for x @ u (a partial (b, r)
+    term), its all-reduce, then `decode_matvec` for t @ v on the local
+    columns: two launches around one collective, which `lowrank_gemm`'s
+    single fused launch cannot hold; past the decode bound the factors
+    are gathered and `lowrank_gemm` runs whole;
+  gemm, a quantized leaf: a column-parallel w_q (with its w_scale split
+    alike) runs locally; a row-split or factored one is gathered first
+    (a row's activation scale is its amax over the whole of m);
+  maybe_gru_cell: U's 3h gate axis is [r | z | g], so an even column
+    split gives no rank whole units: U is gathered, xw and h taken whole
+    on the model axis, and the fused step runs on the local rows;
+  flash_attention: its caller (`layers.attention.flash_attention`)
+    hands this entry point each rank's rows and heads as plain tensors
+    (`dist.sharding.heads_local`).
+
+Everywhere else (the "jnp" regime) the plain path runs on the DTensors
+as they are.
 """
 from __future__ import annotations
 
@@ -52,6 +81,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.factored import FactoredLinear, matmul_ref
+from repro_torch.dist.sharding import contiguous_stride, is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_supported
 from repro_torch.quant.leaf import QuantizedLinear, kernel_apply
@@ -325,6 +355,23 @@ def gemm(leaf, x: torch.Tensor, policy: Optional[KernelPolicy],
   _observe(name or getattr(leaf, "name", None), x)
   if regime == "jnp":
     return _plain_gemm(leaf, x)
+  w = _weight_of(leaf)
+  if is_dtensor(x) or is_dtensor(w):
+    x = _as_dtensor(x, (x if is_dtensor(x) else w).device_mesh)
+    return _sharded_gemm(regime, leaf, x, policy)
+  return _kernel_gemm(regime, leaf, x)
+
+
+def _weight_of(leaf) -> torch.Tensor:
+  """A GEMM leaf's first weight tensor (a raw tensor is its own)."""
+  if isinstance(leaf, QuantizedLinear):
+    return leaf.u_q if leaf.is_factored else leaf.w_q
+  if isinstance(leaf, FactoredLinear):
+    return leaf.u if leaf.is_factored else leaf.w
+  return leaf
+
+
+def _kernel_gemm(regime: str, leaf, x: torch.Tensor) -> torch.Tensor:
   lead = x.shape[:-1]
   x2 = x.reshape(-1, x.shape[-1])
   if regime == "lowrank_gemm":
@@ -341,6 +388,114 @@ def gemm(leaf, x: torch.Tensor, policy: Optional[KernelPolicy],
   else:  # pragma: no cover — REGIMES is closed above
     raise ValueError(f"unroutable regime {regime!r}")
   return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# DTensor operands: kernels on local shards.
+# ---------------------------------------------------------------------------
+
+def _model_dim(mesh) -> Optional[int]:
+  from repro_torch.dist.mesh import MODEL_AXIS
+  names = mesh.mesh_dim_names or ()
+  return names.index(MODEL_AXIS) if MODEL_AXIS in names else None
+
+
+def _on_model(t: torch.Tensor, md: Optional[int]):
+  """The placement of DTensor `t` on the model mesh dim (None: whole)."""
+  if md is None or not is_dtensor(t):
+    return None
+  p = t.placements[md]
+  return p.dim % t.ndim if p.is_shard() else None
+
+
+def _with_model(pl: list, md: Optional[int], p) -> list:
+  if md is not None:
+    pl = list(pl)
+    pl[md] = p
+  return pl
+
+
+def _local(t: torch.Tensor, pl: list) -> torch.Tensor:
+  return t.redistribute(t.device_mesh, pl).to_local()
+
+
+def _as_dtensor(t: torch.Tensor, mesh) -> torch.Tensor:
+  """A plain `t` (whole on every rank) as a replicated DTensor."""
+  if is_dtensor(t):
+    return t
+  from torch.distributed.tensor import Replicate
+  from repro_torch.dist.sharding import distribute_tensor_local
+  return distribute_tensor_local(t, mesh, [Replicate()] * mesh.ndim)
+
+
+def _whole(t, md):
+  """`t` whole on the model axis (its data split kept), local."""
+  from torch.distributed.tensor import Replicate
+  if not is_dtensor(t):
+    return t
+  return _local(t, _with_model(t.placements, md, Replicate()))
+
+
+def _sharded_gemm(regime: str, leaf, x: torch.Tensor,
+                  policy: KernelPolicy) -> torch.Tensor:
+  from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+  mesh = x.device_mesh
+  md = _model_dim(mesh)
+  last = x.ndim - 1
+  rows_pl = _with_model(x.placements, md, Replicate())
+
+  def wrap(y2, n, out_model):
+    y = y2.reshape(x.to_local().shape[:-1] + (y2.shape[-1],))
+    pl = _with_model(rows_pl, md, out_model)
+    return DTensor.from_local(y, mesh, pl, shape=x.shape[:-1] + (n,),
+                              stride=contiguous_stride(x.shape[:-1] + (n,)))
+
+  def x_rows(model_pl):
+    """This rank's rows of x, (rows, m or its local part), laid out
+    `model_pl` on the model axis."""
+    t = _local(x, _with_model(rows_pl, md, model_pl))
+    return t.reshape(-1, t.shape[-1])
+
+  x_whole = x_rows(Replicate())
+  if regime == "lowrank_gemm":
+    u, v = leaf.u, leaf.v
+    if _on_model(u, md) == 0 and _on_model(v, md) == 1 and \
+        x_whole.shape[0] <= policy.decode_batch_max:
+      x_split = x_rows(Shard(last))
+      t = ops.decode_matvec(x_split.to(u.dtype), u.to_local())
+      t = DTensor.from_local(t.float(), mesh,
+                             _with_model(rows_pl, md, Partial()))
+      t = _local(t, rows_pl)
+      y = ops.decode_matvec(t, v.to_local())
+      return wrap(y, v.shape[-1], Shard(last)).to(x.dtype)
+    y = ops.lowrank_gemm(x_whole, _whole(u, md), _whole(v, md))
+    return wrap(y, v.shape[-1], Replicate()).to(x.dtype)
+  if isinstance(leaf, QuantizedLinear):
+    if not leaf.is_factored and _on_model(leaf.w_q, md) == 1:
+      local = QuantizedLinear(
+          w_q=leaf.w_q.to_local(), w_scale=leaf.w_scale.to_local(),
+          act_scale=_whole(leaf.act_scale, md), name=leaf.name,
+          group=leaf.group, orig_dtype=leaf.orig_dtype)
+      return wrap(kernel_apply(local, x_whole), leaf.out_dim,
+                  Shard(last)).to(x.dtype)
+    from repro_torch.quant.leaf import _FIELDS
+    whole = QuantizedLinear(
+        **{f: _whole(getattr(leaf, f), md) for f in _FIELDS},
+        name=leaf.name, group=leaf.group, orig_dtype=leaf.orig_dtype)
+    return wrap(kernel_apply(whole, x_whole), leaf.out_dim,
+                Replicate()).to(x.dtype)
+  w = leaf.w if isinstance(leaf, FactoredLinear) else leaf
+  split = _on_model(w, md)
+  op = ops.decode_matvec if regime == "decode_matvec" else \
+      ops.quantized_matmul
+  if split == 1:                         # column-parallel
+    return wrap(op(x_whole, w.to_local()), w.shape[-1],
+                Shard(last)).to(x.dtype)
+  if split == 0 and regime == "decode_matvec":       # row-parallel
+    y = wrap(op(x_rows(Shard(last)), w.to_local()), w.shape[-1], Partial())
+    return y.redistribute(mesh, rows_pl).to(x.dtype)
+  return wrap(op(x_whole, _whole(w, md)), w.shape[-1],
+              Replicate()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +520,18 @@ def maybe_gru_cell(xw: torch.Tensor, h: torch.Tensor, rec,
     # no record here: the fallback's gemm() records the real decision
     return None
   _record(name, "gru_cell")
+  if any(is_dtensor(t) for t in (xw, h, rec.w)):
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = next(t.device_mesh for t in (h, xw, rec.w) if is_dtensor(t))
+    md = _model_dim(mesh)
+    h = _as_dtensor(h, mesh)
+    pl = _with_model(h.placements, md, Replicate())
+    xw = _as_dtensor(xw, mesh)
+    out = ops.gru_cell(_local(xw, _with_model(xw.placements, md,
+                                              Replicate())),
+                       _local(h, pl), _whole(rec.w, md), _whole(bias, md))
+    return DTensor.from_local(out, mesh, pl, shape=h.shape,
+                              stride=contiguous_stride(h.shape))
   return ops.gru_cell(xw, h, rec.w, bias)
 
 

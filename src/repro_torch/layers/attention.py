@@ -34,7 +34,8 @@ from torch import nn
 
 from repro_torch.core.factored import dense
 from repro_torch.kernels import dispatch
-from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
+                                      identity_constraint)
 from repro_torch.layers.norms import init_rms, rms_norm
 from repro_torch.layers.rope import apply_rope
 
@@ -76,7 +77,8 @@ def init_attention(cfg: ModelConfig, *, layer_prefix: str, stack: tuple = (),
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, policy=None):
+                 positions: torch.Tensor, policy=None,
+                 cs: Constraint = identity_constraint):
   b, s, _ = x.shape
   h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
   q = gemm(p["wq"], x, policy).reshape(b, s, h, hd)
@@ -87,7 +89,7 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     k = rms_norm(k, p["k_norm"], cfg.norm_eps)
   q = apply_rope(q, positions, cfg.rope_theta)
   k = apply_rope(k, positions, cfg.rope_theta)
-  return q, k, v
+  return cs(q, "bshd_q"), cs(k, "bshd_kv"), cs(v, "bshd_kv")
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,7 +133,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cfg: ModelConfig, policy=None) -> torch.Tensor:
-  """Causal attention. q: (b, s, h, hd); k, v: (b, s, kv, hd)."""
+  """Causal attention. q: (b, s, h, hd); k, v: (b, s, kv, hd). On
+  DTensors each rank attends over its own rows and heads
+  (`dist.sharding.heads_local`): attention never mixes batch rows or
+  heads."""
+  from repro_torch.dist.sharding import heads_local, is_dtensor
+  if is_dtensor(q):
+    return heads_local(flash_attention, q, k, v, cfg=cfg, policy=policy)
   out = dispatch.maybe_flash_attention(q, k, v, policy, name="layers/attn")
   if out is not None:
     return out
@@ -144,13 +152,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
-                      policy=None) -> torch.Tensor:
+                      policy=None,
+                      cs: Constraint = identity_constraint) -> torch.Tensor:
   """Full-sequence causal self-attention (prefill, training). `p` maps
   "wq", "wk", "wv", "wo" to 2-D leaves (and, with qk-norm, "q_norm",
   "k_norm" to (hd,) scales)."""
   b, s, _ = x.shape
   positions = torch.arange(s, device=x.device)[None].expand(b, s)
-  q, k, v = _project_qkv(p, x, cfg, positions, policy)
+  q, k, v = _project_qkv(p, x, cfg, positions, policy, cs)
   out = flash_attention(q, k, v, cfg, policy)
   h, hd = cfg.num_heads, cfg.resolved_head_dim
   return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
@@ -236,7 +245,15 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
   raise here, or assert on the device) without a host sync: it rewrites
   row clamp(start - 1, 0, S - 1) with that row's own value, a row this
   call writes nowhere else unless start is 0 and W > S (an idle slot's
-  window, whose rows are garbage until its next admit)."""
+  window, whose rows are garbage until its next admit).
+
+  A DTensor cache (rows on the data axes, positions on the model axis:
+  `dist.sharding.state_shardings`) is written shard by shard: each rank
+  writes the rows and positions its local block holds."""
+  from repro_torch.dist import sharding as shd
+  if shd.is_dtensor(cache):
+    shd.write_rows(cache, new, pos)
+    return
   b, s = cache.shape[:2]
   valid = pos < s
   spare = (start - 1).clamp(0, s - 1)[:, None].expand_as(pos)
@@ -249,12 +266,14 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
 
 def attention_decode(p, x: torch.Tensor, cache: dict,
                      positions: torch.Tensor, cfg: ModelConfig,
-                     policy=None) -> tuple[torch.Tensor, dict]:
+                     policy=None, cs: Constraint = identity_constraint
+                     ) -> tuple[torch.Tensor, dict]:
   """One decode step. x: (b, 1, d); positions: (b,) write offsets;
   cache {"k", "v"}: (b, max_len, kv, hd), updated in place."""
   b = x.shape[0]
   h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-  q, k_new, v_new = _project_qkv(p, x, cfg, positions[:, None], policy)
+  q, k_new, v_new = _project_qkv(p, x, cfg, positions[:, None], policy,
+                                 cs)
   k, v = cache["k"], cache["v"]
   write_rows(k, k_new, positions, positions[:, None])
   write_rows(v, v_new, positions, positions[:, None])
@@ -281,7 +300,8 @@ def attention_decode(p, x: torch.Tensor, cache: dict,
 
 def attention_decode_window(p, x: torch.Tensor, cache: dict,
                             positions: torch.Tensor, cfg: ModelConfig,
-                            policy=None) -> tuple[torch.Tensor, dict]:
+                            policy=None, cs: Constraint = identity_constraint
+                            ) -> tuple[torch.Tensor, dict]:
   """Batched W-token decode window. x: (b, W, d); positions: (b,) start;
   cache {"k", "v"}: (b, max_len, kv, hd), updated in place.
 
@@ -295,7 +315,7 @@ def attention_decode_window(p, x: torch.Tensor, cache: dict,
   b, w, _ = x.shape
   h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
   pos = positions[:, None] + torch.arange(w, device=x.device)[None, :]
-  q, k_new, v_new = _project_qkv(p, x, cfg, pos, policy)
+  q, k_new, v_new = _project_qkv(p, x, cfg, pos, policy, cs)
   k, v = cache["k"], cache["v"]
   write_rows(k, k_new, positions, pos)
   write_rows(v, v_new, positions, pos)

@@ -2,7 +2,9 @@
 
 Counterpart of `repro.layers.common` for the ported families:
 `ModelConfig` (its `dtype` is a `torch.dtype`) with DeepSeek's
-`MoEConfig` and `MLAConfig`, and `gemm`, which applies
+`MoEConfig` and `MLAConfig`, `ShapeConfig` and the assigned `SHAPES`,
+the sharding-constraint contract (`Constraint`, `identity_constraint`)
+and `gemm`, which applies
 a GEMM leaf (`FactoredLinear`, `QuantizedLinear` or a raw weight tensor)
 and, given a `kernels.dispatch.KernelPolicy`, routes it through the CUDA
 kernels.
@@ -10,12 +12,24 @@ kernels.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.factored import FactoredLinear, matmul_ref
 from repro_torch.quant.leaf import QuantizedLinear
+
+# The sharding-constraint contract every model function threads through its
+# layers: cs(x, logical_name) -> x. Hosted here, where all layer and model
+# code already imports from, so model code never depends on repro_torch.dist;
+# dist.sharding re-exports both names, and its make_constraint returns
+# identity_constraint when called without a mesh.
+Constraint = Callable[[torch.Tensor, str], torch.Tensor]
+
+
+def identity_constraint(x, name: str):
+  """The no-mesh constraint: every `cs` call is a pass-through."""
+  return x
 
 
 def gemm(leaf, x: torch.Tensor, policy=None) -> torch.Tensor:
@@ -101,3 +115,20 @@ class ModelConfig:
 
   def with_(self, **kw) -> "ModelConfig":
     return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+  """One assigned input-shape cell."""
+  name: str                     # train_4k | prefill_32k | decode_32k | long_500k
+  kind: str                     # "train" | "prefill" | "decode"
+  seq_len: int
+  global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

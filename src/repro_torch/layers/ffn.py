@@ -7,7 +7,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.factored import dense
-from repro_torch.layers.common import gemm
+from repro_torch.layers.common import Constraint, gemm, identity_constraint
 
 
 class SwiGLU(nn.Module):
@@ -27,12 +27,13 @@ def init_swiglu(d: int, f: int, *, layer_prefix: str, dtype: torch.dtype,
                 dense(f, d, name=f"{layer_prefix}/ffn_down", **kw))
 
 
-def swiglu_forward(p, x: torch.Tensor, policy=None) -> torch.Tensor:
+def swiglu_forward(p, x: torch.Tensor, policy=None,
+                   cs: Constraint = identity_constraint) -> torch.Tensor:
   """`p` maps "w_gate", "w_up", "w_down" to 2-D leaves. silu runs in
   f32 and rounds to x.dtype before the product with u, as the
   reference rounds in bf16."""
-  g = gemm(p["w_gate"], x, policy)
-  u = gemm(p["w_up"], x, policy)
+  g = cs(gemm(p["w_gate"], x, policy), "bsf")
+  u = cs(gemm(p["w_up"], x, policy), "bsf")
   h = F.silu(g.to(torch.float32)).to(x.dtype) * u
   return gemm(p["w_down"], h, policy)
 
@@ -60,11 +61,12 @@ def init_gelu_ffn(d: int, f: int, *, layer_prefix: str, dtype: torch.dtype,
                  torch.zeros(tuple(stack) + (d,), **zeros))
 
 
-def gelu_ffn_forward(p, x: torch.Tensor, policy=None) -> torch.Tensor:
+def gelu_ffn_forward(p, x: torch.Tensor, policy=None,
+                     cs: Constraint = identity_constraint) -> torch.Tensor:
   """`p` maps "w_in", "w_out" to 2-D leaves and "b_in", "b_out" to f32
   biases, which are cast to x.dtype before they are added, as the
   reference does. GELU is `jax.nn.gelu`'s default, the tanh
   approximation, in f32, rounded to x.dtype."""
   h = gemm(p["w_in"], x, policy) + p["b_in"].to(x.dtype)
-  h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+  h = cs(F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype), "bsf")
   return gemm(p["w_out"], h, policy) + p["b_out"].to(x.dtype)

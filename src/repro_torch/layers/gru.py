@@ -18,7 +18,7 @@ from torch import nn
 
 from repro_torch.core.factored import dense
 from repro_torch.kernels import dispatch
-from repro_torch.layers.common import gemm
+from repro_torch.layers.common import Constraint, gemm, identity_constraint
 
 
 class GRU(nn.Module):
@@ -70,11 +70,13 @@ def gru_cell(xw: torch.Tensor, h: torch.Tensor, rec: nn.Module,
   return h1.to(h.dtype)
 
 
-def gru_forward(p: GRU, x: torch.Tensor, policy=None) -> torch.Tensor:
+def gru_forward(p: GRU, x: torch.Tensor, policy=None,
+                cs: Constraint = identity_constraint) -> torch.Tensor:
   """Forward-only GRU over a sequence. x: (b, t, in) -> (b, t, hidden)."""
   b, t, _ = x.shape
   hidden = p.hidden
   xw = gemm(p.nonrec, x, policy)        # batched across time (paper §4)
+  xw = cs(xw, "bt3h")
   h = torch.zeros((b, hidden), dtype=x.dtype, device=x.device)
   hs = []
   with dispatch.scanned():              # the reference's time scan

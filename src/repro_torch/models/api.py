@@ -132,9 +132,12 @@ class ModelApi:
   def insert_slot(self, cfg: ModelConfig, state: dict, slot_state: dict,
                   slot: int) -> dict:
     """Write a batch-1 `slot_state` into slot `slot` of `state`, in
-    place; returns `state`."""
+    place; returns `state`. A DTensor leaf (a mesh) is written block by
+    block, with no gather (`dist.sharding.write_slot`)."""
+    from repro_torch.dist.sharding import write_slot
+
     def put(_, x, s, ax):
-      x.narrow(ax, slot, 1).copy_(s)
+      write_slot(x, s, ax, slot)
       return x
     _map(put, state, slot_state, self._slot_axes(cfg))
     return state

@@ -19,7 +19,26 @@ def ctc_loss(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
 
   log_probs: (b, t, v) log-softmaxed; logit_lengths: (b,);
   labels: (b, l) padded with anything; label_lengths: (b,).
+
+  On DTensors (a mesh) each rank runs the recursion on its rows of the
+  batch, laid out on the data axes and whole elsewhere, and the mean is
+  the per-row likelihoods gathered whole before their mean: the
+  recursion's in-place updates never meet a DTensor, and the mean is the
+  one device's, bit for bit.
   """
+  from repro_torch.dist.sharding import is_dtensor, rows_local
+  if is_dtensor(log_probs):
+    nll, whole = rows_local(_ctc_nll, log_probs, logit_lengths, labels,
+                            label_lengths, blank=blank)
+    return whole(nll).mean()
+  return _ctc_nll(log_probs, logit_lengths, labels, label_lengths,
+                  blank).mean()
+
+
+def _ctc_nll(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
+             labels: torch.Tensor, label_lengths: torch.Tensor,
+             blank: int = 0) -> torch.Tensor:
+  """Per-row negative log likelihood (b,) of `ctc_loss`."""
   b, t, _ = log_probs.shape
   l = labels.shape[1]
   s = 2 * l + 1    # extended sequence: blank label blank label ... blank
@@ -62,7 +81,7 @@ def ctc_loss(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
   a_last = torch.gather(alpha, 1, last[:, None])[:, 0]
   a_prev = torch.gather(alpha, 1, (last - 1).clamp(min=0)[:, None])[:, 0]
   a_prev = torch.where(label_lengths > 0, a_prev, neg)
-  return -torch.logaddexp(a_last, a_prev).mean()
+  return -torch.logaddexp(a_last, a_prev)
 
 
 def ctc_greedy_decode(log_probs: torch.Tensor, logit_lengths: torch.Tensor,

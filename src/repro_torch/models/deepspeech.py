@@ -18,7 +18,8 @@ from torch import nn
 from repro_torch.core.factored import dense
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
-from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
+                                      identity_constraint)
 from repro_torch.layers.gru import (GRU, gru_cell, gru_decode, gru_forward,
                                    init_gru)
 from repro_torch.models.ctc import ctc_loss
@@ -99,7 +100,12 @@ def conv_relu(x: torch.Tensor, w_hwio: torch.Tensor, stride: tuple,
               time_pads: tuple, freq_pads: tuple) -> torch.Tensor:
   """One frontend stage in the reference's layout: x (b, t, f, c_in),
   w (kt, kf, c_in, c_out) -> relu(conv) (b, t', f', c_out), computed in
-  x.dtype with the ReLU in f32, as the reference does."""
+  x.dtype with the ReLU in f32, as the reference does. On DTensors (a
+  mesh) each rank convolves its own rows (`dist.sharding.rows_apply`)."""
+  from repro_torch.dist.sharding import is_dtensor, rows_apply
+  if is_dtensor(x) or is_dtensor(w_hwio):
+    return rows_apply(conv_relu, x, w_hwio, stride=stride,
+                      time_pads=time_pads, freq_pads=freq_pads)
   y = F.pad(x.permute(0, 3, 1, 2), freq_pads + time_pads)
   y = F.conv2d(y, w_hwio.permute(3, 2, 0, 1), stride=stride)
   return torch.relu(y.float()).to(x.dtype).permute(0, 2, 3, 1)
@@ -129,11 +135,12 @@ def _head(params: DeepSpeech2, h: torch.Tensor, policy) -> torch.Tensor:
 
 
 def forward(params: DeepSpeech2, feats: torch.Tensor, cfg: ModelConfig,
-            policy=None) -> torch.Tensor:
+            policy=None, cs: Constraint = identity_constraint
+            ) -> torch.Tensor:
   """feats (b, t, feat_dim) -> log_probs (b, t', vocab)."""
   x = _frontend(params, feats, cfg)
   for i in range(len(cfg.gru_dims)):
-    x = gru_forward(params.grus[f"gru{i}"], x, policy)
+    x = gru_forward(params.grus[f"gru{i}"], x, policy, cs)
   return _head(params, x, policy)
 
 
@@ -144,7 +151,8 @@ def output_lengths(input_lengths: torch.Tensor, cfg: ModelConfig
   return (t1 + cfg.time_stride - 1) // cfg.time_stride
 
 
-def loss_fn(params: DeepSpeech2, batch: dict, cfg: ModelConfig
+def loss_fn(params: DeepSpeech2, batch: dict, cfg: ModelConfig,
+            cs: Constraint = identity_constraint
             ) -> tuple[torch.Tensor, dict]:
   """The CTC loss of a batch — feats (b, t, f), feat_lengths (b,),
   labels (b, l), label_lengths (b,), tensors or numpy arrays — through
@@ -154,7 +162,7 @@ def loss_fn(params: DeepSpeech2, batch: dict, cfg: ModelConfig
   feats, feat_lens, labels, label_lens = (
       torch.as_tensor(batch[k], device=dev) for k in
       ("feats", "feat_lengths", "labels", "label_lengths"))
-  log_probs = forward(params, feats, cfg)
+  log_probs = forward(params, feats, cfg, cs=cs)
   loss = ctc_loss(log_probs, output_lengths(feat_lens, cfg), labels,
                   label_lens)
   return loss, {"ctc": loss}

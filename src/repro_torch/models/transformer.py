@@ -39,7 +39,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mla as mla_lib
 from repro_torch.layers import moe as moe_lib
-from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
+                                      identity_constraint)
 from repro_torch.layers.embedding import (Embedding, embed, init_embedding,
                                           logits as lm_logits)
 from repro_torch.layers.ffn import SwiGLU, init_swiglu, swiglu_forward
@@ -262,22 +263,26 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
                        moe_layers, mtp)
 
 
-def _attend(p, x: torch.Tensor, cfg: ModelConfig, policy) -> torch.Tensor:
+def _attend(p, x: torch.Tensor, cfg: ModelConfig, policy,
+            cs: Constraint = identity_constraint) -> torch.Tensor:
   if cfg.mla is not None:
     return mla_lib.mla_forward(p, x, cfg, policy)
-  return attn_lib.attention_forward(p, x, cfg, policy)
+  return attn_lib.attention_forward(p, x, cfg, policy, cs)
 
 
 def _layer_fwd(x: torch.Tensor, lp: dict, cfg: ModelConfig,
-               policy=None) -> torch.Tensor:
+               policy=None, cs: Constraint = identity_constraint
+               ) -> torch.Tensor:
+  lp = cs(lp, "layer_params")
   h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-  x = x + _attend(lp["attn"], h, cfg, policy)
+  x = cs(x + _attend(lp["attn"], h, cfg, policy, cs), "bsd")
   h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-  return x + swiglu_forward(lp["ffn"], h, policy)
+  return cs(x + swiglu_forward(lp["ffn"], h, policy, cs), "bsd")
 
 
 def _moe_layer_fwd(x: torch.Tensor, lp: dict, cfg: ModelConfig,
-                   policy=None) -> tuple[torch.Tensor, torch.Tensor]:
+                   policy=None, cs: Constraint = identity_constraint
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
   h = rms_norm(x, lp["ln1"], cfg.norm_eps)
   x = x + _attend(lp["attn"], h, cfg, policy)
   h = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -297,12 +302,12 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat_layer(cfg: ModelConfig, policy, recorded: bool,
-                 body=_layer_fwd):
+                 body=_layer_fwd, cs: Constraint = identity_constraint):
   """The layer body under `cfg.remat`, as the reference wraps its scanned
   body: "full" recomputes the whole layer in the backward pass, "dots"
   keeps the GEMM outputs and recomputes the rest, "none" keeps all. Only
   a forward that autograd records (`recorded`) is checkpointed."""
-  body = functools.partial(body, cfg=cfg, policy=policy)
+  body = functools.partial(body, cfg=cfg, policy=policy, cs=cs)
   if cfg.remat == "none" or not recorded:
     return body
   if cfg.remat == "full":
@@ -317,19 +322,20 @@ def _remat_layer(cfg: ModelConfig, policy, recorded: bool,
 
 def forward_with_aux(params: TransformerLM, tokens: torch.Tensor,
                      cfg: ModelConfig, *, last_only: bool = False,
-                     policy=None) -> tuple[torch.Tensor, torch.Tensor]:
+                     policy=None, cs: Constraint = identity_constraint
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
   """tokens (b, s) -> (logits (b, s, v), MoE aux loss () f32: the sum of
   the MoE layers' load-balance losses, 0 for a dense model).
 
   last_only=True (serving prefill) narrows to the final position before
   the vocab projection, so the (b, s, v) logits never exist."""
-  x = embed(params.embedding, tokens)
+  x = cs(embed(params.embedding, tokens), "bsd")
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
   recorded = torch.is_grad_enabled() and any(
       p.requires_grad for p in params.parameters())
   with dispatch.scanned():              # the reference's layer scans
     if params.dense_layers is not None:
-      layer = _remat_layer(cfg, policy, recorded)
+      layer = _remat_layer(cfg, policy, recorded, cs=cs)
       for lp in params.dense_layers.layers():
         x = layer(x, lp)
     if params.moe_layers is not None:
@@ -340,15 +346,16 @@ def forward_with_aux(params: TransformerLM, tokens: torch.Tensor,
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   if last_only:
     x = x[:, -1:]
-  return lm_logits(params.embedding, x, policy), aux
+  return cs(lm_logits(params.embedding, x, policy), "bsv"), aux
 
 
 def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ModelConfig,
-            *, last_only: bool = False, policy=None) -> torch.Tensor:
+            *, last_only: bool = False, policy=None,
+            cs: Constraint = identity_constraint) -> torch.Tensor:
   """tokens (b, s) -> logits (b, s, v) (`forward_with_aux` without the
   aux loss)."""
   return forward_with_aux(params, tokens, cfg, last_only=last_only,
-                          policy=policy)[0]
+                          policy=policy, cs=cs)[0]
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -375,7 +382,8 @@ def _mtp_loss(params: TransformerLM, tokens: torch.Tensor,
   return _xent(logits[:, -1:], targets[:, -1:])
 
 
-def loss_fn(params: TransformerLM, batch: dict, cfg: ModelConfig
+def loss_fn(params: TransformerLM, batch: dict, cfg: ModelConfig,
+            cs: Constraint = identity_constraint
             ) -> tuple[torch.Tensor, dict]:
   """The loss of a batch {"tokens", "targets"} (b, s), tensors or numpy
   arrays, through the full forward with no kernel policy (no kernel has a
@@ -388,7 +396,7 @@ def loss_fn(params: TransformerLM, batch: dict, cfg: ModelConfig
   dev = params.final_norm.device
   tokens, targets = (torch.as_tensor(batch[k], device=dev).long()
                      for k in ("tokens", "targets"))
-  logits, aux = forward_with_aux(params, tokens, cfg)
+  logits, aux = forward_with_aux(params, tokens, cfg, cs=cs)
   xent = _xent(logits, targets)
   metrics = {"xent": xent, "moe_aux": aux}
   total = xent
@@ -444,12 +452,15 @@ def decode_state_carry(cfg: ModelConfig) -> dict:
 
 def _decode_stack(params: TransformerLM, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, policy,
-                  attend) -> tuple[torch.Tensor, dict]:
-  x = embed(params.embedding, tokens)
+                  attend, cs: Constraint) -> tuple[torch.Tensor, dict]:
+  x = cs(embed(params.embedding, tokens), "bsd")
+  if cfg.mla is None:
+    attend = functools.partial(attend, cs=cs)
   with dispatch.scanned():              # the reference's layer scans
     for key, stack in params.stacks():
       cache = state[key]
       for i, lp in enumerate(stack.layers()):
+        lp = cs(lp, "layer_params")
         a = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = attend(lp["attn"], a, {k: c[i] for k, c in cache.items()},
                       positions, cfg, policy)
@@ -458,7 +469,7 @@ def _decode_stack(params: TransformerLM, state: dict, tokens: torch.Tensor,
         if "moe" in lp:
           f, _ = moe_lib.moe_forward(lp["moe"], f, cfg, policy)
         else:
-          f = swiglu_forward(lp["ffn"], f, policy)
+          f = swiglu_forward(lp["ffn"], f, policy, cs)
         x = x + f
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   return lm_logits(params.embedding, x, policy), state
@@ -466,17 +477,20 @@ def _decode_stack(params: TransformerLM, state: dict, tokens: torch.Tensor,
 
 def decode_step(params: TransformerLM, state: dict, token: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig,
-                policy=None) -> tuple[torch.Tensor, dict]:
+                policy=None, cs: Constraint = identity_constraint
+                ) -> tuple[torch.Tensor, dict]:
   """token (b, 1), positions (b,) -> (logits (b, 1, v), state), the KV
   (or latent) rows at `positions` written into `state` in place."""
   attend = (mla_lib.mla_decode if cfg.mla is not None
             else attn_lib.attention_decode)
-  return _decode_stack(params, state, token, positions, cfg, policy, attend)
+  return _decode_stack(params, state, token, positions, cfg, policy, attend,
+                       cs)
 
 
 def decode_window(params: TransformerLM, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig,
-                  policy=None) -> tuple[torch.Tensor, dict]:
+                  policy=None, cs: Constraint = identity_constraint
+                  ) -> tuple[torch.Tensor, dict]:
   """Batched window decode: tokens (b, W) at positions `positions + t`
   -> (logits (b, W, v), state after the W tokens, written in place). One
   weight pass for the whole window: every GEMM takes b*W rows (under the
@@ -488,4 +502,5 @@ def decode_window(params: TransformerLM, state: dict, tokens: torch.Tensor,
   did not (the reference's capacity rule, at least 8 slots an expert)."""
   attend = (mla_lib.mla_decode_window if cfg.mla is not None
             else attn_lib.attention_decode_window)
-  return _decode_stack(params, state, tokens, positions, cfg, policy, attend)
+  return _decode_stack(params, state, tokens, positions, cfg, policy, attend,
+                       cs)

@@ -41,7 +41,9 @@ def _tree(params: Params) -> Mapping[str, torch.Tensor]:
 
 
 def init(params: Params) -> AdamState:
-  zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+  # zeros_like: a DTensor param (a mesh) gets moments of its layout
+  zeros = {k: torch.zeros_like(p, dtype=torch.float32,
+                               memory_format=torch.contiguous_format)
            for k, p in _tree(params).items()}
   return AdamState(step=0, m=zeros,
                    v={k: torch.zeros_like(z) for k, z in zeros.items()})

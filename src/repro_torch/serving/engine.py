@@ -38,9 +38,17 @@ prompt's snapshot is published after admission, and with
 `publish_on_retire=True` a retiring slot publishes its conversation
 (prompt and generated tokens but the last). A splice is bit for bit the
 cold state at its length, so greedy serving with the cache emits the
-tokens serving without it emits. Meshes come with a later slice and
-raise if asked for; `compile_stats` has no counterpart (nothing is
-compiled).
+tokens serving without it emits. `compile_stats` has no counterpart
+(nothing is compiled).
+
+With `mesh=` (a `dist.make_mesh` DeviceMesh; the dense transformer) the
+engine lays the weights out by `dist.sharding.param_shardings` on a copy
+of `params` and the decode state by `state_shardings` (the batch axis on
+the data axes, the length axis on the model axis), threads
+`make_constraint`'s `cs` through every step, and gathers each step's
+logits whole, so sampling and the slot lifecycle run as without a mesh.
+Speculation and the prefix cache under a mesh, and every other family,
+wait for ROADMAP.md A6b and raise.
 
 `StreamingSpeechServer` keeps the reference's two surfaces (a
 continuous-batching fleet, and the lockstep chunk API) over one masked
@@ -53,6 +61,7 @@ Stream buffers stay on the server's device.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import time
 from typing import Any, Optional
@@ -61,8 +70,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.dispatch import resolve_policy
-from repro_torch.layers.common import ModelConfig
+from repro_torch.layers.common import ModelConfig, ShapeConfig
 from repro_torch.models import deepspeech
 from repro_torch.models.api import cast_kv_cache, get_model
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -113,10 +123,6 @@ class _SlotState:
   ttft_s: Optional[float] = None
 
 
-#: LMEngine options of the reference that later slices port
-_LATER = {"mesh": "distribution"}
-
-
 def _host_probs(logits: torch.Tensor, temperature: float) -> np.ndarray:
   """softmax(logits / temperature) on the host in float64: the
   acceptance-side view of the distribution `_draw` samples from."""
@@ -144,6 +150,9 @@ class LMEngine:
   (at most 16). `rank_controller` walks `draft_rank` against an
   accept-rate band, rebuilding the draft.
 
+  `mesh` lays the engine out on a DeviceMesh (see the module docstring);
+  the engine's device is then the mesh's.
+
   `prefix_cache` (a `PrefixCache`, which engines may share) splices
   cached prompt prefixes at admission and keeps every admitted prompt's
   snapshot; `publish_on_retire` also keeps each retired conversation's
@@ -156,14 +165,19 @@ class LMEngine:
                draft_params: Any = None, draft_rank: Optional[int] = None,
                rank_controller: Optional[RankController] = None,
                prefix_cache: Optional[PrefixCache] = None,
-               publish_on_retire: bool = False, device=None, **later):
-    for key, val in later.items():
-      if key not in _LATER:
-        raise TypeError(f"LMEngine got an unexpected argument {key!r}")
-      if val:
+               publish_on_retire: bool = False, device=None, mesh=None):
+    self.mesh = mesh
+    if mesh is not None:
+      shd.check_mesh_family(model_cfg)
+      if speculate or prefix_cache is not None:
         raise NotImplementedError(
-            f"LMEngine({key}=...) is not ported yet; it comes with "
-            f"{_LATER[key]}")
+            "LMEngine(mesh=...) with speculation or a prefix cache is not "
+            "ported yet: ROADMAP.md A6b")
+      device = shd.mesh_device(mesh)
+      params = copy.deepcopy(params).to(device)
+      params = shd.distribute_params(params,
+                                     shd.param_shardings(params, mesh))
+    self.cs = shd.make_constraint(mesh, model_cfg, batch_size, decode=True)
     self.device = resolve_device(device)
     self.cfg = model_cfg
     self.params = params.to(self.device)
@@ -230,12 +244,23 @@ class LMEngine:
     state = self.api.init_decode_state(self.cfg, batch, self.max_len,
                                        device=self.device)
     # KV-cache leaves only: recurrent carries keep their precision
-    return cast_kv_cache(state, self.cache_dtype)
+    state = cast_kv_cache(state, self.cache_dtype)
+    if self.mesh is None:
+      return state
+    shape = ShapeConfig("serve", "decode", self.max_len, batch)
+    return shd.distribute_tree(
+        state, shd.state_shardings(state, self.mesh, shape))
 
   def _step(self, state: dict, tokens: torch.Tensor,
             positions: torch.Tensor):
-    return self.api.decode_step(self.params, state, tokens, positions,
-                                self.cfg, self.kernel_policy)
+    if self.mesh is None:
+      return self.api.decode_step(self.params, state, tokens, positions,
+                                  self.cfg, self.kernel_policy)
+    with shd.replicated_plain():
+      logits, state = self.api.decode_step(
+          self.params, state, tokens, positions, self.cfg,
+          self.kernel_policy, cs=self.cs)
+      return shd.gather_tree(logits), state
 
   def _draft_step(self, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor):

@@ -12,6 +12,15 @@ trainer's device as int64 tensors before the step, a whisper batch {frames, toke
 frames and int64 tokens. The transition replaces the factored leaves
 (full rank -> truncated), so it makes new parameters, turns their
 gradients on, and starts new optimizer moments.
+
+Under a mesh (`Trainer(mesh=, batch_size=)`, the dense transformer and
+deepspeech families) the parameters are DTensors laid out by
+`dist.sharding.param_shardings`, each batch by `batch_shardings`, the
+step threads `make_constraint`'s `cs` through the model, and the
+optimizer sees each gradient in its parameter's placements (reduced
+over the data axes). The transition gathers the factors, truncates them
+on every rank alike, and lays the truncated factors out by the same
+rules: only r changes, and r is never sharded.
 """
 from __future__ import annotations
 
@@ -31,7 +40,9 @@ from repro_torch.core.tracenorm import (RegularizerConfig, regularization_loss,
                                         trace_norm_metrics)
 from repro_torch.data.lm import shard_batch
 from repro_torch.device import resolve_device
-from repro_torch.layers.common import ModelConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.layers.common import (Constraint, ModelConfig, ShapeConfig,
+                                       identity_constraint)
 from repro_torch.models.api import ModelApi, get_model
 from repro_torch.optim import AdamWConfig, make_optimizer
 
@@ -62,13 +73,20 @@ def _slice(batch: dict, i: int, k: int) -> dict:
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     api: Optional[ModelApi] = None,
+                    cs: Constraint = identity_constraint,
                     reg: Optional[RegularizerConfig] = None):
   """Build (opt_init, step_fn): step_fn(params, opt_state, batch, step)
   -> (params, opt_state, metrics), updating params and opt_state in
   place. `step_fn.grads_of(params, batch)` -> (loss, metrics, grads) is
   its gradient half: k microbatches (`train_cfg.microbatches`) slice the
   leading dim, their f32 gradients are summed and divided by k, the loss
-  is their mean and the metrics the last one's."""
+  is their mean and the metrics the last one's.
+
+  `cs` (from `dist.sharding.make_constraint`) is threaded through the
+  model's loss; with one, the params are DTensors, the step runs with
+  plain tensors taken as replicated (`implicit_replication`), and every
+  gradient is redistributed to its parameter's placements before the
+  optimizer sees it."""
   api = api or get_model(model_cfg)
   if api.loss_fn is None:
     raise NotImplementedError(
@@ -77,8 +95,13 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
   reg = train_cfg.regularizer if reg is None else reg
   opt_init, opt_apply = make_optimizer(train_cfg.optimizer)
 
+  sharded = cs is not identity_constraint
+
   def loss_fn(params, batch):
-    loss, metrics = api.loss_fn(params, batch, model_cfg)
+    if sharded:
+      loss, metrics = api.loss_fn(params, batch, model_cfg, cs)
+    else:
+      loss, metrics = api.loss_fn(params, batch, model_cfg)
     if reg.kind != "none":
       r = regularization_loss(params, reg)
       metrics = dict(metrics, reg=r)
@@ -89,6 +112,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     tree = param_tree(params)
     loss, metrics = loss_fn(params, batch)
     grads = torch.autograd.grad(loss, list(tree.values()))
+    if sharded:
+      grads = [g.redistribute(p.device_mesh, p.placements)
+               for g, p in zip(grads, tree.values())]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             dict(zip(tree, grads)))
 
@@ -105,10 +131,11 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     return loss_sum / k, metrics, {n: g / k for n, g in gsum.items()}
 
   def step_fn(params, opt_state, batch, step: int):
-    loss, metrics, grads = grads_of(params, batch)
-    lr = _lr_at(train_cfg.lr, step)
-    params, opt_state, opt_metrics = opt_apply(
-        params, grads, opt_state, lr, train_cfg.adam)
+    with shd.replicated_plain(sharded):
+      loss, metrics, grads = grads_of(params, batch)
+      lr = _lr_at(train_cfg.lr, step)
+      params, opt_state, opt_metrics = opt_apply(
+          params, grads, opt_state, lr, train_cfg.adam)
     metrics = dict(metrics, loss=loss, lr=lr, **opt_metrics)
     return params, opt_state, metrics
 
@@ -144,28 +171,35 @@ class Trainer:
   """Drives make_train_step with the two-stage schedule and checkpoints.
 
   The model is drawn from `generator` (default: a CPU generator seeded
-  with 0) on `device` (default: the GPU; the CPU only when asked). A
-  mesh is not ported yet."""
+  with 0) on `device` (default: the GPU; the CPU only when asked). With
+  a `mesh` (a `dist.make_mesh` DeviceMesh) every rank draws the same
+  weights on the mesh's device and keeps its shards of them, and
+  `batch_size` (the global batch) gates the data axis of the
+  activations."""
 
   def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *,
                schedule: Optional[TwoStageSchedule] = None,
                plan: Optional[FactorizationPlan] = None, mesh=None,
+               batch_size: int = 0,
                generator: Optional[torch.Generator] = None, device=None):
     if mesh is not None:
-      raise NotImplementedError(
-          "Trainer(mesh=...) is not ported yet: ROADMAP, \"Distribution\"")
+      shd.check_mesh_family(model_cfg)
+      device = shd.mesh_device(mesh)
     self.model_cfg = model_cfg
     self.train_cfg = train_cfg
     self.schedule = schedule
     self.plan = plan or FactorizationPlan()
     self.api = get_model(model_cfg)
+    self.mesh = mesh
+    self.batch_size = batch_size
+    self.cs = shd.make_constraint(mesh, model_cfg, batch_size)
     self.device = resolve_device(device)
     gen = torch.Generator().manual_seed(0) if generator is None \
         else generator
     params = self.api.init(model_cfg, generator=gen, device=self.device)
     if schedule is not None and schedule.regularizer.kind == "trace":
       params = to_stage1(params, self.plan)     # full-rank factored form
-    self.params = trainable(params)
+    self.params = trainable(self._lay_out(params))
     self.step = 0
     self.stage = 1 if schedule is not None else 0
     self._lr_scale = 1.0
@@ -174,6 +208,14 @@ class Trainer:
     self.ckpt = (CheckpointManager(train_cfg.checkpoint_dir)
                  if train_cfg.checkpoint_dir else None)
     self.metrics_history: list[dict] = []
+
+  def _lay_out(self, params: nn.Module) -> nn.Module:
+    """`params` laid out on the mesh by `param_shardings` (no mesh: as
+    they are)."""
+    if self.mesh is None:
+      return params
+    return shd.distribute_params(params,
+                                 shd.param_shardings(params, self.mesh))
 
   def _current_reg(self) -> RegularizerConfig:
     if self.schedule is None:
@@ -185,7 +227,7 @@ class Trainer:
     if self._scaled_lr() is not tc.lr:
       tc = dataclasses.replace(tc, lr=self._scaled_lr())
     self._opt_init, self._step_fn = make_train_step(
-        self.model_cfg, tc, self.api, reg=reg)
+        self.model_cfg, tc, self.api, self.cs, reg=reg)
 
   def _scaled_lr(self):
     base = self.train_cfg.lr
@@ -210,27 +252,42 @@ class Trainer:
     if (self.schedule is None or self.stage != 1 or
         self.step < self.schedule.transition_step):
       return False
-    self.params = trainable(to_stage2(self.params, self.plan,
-                                      self.schedule.truncation))
+    params = self.params if self.mesh is None else \
+        shd.gather_params(self.params)
+    self.params = trainable(self._lay_out(
+        to_stage2(params, self.plan, self.schedule.truncation)))
     self._enter_stage2()
     self.opt_state = self._opt_init(self.params)
     return True
 
   # -- stepping ---------------------------------------------------------------
 
+  def _put_batch(self, batch: dict) -> dict:
+    if self.api.family in ("transformer", "zamba", "xlstm"):
+      return shard_batch(batch, self.device, mesh=self.mesh,
+                         global_batch=self.batch_size)
+    if self.api.family == "whisper":
+      return {"frames": torch.as_tensor(batch["frames"], dtype=torch.float32,
+                                        device=self.device),
+              **shard_batch({k: batch[k] for k in ("tokens", "targets")},
+                            self.device)}
+    if self.mesh is None:
+      return batch
+    # deepspeech: every field on the device as its own dtype, rows laid
+    # out over the data axes
+    batch = {k: torch.as_tensor(v, device=self.device)
+             for k, v in batch.items()}
+    shape = ShapeConfig("train", "train", 0, self.batch_size)
+    return shd.distribute_tree(batch, shd.batch_shardings(batch, self.mesh,
+                                                          shape))
+
   def train_step(self, batch: dict) -> dict:
     self.maybe_transition()
     t0 = time.perf_counter()
-    if self.api.family in ("transformer", "zamba", "xlstm"):
-      batch = shard_batch(batch, self.device)
-    elif self.api.family == "whisper":
-      batch = {"frames": torch.as_tensor(batch["frames"], dtype=torch.float32,
-                                         device=self.device),
-               **shard_batch({k: batch[k] for k in ("tokens", "targets")},
-                             self.device)}
+    batch = self._put_batch(batch)
     self.params, self.opt_state, metrics = self._step_fn(
         self.params, self.opt_state, batch, self.step)
-    metrics = {k: float(v) for k, v in metrics.items()}
+    metrics = {k: float(shd.gather_tree(v)) for k, v in metrics.items()}
     metrics["step"] = self.step
     metrics["stage"] = self.stage
     metrics["wall_s"] = time.perf_counter() - t0
@@ -266,12 +323,16 @@ class Trainer:
     if self.ckpt is None:
       raise ValueError("no checkpoint dir configured")
     self.ckpt.wait()
-    params = _shaped_as_stored(self.params,
-                               self.ckpt.manifest(step)["leaves"])
+    params = self.params if self.mesh is None else \
+        shd.gather_params(self.params)
+    params = _shaped_as_stored(params, self.ckpt.manifest(step)["leaves"])
     template = {"params": params, "opt": self._opt_init(params)}
     tree, extra = self.ckpt.restore(template, step=step)
-    self.params = trainable(tree["params"])
+    self.params = trainable(self._lay_out(tree["params"]))
     self.opt_state = tree["opt"]
+    if self.mesh is not None:
+      self.opt_state = shd.lay_out_like(self.opt_state,
+                                        self._opt_init(self.params))
     self.step = int(extra.get("step", 0))
     stage = int(extra.get("stage", self.stage))
     if stage == 2 and self.stage != 2:

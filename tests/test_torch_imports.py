@@ -46,7 +46,9 @@ def test_port_imports_neither_jax_nor_reference():
           "configs/deepseek_v2_lite.py",
           "configs/deepseek_v3_671b.py", "configs/xlstm_350m.py",
           "layers/xlstm.py", "models/xlstm_model.py",
-          "serving/prefix_cache.py"} <= names
+          "serving/prefix_cache.py", "dist/__init__.py", "dist/mesh.py",
+          "dist/sharding.py", "launch/mesh.py", "optim/q_adam.py",
+          "optim/compress.py", "configs/specs.py"} <= names
   bad = [(f.relative_to(PORT), mod) for f in files
          for mod in _imported_modules(f)
          if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
@@ -99,7 +101,8 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
   """`Trainer` and `launch.train` run on the GPU unless asked for the
   CPU; with no GPU they raise. On the CPU the launcher trains the DS2
   smoke model through both stages and a transformer's; a family neither
-  package has, and a mesh (not ported yet), are refused and say so."""
+  package has, and a mesh on a family whose sharded execution is not
+  ported yet, are refused and say so."""
   from repro_torch import configs
   from repro_torch.launch import train
   from repro_torch.training import TrainConfig, Trainer
@@ -109,8 +112,9 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
     Trainer(cfg, TrainConfig())
   with pytest.raises(RuntimeError, match="device='cpu'"):
     train.main(["--arch", "deepspeech2-wsj", "--steps", "1"])
-  with pytest.raises(NotImplementedError, match="Distribution"):
-    Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
+  with pytest.raises(NotImplementedError, match="A6b"):
+    Trainer(configs.get_smoke("zamba2-7b"), TrainConfig(), mesh=object(),
+            device="cpu")
   with pytest.raises(ValueError, match="unknown model family"):
     Trainer(cfg.with_(family="rwkv"), TrainConfig(), device="cpu")
   lm_out = train.main(["--arch", "llama3-8b", "--device", "cpu", "--steps",

@@ -314,9 +314,9 @@ def test_engine_static_surface_and_limits(tparams):
   logits = eng.prefill(prompts)
   assert logits.shape == (2, 1, cfg.vocab_size)
   np.testing.assert_array_equal(eng.positions, [4, 4])
-  with pytest.raises(NotImplementedError, match="distribution"):
-    LMEngine(cfg, tparams, batch_size=2, max_len=10, device="cpu",
-             mesh=object())
+  with pytest.raises(NotImplementedError, match="A6b"):
+    LMEngine(cfg.with_(family="zamba"), tparams, batch_size=2, max_len=10,
+             device="cpu", mesh=object())
 
 
 def test_quantized_engine_is_policy_invariant(tparams):

@@ -9,7 +9,10 @@ gradient within 1e-4 relative in norm (f32 forward and backward, summed
 in another order); AdamW params and moments within 1e-6; the two-stage
 losses within 1e-3 relative of the reference's at every step (Adam
 divides each gradient by its own scale, so the step-0 differences grow
-a little each step); ranks and checkpoints exactly."""
+a little each step); ranks and checkpoints exactly. The A5 example
+(`examples/train_speech_e2e_torch.py`) runs 4 steps at smoke size."""
+import os
+
 import numpy as np
 import pytest
 
@@ -265,8 +268,8 @@ def test_adamw_decays_matrices_only_and_keeps_f32_moments():
   assert float(p["w"][0, 0]) == 0.75 and float(p["b"][0]) == 1.0
   from repro_torch.optim import make_optimizer
   assert make_optimizer("adamw") == (adamw.init, adamw.apply)
-  with pytest.raises(NotImplementedError, match="Distribution"):
-    make_optimizer("q_adam")
+  from repro_torch.optim import q_adam
+  assert make_optimizer("q_adam") == (q_adam.init, q_adam.apply)
 
 
 def test_microbatches_match_full_batch():
@@ -408,3 +411,23 @@ def test_quantized_model_checkpoint_roundtrips_bit_identical(tmp_path):
   for (k, a), (_, b) in zip(q.state_dict().items(),
                             back["params"].state_dict().items()):
     assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+def test_speech_e2e_example_runs_both_stages(tmp_path):
+  """`examples/train_speech_e2e_torch.py` at smoke size on the CPU: 4
+  supervised steps with the transition at 2, checkpoints, CER before and
+  after, and a smaller stage-2 model."""
+  import importlib.util
+  path = os.path.join(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), "examples", "train_speech_e2e_torch.py")
+  spec = importlib.util.spec_from_file_location("train_speech_e2e_torch",
+                                                path)
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  out = mod.main(["--device", "cpu", "--steps", "4", "--transition", "2",
+                  "--checkpoint-dir", str(tmp_path)])
+  assert out["stage"] == 2 and len(out["losses"]) == 4
+  assert all(np.isfinite(out["losses"]))
+  assert out["params_after"] < out["params_before"]
+  assert 0.0 <= out["cer_before"] and 0.0 <= out["cer_after"]
+  assert out["checkpoints"] == [2, 4]
