@@ -292,10 +292,19 @@
    `LMEngine(mesh=)` on `qwen3-4b` at full width cut to
    `PREFIX_QWEN_LAYERS` layers against `mesh=None`, phase 5's 8
    requests under "cuda": tokens and `decode_matvec` launches equal.
-   (c) `compressed_grad_mean` through the world's all-reduces, within
-   `COMPRESS_REL` of the exact mean. Two ranks sharing the card (gloo
-   on CUDA tensors) are not run: DTensor's all-gather dies there
-   (`chip_gloo_probe.py`).
+   `compressed_grad_mean` through the world's all-reduces, within
+   `COMPRESS_REL` of the exact mean. (c) `deepseek-v2-lite` at full
+   width cut to phase 11's 2 layers (its expert stacks left dense,
+   `MESH_DS_EXCLUDE`) trained through the transition under a mesh and
+   with none: losses, parameters and routes bit for bit. (d)
+   `LMEngine(mesh=)` against `mesh=None` on deepseek-v2-lite, zamba2-7b,
+   xlstm-350m (cut, `MESH_LAYERS`) and whisper-small; (e) zamba2-7b's
+   speculative engine; (f) qwen3-4b's prefix cache: tokens, launches,
+   replays and cache statistics equal. (g) `flash_attention` under
+   `heads_local`: whisper-small's `encode` and the zamba2-7b cut's
+   prefill on the mesh and with none, bit for bit with equal launches.
+   Two ranks sharing the card (gloo on CUDA tensors) are not run:
+   DTensor's all-gather dies there (`chip_gloo_probe.py`).
 15. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
@@ -2141,11 +2150,12 @@ def run_speculative(lm, cfg, card, draft, built: dict) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None, mesh=None,
-                 optimizer="adamw"):
+                 optimizer="adamw", exclude=("*embed*",)):
   """`launch/train.py`'s trainer: two stages (trace norm, transition at
-  TRAIN_TRANSITION), its plan, cosine LR (or a constant `lr`), random
-  weights from seed 0 (a CPU generator's, unless `generator`); on `mesh`
-  with `optimizer` where given (phase 14)."""
+  TRAIN_TRANSITION), its plan (leaving `exclude` unfactored), cosine LR
+  (or a constant `lr`), random weights from seed 0 (a CPU generator's,
+  unless `generator`); on `mesh` with `optimizer` where given (phase
+  14)."""
   from repro_torch.core.compress import FactorizationPlan
   from repro_torch.core.schedule import TwoStageSchedule, cosine_schedule
   from repro_torch.core.svd import TruncationSpec
@@ -2162,10 +2172,11 @@ def make_trainer(cfg, device, ckpt_dir, lr=None, generator=None, mesh=None,
                                   async_checkpoint=False,
                                   optimizer=optimizer),
                  schedule=sched,
-                 plan=FactorizationPlan(min_dim=32, exclude=("*embed*",)),
+                 plan=FactorizationPlan(min_dim=32, exclude=exclude),
                  generator=generator or torch.Generator().manual_seed(0),
                  device=device, mesh=mesh,
-                 batch_size=TRAIN_BATCH if mesh is not None else 0)
+                 batch_size=0 if mesh is None else TRAIN_BATCH
+                 if cfg.family == "deepspeech" else LM_TRAIN_BATCH)
 
 
 def train_batch(cfg, step: int) -> dict:
@@ -3818,6 +3829,15 @@ def check_xlstm(card) -> tuple[dict, list[dict]]:
 Q_ADAM_BYTES_RATIO = 0.3
 #: the compressed mean's bound against the exact one (tests/test_dist.py)
 COMPRESS_REL = 0.02
+#: (c)'s plan leaves the expert stacks dense: factoring them is most of
+#: phase 11's ~20 s init and ~40 s transition, which (c) would pay twice
+MESH_DS_EXCLUDE = ("*embed*", "*expert*")
+#: (d)'s depth cuts; whisper-small runs at full depth
+MESH_LAYERS = {"deepseek-v2-lite": 4, "zamba2-7b": 7, "xlstm-350m": 4}
+#: (d)'s xlstm prompts, cut: the sLSTM runs a token at a time
+MESH_XLSTM_PROMPT = 4
+#: (g)'s zamba prefill: one row of this many tokens through the 7-layer cut
+MESH_FLASH_TOKENS = 1024
 
 
 def _median_ms(steps: list, stage: int) -> float:
@@ -3943,6 +3963,235 @@ def check_compressed_mean(card) -> dict:
   return out
 
 
+def check_ds_training_on_mesh(card, mesh) -> dict:
+  """(c) deepseek-v2-lite at full width cut to DS_TRAIN_LAYERS (phase
+  11's trainer and CUDA-seeded weights; the plan leaves the expert
+  stacks dense, MESH_DS_EXCLUDE) trained TRAIN_STEPS steps through the
+  transition under `Trainer(mesh=)` and with none: every loss, every
+  parameter and every MoE call's routes (`moe.record_routes`) equal, bit
+  for bit. Returns the summary."""
+  from repro_torch import configs
+  from repro_torch.core.factored import param_tree
+  from repro_torch.dist.sharding import gather_params
+  from repro_torch.layers import moe
+  cfg = configs.get_config(DS_ARCH).with_(num_layers=DS_TRAIN_LAYERS)
+  runs = {}
+  for name, m in (("none", None), ("mesh", mesh)):
+    tr = make_trainer(cfg, "cuda", ROOT / "build" / "ds_mesh_ckpt",
+                      generator=torch.Generator(device="cuda").manual_seed(0),
+                      mesh=m, exclude=MESH_DS_EXCLUDE)
+    with moe.record_routes() as log:
+      steps = [tr.train_step(train_batch(cfg, i)) for i in range(TRAIN_STEPS)]
+    params = param_tree(gather_params(tr.params) if m is not None
+                        else tr.params)
+    runs[name] = (steps, {k: v.detach().clone() for k, v in params.items()},
+                  [e["experts"] for e in log])
+    del tr, params
+    free()
+  (steps_n, pn, routes_n), (steps_m, pm, routes_m) = runs["none"], runs["mesh"]
+  if [s["loss"] for s in steps_m] != [s["loss"] for s in steps_n] or \
+      [s["stage"] for s in steps_m] != [s["stage"] for s in steps_n]:
+    fail(f"{cfg.name} on a mesh of one: losses {[s['loss'] for s in steps_m]}"
+         f" != {[s['loss'] for s in steps_n]}")
+  differ = [k for k in pn if k not in pm or not torch.equal(pm[k], pn[k])]
+  if sorted(pm) != sorted(pn) or differ:
+    fail(f"{cfg.name} on a mesh of one: {len(differ)} leaves differ, first "
+         f"{differ[:3]}")
+  if len(routes_m) != len(routes_n) or not routes_n or not all(
+      np.array_equal(a, b) for a, b in zip(routes_m, routes_n)):
+    fail(f"{cfg.name} on a mesh of one: routes differ")
+  summary = dict(
+      mesh_trained=cfg.name, card=card, layers=cfg.num_layers,
+      exclude=list(MESH_DS_EXCLUDE), steps=TRAIN_STEPS,
+      transition_step=TRAIN_TRANSITION,
+      losses=[s["loss"] for s in steps_m], bit_for_bit=True,
+      moe_calls=len(routes_m),
+      median_step_ms={f"stage{s}": {"mesh": _median_ms(steps_m, s),
+                                    "none": _median_ms(steps_n, s)}
+                      for s in (1, 2)})
+  print(json.dumps(summary), flush=True)
+  return summary
+
+
+def mesh_vs_none(card, mesh, name, cfg, lm, reqs, cache: bool = False,
+                 **kw) -> tuple[dict, dict]:
+  """`LMEngine` on `mesh` against mesh=None under "cuda" (`kw`: the
+  speculative engine's; `cache`: each engine with a new
+  PrefixCache(PREFIX_CACHE_MB)), greedy on `reqs`: tokens, every
+  kernel's launches, the target's replays and the cache's statistics
+  equal. Returns (the mesh run's launches, the summary, which has each
+  engine's tok/s)."""
+  from repro_torch.kernels import ops
+  from repro_torch.serving.engine import LMEngine
+  from repro_torch.serving.prefix_cache import PrefixCache
+  out = {}
+  for tag, m in (("none", None), ("mesh", mesh)):
+    if cache:
+      kw["prefix_cache"] = PrefixCache(PREFIX_CACHE_MB)
+    eng = LMEngine(cfg, lm, batch_size=SERVE_BATCH, max_len=64,
+                   kernel_policy="cuda", mesh=m,
+                   device=None if m is not None else "cuda", **kw)
+    eng.submit(np.arange(1, 5), max_new_tokens=2)      # warm-up, as
+    eng.run()                                          # `lm_engine`'s
+    eng.reset()
+    replays = []
+    if eng._has_carry and eng.speculate:
+      replay = eng._replay
+
+      def counted(step, state, window, commit, pos0):
+        if step == eng._step:
+          replays.append([int(c) for i, c in enumerate(commit)
+                          if eng._slots[i].active])
+        return replay(step, state, window, commit, pos0)
+      eng._replay = counted
+    for prompt, budget in reqs:
+      eng.submit(prompt, max_new_tokens=budget)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fin = eng.run(temperature=0.0)
+    torch.cuda.synchronize()
+    out[tag] = dict(tokens={f.uid: f.tokens.tolist() for f in fin},
+                    launches=dict(ops.LAUNCHES), s=time.perf_counter() - t0,
+                    replays=replays, n=sum(len(f.tokens) for f in fin),
+                    stats=eng.cache_stats(), accept=eng.accept_rate)
+    del eng
+    free()
+  m_, n_ = out["mesh"], out["none"]
+  for key in ("tokens", "launches", "replays"):
+    if m_[key] != n_[key]:
+      fail(f"{name} on a mesh of one: {key} differ ({m_[key]} vs "
+           f"{n_[key]})")
+  if not any(m_["launches"].values()):
+    fail(f"{name} on a mesh of one: no kernel launched")
+  summary = dict(mesh_serving=name, layers=cfg.num_layers, card=card,
+                 requests=len(reqs), tokens=m_["n"], launches=m_["launches"],
+                 tok_per_s={k: v["n"] / v["s"] for k, v in out.items()},
+                 mesh_over_none_s=m_["s"] / n_["s"])
+  if m_["replays"]:
+    summary.update(replays=len(m_["replays"]), masked_replays=sum(
+        len(set(c)) > 1 for c in m_["replays"]), accept_rate=m_["accept"])
+  if cache:
+    keys = ("hits", "misses", "evictions", "inserts", "entries", "bytes")
+    if any(m_["stats"][k] != n_["stats"][k] for k in keys) or \
+        not m_["stats"]["hits"]:
+      fail(f"{name} on a mesh of one: cache stats {m_['stats']} vs "
+           f"{n_['stats']}")
+    summary["cache"] = {k: m_["stats"][k] for k in keys}
+  print(json.dumps(summary), flush=True)
+  return m_["launches"], summary
+
+
+def check_families_on_mesh(card, mesh) -> tuple[dict, dict]:
+  """(d) `LMEngine(mesh=)` against mesh=None on phase 5's 8 requests:
+  deepseek-v2-lite, zamba2-7b and xlstm-350m cut in depth (MESH_LAYERS;
+  xlstm's prompts cut to MESH_XLSTM_PROMPT tokens), whisper-small at
+  full depth (its zero memory, as the reference's engine serves it);
+  (e) the speculative engine on the zamba2-7b cut with a rank-128 draft,
+  its residuals shrunk (tokens and replays equal, a masked replay); (f) the prefix cache on qwen3-4b cut to
+  PREFIX_QWEN_LAYERS (tokens, hits, evictions and bytes equal). Returns
+  (launches by path, summaries)."""
+  from repro_torch import configs
+  from repro_torch.models import whisper
+  from repro_torch.serving.speculative import make_draft_params
+  by_path, out = {}, {}
+  builds = {DS_ARCH: build_lm, ZAMBA_ARCH: build_zamba,
+            XLSTM_ARCH: build_xlstm,
+            "whisper-small": lambda c: whisper.init_model(
+                c, generator=torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")}
+  for arch, build in builds.items():
+    cfg = configs.get_config(arch)
+    if arch in MESH_LAYERS:
+      cfg = cfg.with_(num_layers=MESH_LAYERS[arch])
+    reqs = lm_requests(cfg)
+    if arch == XLSTM_ARCH:
+      reqs = [(p[:MESH_XLSTM_PROMPT], b) for p, b in reqs]
+    lm = build(cfg)
+    by_path[f"{cfg.family}_mesh_serving"], out[arch] = mesh_vs_none(
+        card, mesh, arch, cfg, lm, reqs)
+    if arch == ZAMBA_ARCH:
+      # the target's residuals shrunk as phase 12's (e), so that windows
+      # commit different lengths and the per-slot replay runs
+      draft = make_draft_params(lm, rank=DRAFT_RANK)
+      shrink_residuals(lm, draft, ZAMBA_SPEC_RESIDUAL, 14)
+      by_path["zamba_mesh_speculative"], out["speculative"] = mesh_vs_none(
+          card, mesh, f"{arch} speculative", cfg, lm, reqs,
+          speculate=SPEC_K, draft_params=draft)
+      if not out["speculative"].get("masked_replays"):
+        fail(f"{arch} speculative on a mesh of one: no masked replay")
+      del draft
+    del lm
+    free()
+  qcfg = configs.get_config("qwen3-4b").with_(num_layers=PREFIX_QWEN_LAYERS)
+  lm = build_lm(qcfg)
+  by_path["qwen3_mesh_prefix_cache"], out["prefix"] = mesh_vs_none(
+      card, mesh, "qwen3-4b prefix cache", qcfg, lm, prefix_requests(qcfg),
+      cache=True)
+  del lm
+  free()
+  return by_path, out
+
+
+def check_flash_on_mesh(card, mesh) -> tuple[dict, dict]:
+  """(g) flash_attention under `heads_local`: whisper-small's `encode`
+  as phase 8 runs it and the zamba2-7b cut's `forward` over one
+  MESH_FLASH_TOKENS-token row (its shared block), on `mesh` and with
+  none under "cuda": the memory and the logits equal bit for bit, and
+  every kernel's launches equal, flash's at least one a layer or a
+  group.
+  Returns (launches by path, summary)."""
+  from repro_torch import configs
+  from repro_torch.dist import sharding as shd
+  from repro_torch.kernels import dispatch
+  from repro_torch.models import whisper, zamba
+  wcfg = configs.get_config("whisper-small").with_(
+      attn_block_kv=WHISPER_BLOCK_KV)
+  zcfg = configs.get_config(ZAMBA_ARCH).with_(num_layers=ZAMBA_CUT_LAYERS)
+  frames = whisper_frames(wcfg, 0)
+  tokens = torch.randint(1, zcfg.vocab_size, (1, MESH_FLASH_TOKENS),
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             4), device="cuda")
+  cases = (
+      ("whisper_mesh_encode", wcfg, frames, wcfg.encoder_layers,
+       lambda c: whisper.init_model(c, generator=torch.Generator(
+           device="cuda").manual_seed(0), device="cuda"),
+       lambda p, x, c, pol, cs: whisper.encode(p, x, c, pol, cs=cs)),
+      ("zamba_mesh_prefill", zcfg, tokens, zamba._plan(zcfg)[1], build_zamba,
+       lambda p, x, c, pol, cs: zamba.forward(p, x, c, policy=pol, cs=cs)))
+  by_path, summary = {}, dict(flash_on_mesh=True, card=card)
+  for path, cfg, x, flashes, build, run in cases:
+    model = build(cfg)
+    pol = dispatch.resolve_policy("cuda", x.shape[0])
+    out = {}
+    for tag, m in (("none", None), ("mesh", mesh)):
+      p, xi = model, x
+      if m is not None:
+        p = shd.distribute_params(copy.deepcopy(model),
+                                  shd.param_shardings(model, m))
+        xi = shd.distribute_tensor_local(
+            x, m, shd.rows_placements(m, x.shape[0]))
+      cs = shd.make_constraint(m, cfg, x.shape[0])
+      with torch.no_grad(), shd.replicated_plain(m is not None):
+        run(p, xi, cfg, pol, cs)                    # warm-up
+        y, dt, launches, _ = counted(lambda: run(p, xi, cfg, pol, cs))
+      out[tag] = (shd.gather_tree(y), dt, launches)
+      del p
+    (yn, dtn, ln), (ym, dtm, lm_) = out["none"], out["mesh"]
+    if not torch.equal(ym, yn) or lm_ != ln or \
+        ln.get("flash_attention", 0) < flashes:
+      fail(f"{path} on a mesh of one: outputs equal {torch.equal(ym, yn)}, "
+           f"launches {lm_} vs {ln} (at least {flashes} flash)")
+    summary[path] = dict(layers=cfg.num_layers, shape=list(x.shape),
+                         launches=lm_, ms={"mesh": dtm * 1e3,
+                                           "none": dtn * 1e3})
+    by_path[path] = lm_
+    del model, out, ym, yn
+    free()
+  print(json.dumps(summary), flush=True)
+  return by_path, summary
+
+
 def check_distribution(card) -> tuple[dict, dict]:
   """Phase 14. Returns (launches by path, summaries)."""
   import torch.distributed as dist
@@ -3958,6 +4207,11 @@ def check_distribution(card) -> tuple[dict, dict]:
   by_path["qwen3_mesh_serving"], out["b"] = check_lm_on_mesh_of_one(card,
                                                                     mesh)
   out["compress"] = check_compressed_mean(card)
+  out["c"] = check_ds_training_on_mesh(card, mesh)
+  paths, out["d-f"] = check_families_on_mesh(card, mesh)
+  by_path.update(paths)
+  paths, out["g"] = check_flash_on_mesh(card, mesh)
+  by_path.update(paths)
   dist.destroy_process_group()
   return by_path, out
 

@@ -362,83 +362,34 @@ def is_dtensor(x) -> bool:
   return isinstance(x, DTensor)
 
 
-def _batch_placements(mesh, rows: int) -> list:
-  """Rows on the data axes (where they divide them), whole elsewhere."""
+def rows_placements(mesh, rows: int) -> list:
+  """Rows of a batch-leading tensor on the data axes (where they divide
+  them), whole on the model axis: the layout of per-row work."""
   return placements(_gate(("data",), (rows,), mesh), mesh)
 
 
-def rows_local(fn, *args, **kwargs):
-  """Run `fn` on each rank's rows of the batch-leading tensors `args`.
-
-  Every DTensor argument is laid out with its leading (batch) dim on the
-  data axes and whole on the others, and handed to `fn` as its local
-  tensor; a plain tensor argument is sliced to the same rows. Returns
-  (fn's result on the local rows, `whole`): `whole(x)` gathers a
-  per-row result of the local rows into a replicated DTensor of all the
-  rows, differentiably (a DTensor, so that autograd keeps a DTensor
-  boundary where it meets the other DTensors of a loss). For per-row
-  work with in-place updates (the CTC recursion) that no DTensor op rule
-  covers."""
-  from torch.distributed.tensor import DTensor, Replicate
-  mesh = next(a.device_mesh for a in args if is_dtensor(a))
-  rows = args[0].shape[0]
-  pl = _batch_placements(mesh, rows)
-  local = []
-  for a in args:
-    if not is_dtensor(a):
-      a = distribute_tensor_local(a, mesh, pl)
-    local.append(a.redistribute(mesh, pl).to_local())
-  out = fn(*local, **kwargs)
-
-  def whole(x):
-    return DTensor.from_local(x, mesh, pl).redistribute(
-        mesh, [Replicate()] * len(pl))
-  return out, whole
-
-
-def rows_apply(fn, x: torch.Tensor, *weights: torch.Tensor, **kwargs):
-  """fn(x, *weights, **kwargs) on each rank's rows of the batch-leading x,
-  for a per-row op (the DS2 convolutions) whose DTensor rule is narrower
-  than the op: x is laid out with its rows on the data axes and whole
-  elsewhere, each weight whole, and the result is a DTensor of x's rows.
-  A weight's gradient comes back partial over the data axes (each rank
-  saw its own rows), to be reduced where the gradient meets its
-  parameter's placements."""
-  from torch.distributed.tensor import DTensor, Partial, Replicate
-  mesh = next(t.device_mesh for t in (x,) + weights if is_dtensor(t))
-  pl = _batch_placements(mesh, x.shape[0])
-  xl = (x if is_dtensor(x) else distribute_tensor_local(x, mesh, pl))
-  xl = xl.redistribute(mesh, pl).to_local()
-  whole = [Replicate()] * mesh.ndim
-  grad_pl = [Partial() if p.is_shard() else Replicate() for p in pl]
-  wl = [w.redistribute(mesh, whole).to_local(grad_placements=grad_pl)
-        if is_dtensor(w) else w for w in weights]
-  return DTensor.from_local(fn(xl, *wl, **kwargs), mesh, pl)
+def rows_local(fn, *args, n_out: int = 1, whole: Sequence = (), **kwargs):
+  """`fn(*args, *whole, **kwargs)` on each rank's rows of the
+  batch-leading `args`, whole on the model axis; `whole` (tensors or
+  GEMM leaves: weights) whole on every rank, a weight's gradient partial
+  over the axes that split the rows. fn's results (`n_out` of them) are
+  laid out as the rows. For per-row work that no DTensor op rule covers:
+  the CTC recursion, the DS2 convolutions, the xLSTM loops."""
+  return split_call(fn, *[(a, "b") for a in args],
+                    *[(w, "") for w in whole],
+                    out="b" if n_out == 1 else ("b",) * n_out, **kwargs)
 
 
 def heads_local(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                **kwargs) -> torch.Tensor:
-  """Attention `fn(q, k, v, **kwargs)` on each rank's rows and heads.
-
-  q (b, s, h, hd), k and v (b, s, kv, hd) are laid out by the "bshd_q" /
-  "bshd_kv" rules (batch on the data axes, heads on the model axis),
-  the head split kept only where the model degree divides both h and kv,
-  so that every local q head finds its GQA kv head locally. `fn` runs
-  on the local tensors (the kernel or the plain route, as it would on
-  one device); the output carries q's layout."""
-  from torch.distributed.tensor import DTensor
-  mesh = q.device_mesh
-  m = axis_sizes(mesh).get(MODEL_AXIS, 1)
-  head = "model" if q.shape[2] % m == 0 and k.shape[2] % m == 0 else None
-  local, pl_q = [], None
-  for t in (q, k, v):
-    pl = placements(_gate(("data", None, head, None), tuple(t.shape), mesh),
-                    mesh)
-    pl_q = pl_q or pl
-    local.append(t.redistribute(mesh, pl).to_local())
-  out = fn(*local, **kwargs)
-  return DTensor.from_local(out, mesh, pl_q, shape=q.shape,
-                            stride=contiguous_stride(q.shape))
+                *rows: torch.Tensor, **kwargs) -> torch.Tensor:
+  """Attention `fn(q, k, v, *rows, **kwargs)` on each rank's rows and
+  heads: q (b, s, h, hd), k and v (b, t, kv, hd) with the batch on the
+  data axes and the heads on the model axis where the model degree
+  divides both h and kv (so every local q head finds its GQA kv head
+  locally); `rows` (per-row tensors: positions) on the rows alone. The
+  output carries q's layout."""
+  return split_call(fn, (q, "bsh"), (k, "bsh"), (v, "bsh"),
+                    *[(r, "b") for r in rows], out="bsh", **kwargs)
 
 
 def contiguous_stride(shape) -> tuple:
@@ -511,6 +462,28 @@ def distribute_params(params: nn.Module, shardings: dict) -> nn.Module:
   return params
 
 
+def distribute_sharing(params: nn.Module, source: nn.Module,
+                       laid: nn.Module, mesh) -> nn.Module:
+  """A copy of `params` laid out by `param_shardings`, in which each
+  tensor that is one of `source`'s own is `laid`'s tensor of the same
+  name instead (`laid` being `source` laid out): a draft made from a
+  target keeps sharing with the laid-out target every tensor it shared
+  with the target, and only its own tensors are laid out."""
+  import itertools
+
+  def named(m):
+    return itertools.chain(m.named_parameters(remove_duplicate=False),
+                           m.named_buffers(remove_duplicate=False))
+  laid_t = dict(named(laid))
+  memo = {id(t): laid_t[n] for n, t in named(source) if n in laid_t}
+  new = copy.deepcopy(params, memo)
+  mods = dict(new.named_modules())
+  own = {k: sh for k, sh in param_shardings(new, mesh).items()
+         if not is_dtensor(getattr(mods[k.rpartition(".")[0]],
+                                   k.rpartition(".")[2]))}
+  return distribute_params(new, own)
+
+
 def distribute_tree(tree: Any, shardings: Any) -> Any:
   """A nested dict of tensors laid out by a matching tree of shardings."""
   if isinstance(tree, dict):
@@ -553,6 +526,67 @@ def write_slot(x: torch.Tensor, s: torch.Tensor, ax: int, slot: int) -> None:
   i = slot - local_offsets(x)[ax]
   if 0 <= i < local.shape[ax]:
     local.narrow(ax, i, 1).copy_(s)
+
+
+def slot_of(x: torch.Tensor, ax: int, slot: int) -> torch.Tensor:
+  """x.narrow(ax, slot, 1) for a batch axis `ax`. On a DTensor `x` the
+  result is a DTensor with `ax` whole and every other axis as x lays it
+  out: the rank whose block holds `slot` contributes its rows, the other
+  ranks of its data group zeros, and one reduction of the slot's size
+  over that group (exact: a value plus zeros) hands them all the slot."""
+  if not is_dtensor(x):
+    return x.narrow(ax, slot, 1)
+  from torch.distributed.tensor import DTensor, Partial
+  local = x.to_local()
+  i = slot - local_offsets(x)[ax]
+  split = [p.is_shard() and p.dim % x.ndim == ax for p in x.placements]
+  if not any(split):
+    return DTensor.from_local(local.narrow(ax, slot, 1), x.device_mesh,
+                              x.placements)
+  piece = (local.narrow(ax, i, 1) if 0 <= i < local.shape[ax] else
+           local.new_zeros(local.shape[:ax] + (1,) + local.shape[ax + 1:]))
+  pl = [Partial() if s else p for s, p in zip(split, x.placements)]
+  return DTensor.from_local(piece, x.device_mesh, pl).redistribute(
+      x.device_mesh, _whole_on(x, ax))
+
+
+class LocalCut:
+  """This rank's part of rows [0, length) along an axis of a DTensor
+  leaf: the rows its own block holds (a KV leaf's length axis lies on
+  the model axis), so a prefix snapshot of a sharded state is taken and
+  spliced back with nothing moving between ranks. `shape` is the global
+  shape of the cut, `nbytes` its global bytes: what the same cut weighs
+  on one device, which the prefix cache charges."""
+
+  def __init__(self, local: torch.Tensor, shape: tuple):
+    self.local, self.shape = local, tuple(shape)
+
+  @property
+  def nbytes(self) -> int:
+    return math.prod(self.shape) * self.local.element_size()
+
+
+def cut_prefix(x: torch.Tensor, ax: int, length: int):
+  """A copy of rows [0, length) along `ax`: a tensor, or of a DTensor a
+  `LocalCut` of this rank's block."""
+  if not is_dtensor(x):
+    return x.narrow(ax, 0, length).clone()
+  local = x.to_local()
+  keep = min(max(length - local_offsets(x)[ax], 0), local.shape[ax])
+  shape = list(x.shape)
+  shape[ax] = length
+  return LocalCut(local.narrow(ax, 0, keep).clone(), shape)
+
+
+def splice_cut(f: torch.Tensor, s, ax: int) -> None:
+  """Write a `cut_prefix` `s` into rows [0, len) along `ax` of `f`, in
+  place; a `LocalCut` into this rank's block of a DTensor `f` laid out
+  as the cut's source."""
+  if isinstance(s, LocalCut):
+    n = s.local.shape[ax]
+    f.to_local().narrow(ax, 0, n).copy_(s.local)
+    return
+  f.narrow(ax, 0, s.shape[ax]).copy_(s)
 
 
 def write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -616,19 +650,189 @@ def replicated_plain(enabled: bool = True):
   return implicit_replication()
 
 
-#: families whose sharded execution is ported (`Trainer(mesh=)`,
-#: `LMEngine(mesh=)`); the others wait for ROADMAP.md A6b
-MESH_FAMILIES = ("transformer", "deepspeech")
+def check_mesh(mesh) -> None:
+  """Raise unless `mesh` is a `DeviceMesh` (`dist.make_mesh`)."""
+  from torch.distributed.device_mesh import DeviceMesh
+  if not isinstance(mesh, DeviceMesh):
+    raise TypeError("mesh= takes a torch DeviceMesh (dist.make_mesh), got "
+                    f"{type(mesh).__name__}")
 
 
-def check_mesh_family(cfg) -> None:
-  """Raise for a config whose sharded execution is not ported yet."""
-  if cfg.family not in MESH_FAMILIES or cfg.moe is not None or \
-      cfg.mla is not None:
-    raise NotImplementedError(
-        f"{cfg.name}: sharded execution (mesh=) of this family is not "
-        "ported yet: ROADMAP.md A6b (only the dense transformer and "
-        "deepspeech2 run under a mesh)")
+def _grad_placements(pl: list, work_pl: list) -> list:
+  """The placements of the gradient of an input laid out `pl` for work
+  split as `work_pl`: partial on a mesh dim where the input is whole but
+  the work is split (each rank used all of it for its own part)."""
+  from torch.distributed.tensor import Partial
+  return [Partial() if p.is_replicate() and w.is_shard() else p
+          for p, w in zip(pl, work_pl)]
+
+
+def local_call(fn, mesh, inputs: Sequence, outputs, **kwargs):
+  """`fn` on this rank's blocks, by placements; with no DTensor among
+  the inputs, `fn` on them as they are.
+
+  `inputs` are (tensor, placements) pairs: a DTensor is redistributed to
+  `placements` and handed to `fn` as its local block, differentiably
+  (its gradient partial where it is whole but the first output is
+  split); a plain tensor, whole on every rank, is sliced to the same
+  block (a whole one is handed over as it is). `outputs` gives, for each
+  of fn's results (one, or a tuple), the placements its local value is
+  wrapped in as a DTensor (the global shape follows from them), or None
+  to hand it back local."""
+  if not any(is_dtensor(t) for t, _ in inputs):
+    return fn(*(t for t, _ in inputs), **kwargs)
+  from torch.distributed.tensor import DTensor
+  pls = (outputs,) if not isinstance(outputs, tuple) else outputs
+  work = next(pl for pl in pls if pl is not None)
+  local = []
+  for t, pl in inputs:
+    if not is_dtensor(t):
+      local.append(t if all(p.is_replicate() for p in pl) else
+                   distribute_tensor_local(t, mesh, pl).to_local())
+      continue
+    t = t if list(t.placements) == list(pl) else t.redistribute(mesh, pl)
+    local.append(t.to_local(grad_placements=_grad_placements(pl, work)))
+  out = fn(*local, **kwargs)
+  single = not isinstance(out, tuple)
+  wrapped = tuple(o if pl is None else DTensor.from_local(o, mesh, pl)
+                  for o, pl in zip((out,) if single else out, pls))
+  return wrapped[0] if single else wrapped
+
+
+def _leaf_fields(leaf) -> tuple:
+  """The tensor fields of a GEMM leaf (a FactoredLinear's or a
+  QuantizedLinear's), or () for a tensor."""
+  if isinstance(leaf, FactoredLinear):
+    return tuple(f for f in "wuv" if getattr(leaf, f) is not None)
+  if isinstance(leaf, QuantizedLinear):
+    return tuple(f for f in _QUANT_FIELDS if getattr(leaf, f) is not None)
+  return ()
+
+
+def _rebuild_leaf(leaf, tensors: dict):
+  if isinstance(leaf, FactoredLinear):
+    return FactoredLinear(**tensors, name=leaf.name, group=leaf.group,
+                          view=True)
+  return QuantizedLinear(**tensors, name=leaf.name, group=leaf.group,
+                         orig_dtype=leaf.orig_dtype)
+
+
+def split_call(fn, *inputs, out, **kwargs):
+  """`fn` on this rank's blocks of `inputs`, the port's `shard_map` by
+  named layouts; with no DTensor among them, `fn` on them as they are.
+
+  Each input is a (tensor, layout) pair, or a (GEMM leaf, "") pair for a
+  weight every rank reads whole. A layout's letters name leading dims:
+  "b" the batch (its rows on the data axes where their degree divides
+  them), "h" a head axis (on the model axis where the model degree
+  divides every "h" dim of the inputs), "l" a cache's length (on the
+  model axis where the model degree divides it, as `state_shardings`
+  lays a cache out), any other letter a dim whole on every rank; dims
+  past the layout are whole. `out` is the layout of each of fn's results
+  (a string, or a tuple of them with None for a result handed back
+  local). Where an input has an "l" dim, `fn` also gets `group` (the
+  model axis's process group where "l" is split, else None) and
+  `offset` (the global index of this rank's first "l" row). The local
+  op is the op one device runs: on a mesh of one every result is bit
+  for bit the unsharded one."""
+  tensors = [t for x, _ in inputs for t in
+             ([getattr(x, f) for f in _leaf_fields(x)] or [x])]
+  lead = next((t for t in tensors if is_dtensor(t)), None)
+  has_len = any("l" in lay for _, lay in inputs)
+  if has_len:
+    kwargs = dict(kwargs, group=None, offset=0)
+  if lead is None:
+    return fn(*(x for x, _ in inputs), **kwargs)
+  from torch.distributed.tensor import Replicate, Shard
+  mesh = lead.device_mesh
+  names = axis_names(mesh)
+  model = names.index(MODEL_AXIS) if MODEL_AXIS in names else None
+  degree = mesh.size(model) if model is not None else 1
+
+  def dims(letter):
+    return [x.shape[i] for x, lay in inputs for i, c in enumerate(lay)
+            if c == letter]
+  rows = dims("b")
+  rows_pl = (rows_placements(mesh, rows[0]) if rows else
+             [Replicate()] * mesh.ndim)
+  on_model = {c for c in "hl" if dims(c) and degree > 1
+              and all(n % degree == 0 for n in dims(c))}
+  if len(on_model) > 1:
+    raise ValueError("split_call: heads and a length both on the model "
+                     "axis")
+
+  def pl_of(layout: str) -> list:
+    pl = [Replicate()] * mesh.ndim
+    for i, c in enumerate(layout):
+      if c == "b":
+        pl = [Shard(i) if r.is_shard() else p for r, p in zip(rows_pl, pl)]
+      elif c in on_model:
+        pl[model] = Shard(i)
+    return pl
+  if "l" in on_model:
+    size = dims("l")[0] // degree
+    kwargs.update(group=mesh.get_group(MODEL_AXIS),
+                  offset=mesh.get_coordinate()[model] * size)
+  flat = []
+  for x, lay in inputs:
+    fields = _leaf_fields(x)
+    if not fields:
+      flat.append((x, pl_of(lay)))
+      continue
+    flat += [(getattr(x, f), pl_of(lay)) for f in fields]
+  outs = out if isinstance(out, tuple) else (out,)
+  out_pls = tuple(None if o is None else pl_of(o) for o in outs)
+
+  def run(*local):
+    it = iter(local)
+    args = []
+    for x, _ in inputs:
+      fields = _leaf_fields(x)
+      args.append(_rebuild_leaf(x, {f: next(it) for f in fields})
+                  if fields else next(it))
+    return fn(*args, **kwargs)
+  return local_call(run, mesh, flat,
+                    out_pls if isinstance(out, tuple) else out_pls[0])
+
+
+def pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+  """An elementwise `fn` (one with no DTensor rule, such as logsigmoid's
+  backward) on each rank's block of `x`, laid out as x (a partial sum
+  reduced first); a plain x goes straight to fn."""
+  if not is_dtensor(x):
+    return fn(x)
+  from torch.distributed.tensor import Replicate
+  pl = [Replicate() if p.is_partial() else p for p in x.placements]
+  return local_call(fn, x.device_mesh, [(x, pl)], pl)
+
+
+def gather_whole(x: torch.Tensor) -> torch.Tensor:
+  """A DTensor replicated on every mesh dim, differentiably (a plain
+  tensor as it is)."""
+  if not is_dtensor(x):
+    return x
+  from torch.distributed.tensor import Replicate
+  return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def local_block(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+  """This rank's block of `t` laid out as the DTensor `like` (a DTensor
+  redistributed where its layout differs, a whole tensor sliced); where
+  `like` is a plain tensor, `t` itself."""
+  if not is_dtensor(like):
+    return t
+  if is_dtensor(t) and list(t.placements) == list(like.placements):
+    return t.to_local()
+  return _local_like(t, like, list(like.placements))
+
+
+def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+  """dst.copy_(src) in place; on a DTensor `dst` each rank writes its
+  own block (src laid out as dst first), nothing else moves."""
+  if not is_dtensor(dst):
+    dst.copy_(src.full_tensor() if is_dtensor(src) else src)
+    return
+  dst.to_local().copy_(local_block(src, dst))
 
 
 # ---------------------------------------------------------------------------

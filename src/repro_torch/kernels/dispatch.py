@@ -443,9 +443,10 @@ def _sharded_gemm(regime: str, leaf, x: torch.Tensor,
   md = _model_dim(mesh)
   last = x.ndim - 1
   rows_pl = _with_model(x.placements, md, Replicate())
+  lead = []                   # the local leading dims of x's rows
 
   def wrap(y2, n, out_model):
-    y = y2.reshape(x.to_local().shape[:-1] + (y2.shape[-1],))
+    y = y2.reshape(tuple(lead[0]) + (y2.shape[-1],))
     pl = _with_model(rows_pl, md, out_model)
     return DTensor.from_local(y, mesh, pl, shape=x.shape[:-1] + (n,),
                               stride=contiguous_stride(x.shape[:-1] + (n,)))
@@ -454,6 +455,7 @@ def _sharded_gemm(regime: str, leaf, x: torch.Tensor,
     """This rank's rows of x, (rows, m or its local part), laid out
     `model_pl` on the model axis."""
     t = _local(x, _with_model(rows_pl, md, model_pl))
+    lead[:] = [t.shape[:-1]]
     return t.reshape(-1, t.shape[-1])
 
   x_whole = x_rows(Replicate())

@@ -13,7 +13,8 @@ the reference does, and runs the plain blockwise online softmax over
 S x S score matrix.
 
 `bidir_attention_forward` is Whisper's encoder self-attention, the
-reference's `_bidir_attention`: non-causal, no RoPE, under a kernel
+reference's `_bidir_attention` (on DTensors, each rank's rows and heads,
+as `flash_attention`): non-causal, no RoPE, under a kernel
 policy the same kernel in its non-causal mode (recorded as "enc/attn"),
 otherwise the plain online softmax over kv blocks of
 min(cfg.attn_block_kv, s), which must divide s (the reference reshapes
@@ -23,7 +24,12 @@ k and v into blocks; both routes raise where it would fail).
 verification: W tokens a slot in one pass) write the new K/V rows into
 the cache in place (the reference returns a new cache; a copy per step
 would double the cache traffic) and return the same dict. A row at or
-past max_len is dropped, as the reference's scatter drops it.
+past max_len is dropped, as the reference's scatter drops it. On
+DTensors (a mesh) each rank writes the rows and positions of its own
+cache block and attends over that block alone, with every head of its
+rows; the blocks' softmaxes are combined across the model axis
+(`softmax_mix`, flash-decoding: one all-reduce of the running maxima and
+one of the weighted sums), so no rank reads another's cache.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.factored import dense
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import dispatch
 from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
                                       identity_constraint)
@@ -137,9 +144,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   DTensors each rank attends over its own rows and heads
   (`dist.sharding.heads_local`): attention never mixes batch rows or
   heads."""
-  from repro_torch.dist.sharding import heads_local, is_dtensor
-  if is_dtensor(q):
-    return heads_local(flash_attention, q, k, v, cfg=cfg, policy=policy)
+  return shd.heads_local(_causal, q, k, v, cfg=cfg, policy=policy)
+
+
+def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            cfg: ModelConfig, policy) -> torch.Tensor:
+  """Causal attention of plain tensors: the kernel under a policy that
+  has it, the plain blockwise online softmax otherwise."""
   out = dispatch.maybe_flash_attention(q, k, v, policy, name="layers/attn")
   if out is not None:
     return out
@@ -216,11 +227,17 @@ def bidir_attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
   h, hd = cfg.num_heads, cfg.resolved_head_dim
   q, k, v = (gemm(p[w], x, policy).reshape(b, s, h, hd)
              for w in ("wq", "wk", "wv"))
+  out = shd.heads_local(_bidir, q, k, v, policy=policy, bkv=bkv)
+  return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
+
+
+def _bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, policy,
+           bkv: int) -> torch.Tensor:
+  """Non-causal attention of plain (b, s, h, hd) tensors: the kernel
+  under a policy that has it, the plain online softmax otherwise."""
   out = dispatch.maybe_flash_attention(q, k, v, policy, name="enc/attn",
                                        causal=False)
-  if out is None:
-    out = bidirectional_attention(q, k, v, bkv)
-  return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
+  return bidirectional_attention(q, k, v, bkv) if out is None else out
 
 
 # ----------------------------------------------------------------------------
@@ -250,7 +267,6 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
   A DTensor cache (rows on the data axes, positions on the model axis:
   `dist.sharding.state_shardings`) is written shard by shard: each rank
   writes the rows and positions its local block holds."""
-  from repro_torch.dist import sharding as shd
   if shd.is_dtensor(cache):
     shd.write_rows(cache, new, pos)
     return
@@ -264,6 +280,53 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
                                   cache[bidx, rows])
 
 
+def softmax_mix(sc: torch.Tensor, values, group=None) -> torch.Tensor:
+  """values(softmax(sc)) over sc's last axis, for a linear `values` whose
+  result is sc.shape[:-1] + (d,). With `group` (a process group), sc
+  holds this rank's block of the positions and the blocks are combined
+  across the group as flash-decoding does: the global running max by one
+  all-reduce, then one all-reduce of the blocks' weighted values and
+  sums. A block with every position masked adds nothing."""
+  if group is None:
+    return values(torch.softmax(sc, dim=-1))
+  import torch.distributed as dist
+  mx = sc.amax(dim=-1)
+  dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+  e = torch.exp(sc - mx[..., None])
+  o = values(e)
+  part = torch.cat([o.reshape(-1), e.sum(dim=-1).reshape(-1)])
+  dist.all_reduce(part, group=group)
+  return part[:o.numel()].view_as(o) / part[o.numel():].view(
+      o.shape[:-1] + (1,))
+
+
+def _decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor, *, group, offset: int
+                 ) -> torch.Tensor:
+  """One query a slot, q (b, 1, h, hd), against the cache rows k, v (b,
+  S', kv, hd) from position `offset` on, through position `positions`
+  (b,): (b, 1, h, hd) f32 (`softmax_mix` over `group`)."""
+  b, _, h, hd = q.shape
+  kvh = k.shape[2]
+  f32 = torch.float32
+  mask = torch.arange(offset, offset + k.shape[1], device=q.device)[
+      None, :] <= positions[:, None]                      # (b, S')
+  if h != kvh:
+    # kv heads grouped into the score einsum instead of repeated
+    qg = q[:, 0].reshape(b, kvh, h // kvh, hd)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg.to(f32), k.to(f32)) / (hd ** 0.5)
+    sc = torch.where(mask[:, None, None, :], sc, NEG_INF)
+    out = softmax_mix(sc, lambda pr: torch.einsum("bkgs,bskd->bkgd", pr,
+                                                  v.to(f32)), group)
+  else:
+    sc = torch.einsum("bhd,bshd->bhs", q[:, 0].to(f32), k.to(f32)) / \
+        (hd ** 0.5)
+    sc = torch.where(mask[:, None, :], sc, NEG_INF)
+    out = softmax_mix(sc, lambda pr: torch.einsum("bhs,bshd->bhd", pr,
+                                                  v.to(f32)), group)
+  return out.reshape(b, 1, h, hd)
+
+
 def attention_decode(p, x: torch.Tensor, cache: dict,
                      positions: torch.Tensor, cfg: ModelConfig,
                      policy=None, cs: Constraint = identity_constraint
@@ -271,31 +334,41 @@ def attention_decode(p, x: torch.Tensor, cache: dict,
   """One decode step. x: (b, 1, d); positions: (b,) write offsets;
   cache {"k", "v"}: (b, max_len, kv, hd), updated in place."""
   b = x.shape[0]
-  h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+  h, hd = cfg.num_heads, cfg.resolved_head_dim
   q, k_new, v_new = _project_qkv(p, x, cfg, positions[:, None], policy,
                                  cs)
   k, v = cache["k"], cache["v"]
   write_rows(k, k_new, positions, positions[:, None])
   write_rows(v, v_new, positions, positions[:, None])
-  f32 = torch.float32
-  mask = torch.arange(k.shape[1], device=x.device)[None, :] <= \
-      positions[:, None]                                   # (b, S)
-  if h != kvh:
-    # kv heads grouped into the score einsum instead of repeated
-    group = h // kvh
-    qg = q[:, 0].reshape(b, kvh, group, hd)
-    sc = torch.einsum("bkgd,bskd->bkgs", qg.to(f32), k.to(f32)) / (hd ** 0.5)
-    sc = torch.where(mask[:, None, None, :], sc, NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", pr, v.to(f32))
-  else:
-    sc = torch.einsum("bhd,bshd->bhs", q[:, 0].to(f32), k.to(f32)) / \
-        (hd ** 0.5)
-    sc = torch.where(mask[:, None, :], sc, NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", pr, v.to(f32))
+  out = shd.split_call(_decode_core, (q, "b"), (k, "bl"), (v, "bl"),
+                       (positions, "b"), out="b")
   out = out.reshape(b, 1, h * hd).to(x.dtype)
   return gemm(p["wo"], out, policy), cache
+
+
+def _window_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: torch.Tensor, *, group, offset: int) -> torch.Tensor:
+  """W queries a slot, q (b, W, h, hd), query t reading the cache rows
+  k, v (b, S', kv, hd) from position `offset` on, through position
+  pos[:, t]: (b, W, h, hd) f32 (`softmax_mix` over `group`)."""
+  b, w, h, hd = q.shape
+  kvh = k.shape[2]
+  f32 = torch.float32
+  mask = torch.arange(offset, offset + k.shape[1], device=q.device)[
+      None, None, :] <= pos[:, :, None]                   # (b, W, S')
+  if h != kvh:
+    qg = q.reshape(b, w, kvh, h // kvh, hd)
+    sc = torch.einsum("bqkgd,bskd->bqkgs", qg.to(f32), k.to(f32)) / \
+        (hd ** 0.5)
+    sc = torch.where(mask[:, :, None, None, :], sc, NEG_INF)
+    out = softmax_mix(sc, lambda pr: torch.einsum("bqkgs,bskd->bqkgd", pr,
+                                                  v.to(f32)), group)
+  else:
+    sc = torch.einsum("bqhd,bshd->bqhs", q.to(f32), k.to(f32)) / (hd ** 0.5)
+    sc = torch.where(mask[:, :, None, :], sc, NEG_INF)
+    out = softmax_mix(sc, lambda pr: torch.einsum("bqhs,bshd->bqhd", pr,
+                                                  v.to(f32)), group)
+  return out.reshape(b, w, h, hd)
 
 
 def attention_decode_window(p, x: torch.Tensor, cache: dict,
@@ -313,27 +386,13 @@ def attention_decode_window(p, x: torch.Tensor, cache: dict,
   agree to f32 summation order, not bit for bit (the GEMMs and the
   score einsums block their rows differently)."""
   b, w, _ = x.shape
-  h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+  h, hd = cfg.num_heads, cfg.resolved_head_dim
   pos = positions[:, None] + torch.arange(w, device=x.device)[None, :]
   q, k_new, v_new = _project_qkv(p, x, cfg, pos, policy, cs)
   k, v = cache["k"], cache["v"]
   write_rows(k, k_new, positions, pos)
   write_rows(v, v_new, positions, pos)
-  f32 = torch.float32
-  mask = torch.arange(k.shape[1], device=x.device)[None, None, :] <= \
-      pos[:, :, None]                                      # (b, W, S)
-  if h != kvh:
-    group = h // kvh
-    qg = q.reshape(b, w, kvh, group, hd)
-    sc = torch.einsum("bqkgd,bskd->bqkgs", qg.to(f32), k.to(f32)) / \
-        (hd ** 0.5)
-    sc = torch.where(mask[:, :, None, None, :], sc, NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bqkgs,bskd->bqkgd", pr, v.to(f32))
-  else:
-    sc = torch.einsum("bqhd,bshd->bqhs", q.to(f32), k.to(f32)) / (hd ** 0.5)
-    sc = torch.where(mask[:, :, None, :], sc, NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bqhs,bshd->bqhd", pr, v.to(f32))
+  out = shd.split_call(_window_core, (q, "b"), (k, "bl"), (v, "bl"),
+                       (pos, "b"), out="b")
   out = out.reshape(b, w, h * hd).to(x.dtype)
   return gemm(p["wo"], out, policy), cache

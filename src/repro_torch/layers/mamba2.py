@@ -18,16 +18,21 @@ CHUNK must be a multiple of it (the reference reshapes s into chunks);
 `ssd_chunked` raises a `ValueError` naming CHUNK otherwise.
 
 `mamba2_decode` and `mamba2_decode_window` write the new carry into
-`state` in place and return the same dict.
+`state` in place (each rank its own block of a DTensor state) and return
+the same dict.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.factored import dense, normal
-from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.dist import sharding as shd
+from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
+                                      identity_constraint)
 from repro_torch.layers.norms import rms_norm
 
 HEAD_DIM = 64        # mamba2 default P
@@ -183,16 +188,22 @@ def _dt_A(p, dt: torch.Tensor):
 
 
 def mamba2_forward(p, x: torch.Tensor, cfg: ModelConfig, expand: int = 2,
-                   policy=None) -> torch.Tensor:
+                   policy=None, cs: Constraint = identity_constraint
+                   ) -> torch.Tensor:
   """The block over a whole sequence x (b, s, d) (training, prefill); `p`
   maps the leaf names to one layer's leaves. The final SSM state is
-  discarded, as the reference's."""
+  discarded, as the reference's. On DTensors (a mesh) the SSD scan runs
+  on each rank's rows and heads; B and C, which every head reads, whole
+  on the model axis."""
   b, s, _ = x.shape
   z, xi, B, C, dt, d_inner, nheads = _split_proj(p, x, cfg, expand, policy)
   xi, _ = _causal_conv(xi, p["conv_w"])
+  xi = cs(xi, "bsi")
   dt, A = _dt_A(p, dt)
   xh = xi.reshape(b, s, nheads, HEAD_DIM)
-  y, _ = ssd_chunked(xh, dt, A, B, C, chunk=min(CHUNK, s))
+  y, _ = shd.split_call(functools.partial(ssd_chunked, chunk=min(CHUNK, s)),
+                        (xh, "bsh"), (dt, "bsh"), (A, "h"), (B, "b"),
+                        (C, "b"), out=("bsh", "bh"))
   return _gate_out(p, y, xh.to(torch.float32), z, x, cfg, policy)
 
 
@@ -214,28 +225,56 @@ def init_mamba2_state(cfg: ModelConfig, batch: int, stack: tuple = (),
   }
 
 
+def _step_core(dt, A, xh, Bf, Cf, ssm):
+  """One position of the recurrence: dt (b, h), A (h,), xh (b, h, p),
+  Bf, Cf (b, n), ssm (b, h, n, p) -> (y (b, h, p), ssm')."""
+  da = torch.exp(dt * A)                                   # (b, h)
+  upd = Bf[:, None, :, None] * (xh * dt[..., None])[:, :, None, :]
+  ssm = ssm * da[..., None, None] + upd                    # (b, h, n, p)
+  return torch.matmul(Cf[:, None, None, :], ssm)[:, :, 0], ssm
+
+
 def mamba2_decode(p, x: torch.Tensor, state: dict, cfg: ModelConfig,
-                  expand: int = 2, policy=None) -> tuple[torch.Tensor, dict]:
+                  expand: int = 2, policy=None,
+                  cs: Constraint = identity_constraint
+                  ) -> tuple[torch.Tensor, dict]:
   """One decode step. x: (b, 1, d); state {"ssm" (b, h, n, p), "conv"
-  (b, k-1, d_inner)}, updated in place: h' = exp(dt A) h + dt B x."""
+  (b, k-1, d_inner)}, updated in place: h' = exp(dt A) h + dt B x. On
+  DTensors (a mesh) the recurrence runs on each rank's rows with every
+  head, so the SSM carry, laid out by rows, never moves between ranks
+  (the step's inputs, a few values a head, are gathered instead)."""
   b = x.shape[0]
   z, xi, B, C, dt, d_inner, nheads = _split_proj(p, x, cfg, expand, policy)
   xi, conv = _causal_conv(xi, p["conv_w"], state["conv"])
   dt, A = _dt_A(p, dt)
-  dt = dt[:, 0]                                            # (b, h)
   xh = xi[:, 0].reshape(b, nheads, HEAD_DIM).to(torch.float32)
-  Bf, Cf = B[:, 0].to(torch.float32), C[:, 0].to(torch.float32)
-  da = torch.exp(dt * A)                                   # (b, h)
-  upd = Bf[:, None, :, None] * (xh * dt[..., None])[:, :, None, :]
-  ssm = state["ssm"] * da[..., None, None] + upd           # (b, h, n, p)
-  y = torch.matmul(Cf[:, None, None, :], ssm)[:, :, 0]     # (b, h, p)
-  state["ssm"].copy_(ssm)
-  state["conv"].copy_(conv)
+  y, ssm = shd.split_call(_step_core, (dt[:, 0], "b"), (A, ""), (xh, "b"),
+                          (B[:, 0].to(torch.float32), "b"),
+                          (C[:, 0].to(torch.float32), "b"),
+                          (state["ssm"], "b"), out=("b", "b"))
+  shd.assign(state["ssm"], ssm)
+  shd.assign(state["conv"], conv)
   return _gate_out(p, y[:, None], xh[:, None], z, x, cfg, policy), state
 
 
+def _window_core(dt, A, xh, Bf, Cf, ssm):
+  """The recurrence over a window: dt (b, W, h), A (h,), xh (b, W, h,
+  p), Bf, Cf (b, W, n), ssm (b, h, n, p) -> (y (b, W, h, p), the last
+  ssm), position by position in f32."""
+  w = xh.shape[1]
+  da = torch.exp(dt * A)
+  upd = Bf[:, :, None, :, None] * (xh * dt[..., None])[:, :, :, None, :]
+  seq = []
+  for t in range(w):
+    ssm = ssm * da[:, t, :, None, None] + upd[:, t]
+    seq.append(ssm)
+  seq = torch.stack(seq, dim=1)                            # (b, W, h, n, p)
+  return torch.matmul(Cf[:, :, None, None, :], seq)[:, :, :, 0], ssm
+
+
 def mamba2_decode_window(p, x: torch.Tensor, state: dict, cfg: ModelConfig,
-                         expand: int = 2, policy=None
+                         expand: int = 2, policy=None,
+                         cs: Constraint = identity_constraint
                          ) -> tuple[torch.Tensor, dict]:
   """A W-token decode window, x: (b, W, d), state as `mamba2_decode`'s.
   The GEMMs take all b * W rows in one pass, the conv streams the window
@@ -247,15 +286,10 @@ def mamba2_decode_window(p, x: torch.Tensor, state: dict, cfg: ModelConfig,
   xi, conv = _causal_conv(xi, p["conv_w"], state["conv"])
   dt, A = _dt_A(p, dt)                                     # (b, W, h)
   xh = xi.reshape(b, w, nheads, HEAD_DIM).to(torch.float32)
-  Bf, Cf = B.to(torch.float32), C.to(torch.float32)        # (b, W, n)
-  da = torch.exp(dt * A)
-  upd = Bf[:, :, None, :, None] * (xh * dt[..., None])[:, :, :, None, :]
-  ssm, seq = state["ssm"], []
-  for t in range(w):
-    ssm = ssm * da[:, t, :, None, None] + upd[:, t]
-    seq.append(ssm)
-  seq = torch.stack(seq, dim=1)                            # (b, W, h, n, p)
-  y = torch.matmul(Cf[:, :, None, None, :], seq)[:, :, :, 0]   # (b, W, h, p)
-  state["ssm"].copy_(ssm)
-  state["conv"].copy_(conv)
+  y, ssm = shd.split_call(_window_core, (dt, "b"), (A, ""), (xh, "b"),
+                          (B.to(torch.float32), "b"),
+                          (C.to(torch.float32), "b"), (state["ssm"], "b"),
+                          out=("b", "b"))
+  shd.assign(state["ssm"], ssm)
+  shd.assign(state["conv"], conv)
   return _gate_out(p, y, xh, z, x, cfg, policy), state

@@ -31,8 +31,10 @@ import torch
 from torch import nn
 
 from repro_torch.core.factored import dense
-from repro_torch.layers.attention import NEG_INF, write_rows
-from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.dist import sharding as shd
+from repro_torch.layers.attention import NEG_INF, softmax_mix, write_rows
+from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
+                                      identity_constraint)
 from repro_torch.layers.norms import init_rms, rms_norm
 from repro_torch.layers.rope import apply_rope
 
@@ -130,13 +132,15 @@ def _blocks(s: int, cfg: ModelConfig) -> tuple[int, int]:
   return bq, bkv
 
 
-def mla_forward(p, x: torch.Tensor, cfg: ModelConfig,
-                policy=None) -> torch.Tensor:
+def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, policy=None,
+                cs: Constraint = identity_constraint) -> torch.Tensor:
   """Full-sequence causal MLA (training, prefill), x (b, s, d). The
   (bq, s) score rows never exist: each query block runs an online
   softmax over its kv blocks, scores, running max, sum and accumulator
   in f32. Kv blocks wholly above the diagonal are skipped: in the
-  reference they add exp(NEG_INF - m) = 0 and scale by 1."""
+  reference they add exp(NEG_INF - m) = 0 and scale by 1. On DTensors
+  (a mesh) the attention runs on each rank's rows and heads; the shared
+  rope key, which has no head axis, is whole on every rank."""
   m, h = cfg.mla, cfg.num_heads
   b, s, _ = x.shape
   bq, bkv = _blocks(s, cfg)
@@ -146,23 +150,40 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig,
   # k and v up-projected from the latent (the non-absorbed form)
   k_nope = gemm(p["w_uk"], c, policy).reshape(b, s, h, m.qk_nope_dim)
   v = gemm(p["w_uv"], c, policy).reshape(b, s, h, m.v_head_dim)
+  q_nope = cs(q_nope, "bshd_q")
+  k_nope = cs(k_nope, "bshd_q")
+  v = cs(v, "bshd_q")
   scale = 1.0 / ((m.qk_nope_dim + m.qk_rope_dim) ** 0.5)
+  out = shd.split_call(_attend_blocks, (q_nope, "bsh"), (q_rope, "bsh"),
+                       (k_nope, "bsh"), (k_rope, "b"), (v, "bsh"),
+                       out="bsh", bq=bq, bkv=bkv, scale=scale, dtype=x.dtype)
+  return gemm(p["wo"], out.reshape(b, s, h * m.v_head_dim), policy)
+
+
+def _attend_blocks(q_nope, q_rope, k_nope, k_rope, v, *, bq: int, bkv: int,
+                   scale: float, dtype) -> torch.Tensor:
+  """The blockwise causal softmax of `mla_forward` on plain tensors:
+  q_nope (b, s, h, nope), q_rope (b, s, h, rope), k_nope (b, s, h,
+  nope), k_rope (b, s, rope), v (b, s, h, vd) -> (b, s, h, vd) in
+  `dtype`."""
+  b, s, h, vd = v.shape
+  dev = v.device
   f32 = torch.float32
   blocks = []
   for q0 in range(0, s, bq):
     qn = q_nope[:, q0:q0 + bq].to(f32)
     qr = q_rope[:, q0:q0 + bq].to(f32)
-    qpos = torch.arange(q0, q0 + bq, device=x.device)[:, None]
-    mx = torch.full((b, h, bq), NEG_INF, dtype=f32, device=x.device)
-    l = torch.zeros((b, h, bq), dtype=f32, device=x.device)
-    o = torch.zeros((b, bq, h, m.v_head_dim), dtype=f32, device=x.device)
+    qpos = torch.arange(q0, q0 + bq, device=dev)[:, None]
+    mx = torch.full((b, h, bq), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((b, h, bq), dtype=f32, device=dev)
+    o = torch.zeros((b, bq, h, vd), dtype=f32, device=dev)
     for k0 in range(0, q0 + bq, bkv):
       sc = torch.einsum("bqhd,bkhd->bhqk", qn,
                         k_nope[:, k0:k0 + bkv].to(f32))
       sc = sc + torch.einsum("bqhr,bkr->bhqk", qr,
                              k_rope[:, k0:k0 + bkv].to(f32))
       sc = sc * scale
-      kpos = torch.arange(k0, k0 + bkv, device=x.device)[None, :]
+      kpos = torch.arange(k0, k0 + bkv, device=dev)[None, :]
       sc = torch.where(kpos <= qpos, sc, NEG_INF)
       m_new = torch.maximum(mx, sc.amax(dim=-1))
       pexp = torch.exp(sc - m_new[..., None])
@@ -172,9 +193,8 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig,
           "bhqk,bkhd->bqhd", pexp, v[:, k0:k0 + bkv].to(f32))
       mx = m_new
     o = o / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
-    blocks.append(o.to(x.dtype))
-  out = torch.cat(blocks, dim=1).reshape(b, s, h * m.v_head_dim)
-  return gemm(p["wo"], out, policy)
+    blocks.append(o.to(dtype))
+  return torch.cat(blocks, dim=1)
 
 
 # ----------------------------------------------------------------------------
@@ -202,7 +222,12 @@ def _absorbed(p, x: torch.Tensor, cache: dict, positions: torch.Tensor,
               cfg: ModelConfig, policy) -> tuple[torch.Tensor, dict]:
   """x (b, W, d) at positions `positions + t` against the latent cache:
   scores = (q_nope^T W_uk) c + q_rope^T k_rope, out = W_uv^T (sum p c),
-  query t reading cache rows <= positions + t."""
+  query t reading cache rows <= positions + t. On DTensors (a mesh) the
+  queries are absorbed into the latent space on each rank's heads, then
+  every head of a rank's rows attends over the rank's block of the
+  cache's length, the blocks combined across the model axis
+  (`softmax_mix`), and W_uv maps the context out on each rank's heads
+  again: no rank reads another's cache, nor gathers W_uk or W_uv."""
   m, h = cfg.mla, cfg.num_heads
   b, w, _ = x.shape
   pos = positions[:, None] + torch.arange(w, device=x.device)[None, :]
@@ -211,26 +236,45 @@ def _absorbed(p, x: torch.Tensor, cache: dict, positions: torch.Tensor,
   c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
   write_rows(c_cache, c_new, positions, pos)
   write_rows(kr_cache, kr_new, positions, pos)
-  f32 = torch.float32
   w_uk = _as_w(p["w_uk"]).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
-  q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(f32), w_uk.to(f32))
-  c = c_cache.to(f32)
-  sc = torch.einsum("bqhr,bsr->bqhs", q_lat, c)
-  sc = sc + torch.einsum("bqhr,bsr->bqhs", q_rope.to(f32), kr_cache.to(f32))
-  sc = sc * (1.0 / ((m.qk_nope_dim + m.qk_rope_dim) ** 0.5))
-  mask = torch.arange(c.shape[1], device=x.device)[None, None, :] <= \
-      pos[:, :, None]                                      # (b, W, S)
-  sc = torch.where(mask[:, :, None, :], sc, NEG_INF)
-  pr = torch.softmax(sc, dim=-1)
-  ctx = torch.einsum("bqhs,bsr->bqhr", pr, c)
   w_uv = _as_w(p["w_uv"]).reshape(m.kv_lora_rank, h, m.v_head_dim)
-  out = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv.to(f32))
+  scale = 1.0 / ((m.qk_nope_dim + m.qk_rope_dim) ** 0.5)
+  f32 = torch.float32
+  q_lat = shd.split_call(
+      lambda qn, wk: torch.einsum("bqhd,rhd->bqhr", qn.to(f32), wk.to(f32)),
+      (q_nope, "bsh"), (w_uk, ".h"), out="bsh")
+  ctx = shd.split_call(_latent_attend, (q_lat, "b"), (q_rope, "b"),
+                       (c_cache, "bl"), (kr_cache, "bl"), (pos, "b"),
+                       out="b", scale=scale)
+  out = shd.split_call(
+      lambda cx, wv: torch.einsum("bqhr,rhd->bqhd", cx, wv.to(f32)),
+      (ctx, "bsh"), (w_uv, ".h"), out="bsh")
   out = out.reshape(b, w, h * m.v_head_dim).to(x.dtype)
   return gemm(p["wo"], out, policy), cache
 
 
+def _latent_attend(q_lat, q_rope, c_cache, kr_cache, pos, *, scale: float,
+                   group, offset: int) -> torch.Tensor:
+  """The absorbed attention in the latent space, of plain tensors: q_lat
+  (b, W, h, r) f32, q_rope (b, W, h, rope), the latent cache rows c (b,
+  S', r) and k_rope (b, S', rope) from position `offset` on, pos (b, W)
+  -> the context (b, W, h, r) f32 (`softmax_mix` over `group`)."""
+  f32 = torch.float32
+  c = c_cache.to(f32)
+  sc = torch.einsum("bqhr,bsr->bqhs", q_lat, c)
+  sc = sc + torch.einsum("bqhr,bsr->bqhs", q_rope.to(f32), kr_cache.to(f32))
+  sc = sc * scale
+  mask = torch.arange(offset, offset + c.shape[1], device=c.device)[
+      None, None, :] <= pos[:, :, None]                   # (b, W, S')
+  sc = torch.where(mask[:, :, None, :], sc, NEG_INF)
+  return softmax_mix(sc, lambda pr: torch.einsum("bqhs,bsr->bqhr", pr, c),
+                     group)
+
+
 def mla_decode(p, x: torch.Tensor, cache: dict, positions: torch.Tensor,
-               cfg: ModelConfig, policy=None) -> tuple[torch.Tensor, dict]:
+               cfg: ModelConfig, policy=None,
+               cs: Constraint = identity_constraint
+               ) -> tuple[torch.Tensor, dict]:
   """One absorbed-form decode step. x: (b, 1, d); positions: (b,) write
   offsets; cache {"c_kv", "k_rope"}: (b, max_len, ...), updated in
   place."""
@@ -239,7 +283,8 @@ def mla_decode(p, x: torch.Tensor, cache: dict, positions: torch.Tensor,
 
 def mla_decode_window(p, x: torch.Tensor, cache: dict,
                       positions: torch.Tensor, cfg: ModelConfig,
-                      policy=None) -> tuple[torch.Tensor, dict]:
+                      policy=None, cs: Constraint = identity_constraint
+                      ) -> tuple[torch.Tensor, dict]:
   """Batched W-token absorbed-form decode (speculative verification).
   x: (b, W, d); positions: (b,) start. The query and latent projections
   run as (b*W)-row GEMMs (one weight pass), the W new latents are

@@ -39,7 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.factored import acc_dtype, dense, normal
-from repro_torch.layers.common import ModelConfig, MoEConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.layers.common import (Constraint, ModelConfig, MoEConfig,
+                                      identity_constraint)
 from repro_torch.layers.ffn import SwiGLU, init_swiglu, swiglu_forward
 
 
@@ -234,11 +236,54 @@ def _w(leaf) -> torch.Tensor:
   return leaf.product() if hasattr(leaf, "product") else leaf
 
 
-def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
-                policy=None) -> tuple[torch.Tensor, torch.Tensor]:
+def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+             wd: torch.Tensor, dtype: torch.dtype,
+             cs: Constraint = identity_constraint) -> torch.Tensor:
+  """The experts' SwiGLU, batched over (group, expert): buf (G, E, C, D)
+  and float (E, m, n) weights -> (G, E, C, D) in `dtype`; on DTensors
+  each rank multiplies its own experts (E on the model axis) alone."""
+  acc = acc_dtype(buf)
+  h = cs(shd.split_call(_expert_up, (buf, "bh"), (wg, "h"), (wu, "h"),
+                        out="bh", acc=acc, dtype=dtype), "gecf")
+  return shd.split_call(_expert_down, (h, "bh"), (wd, "h"), out="bh",
+                        acc=acc, dtype=dtype)
+
+
+def _expert_up(buf, wg, wu, *, acc, dtype):
+  xe = buf.to(acc)
+  gate = torch.einsum("gecd,edf->gecf", xe, wg.to(acc)).to(dtype)
+  up = torch.einsum("gecd,edf->gecf", xe, wu.to(acc)).to(dtype)
+  return F.silu(gate.float()).to(dtype) * up
+
+
+def _expert_down(h, wd, *, acc, dtype):
+  return torch.einsum("gecf,efd->gecd", h.to(acc), wd.to(acc)).to(dtype)
+
+
+def _route_dispatch(xg: torch.Tensor, router: torch.Tensor, m: MoEConfig,
+                    cap: int):
+  """Routing and the group-local scatter of xg (G, T, D): (buf, book,
+  topw, aux (G,))."""
+  topw, tope, aux = _route(router, xg, m)
+  buf, book = _dispatch(xg, tope, m, cap)
+  return buf, book, topw, aux
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, policy=None,
+                cs: Constraint = identity_constraint
+                ) -> tuple[torch.Tensor, torch.Tensor]:
   """x: (b, s, d) -> (y (b, s, d), aux loss () f32). `p` maps "router"
   to (d, E), "w_gate", "w_up", "w_down" to (E, m, n) leaves and
-  "shared" to the shared SwiGLU's 2-D leaves."""
+  "shared" to the shared SwiGLU's 2-D leaves.
+
+  On DTensors (a mesh) the routing, the dispatch and the combine (the
+  one-hot cumsum, `index_put`'s accumulate and the gathers, which no
+  DTensor rule covers) run on every token on every rank, in the
+  config's groups as one device does, so capacity, drops and routes are
+  one device's. The dispatch buffer's experts then lie on the model axis
+  ("gecd"), each rank's experts are multiplied alone, and `out_buf`
+  comes back whole on the model axis for the combine, which needs every
+  expert's slots of a token."""
   m = cfg.moe
   b, s, d = x.shape
   t = b * s
@@ -246,22 +291,18 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
   if t % g:
     g = 1
   tg = t // g
-  xg = x.reshape(g, tg, d)
-  topw, tope, aux = _route(p["router"], xg, m)
-  aux = aux.mean()
   cap = capacity(m, tg)
-  buf, book = _dispatch(xg, tope, m, cap)
-
-  # the experts' SwiGLU, batched over (group, expert); weights (E, m, n)
-  acc = acc_dtype(x)
-  wg, wu, wd = (_w(p[k]).to(acc) for k in ("w_gate", "w_up", "w_down"))
-  xe = buf.to(acc)
-  gate = torch.einsum("gecd,edf->gecf", xe, wg).to(x.dtype)
-  up = torch.einsum("gecd,edf->gecf", xe, wu).to(x.dtype)
-  h = F.silu(gate.float()).to(x.dtype) * up
-  out_buf = torch.einsum("gecf,efd->gecd", h.to(acc), wd).to(x.dtype)
-
-  y = _combine(out_buf, book, topw, tg, m.top_k, x.dtype).reshape(t, d)
+  wg, wu, wd = (_w(p[k]) for k in ("w_gate", "w_up", "w_down"))
+  buf, book, topw, aux = shd.split_call(
+      lambda xl, router: _route_dispatch(xl.reshape(g, tg, d), router, m,
+                                         cap),
+      (x, ""), (p["router"], ""), out=("", None, None, ""))
+  buf = cs(buf, "gecd")                       # experts on the model axis
+  out_buf = cs(_experts(buf, wg, wu, wd, x.dtype, cs), "gecd")
+  y = shd.split_call(
+      lambda ob: _combine(ob, book, topw, tg, m.top_k, x.dtype).reshape(t, d),
+      (out_buf, ""), out="")
+  aux = aux.mean()
   if m.num_shared:
-    y = y + swiglu_forward(p["shared"], x.reshape(t, d), policy)
+    y = y + swiglu_forward(p["shared"], x.reshape(t, d), policy, cs)
   return y.reshape(b, s, d), aux.float()

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.factored import dense
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import dispatch
 from repro_torch.layers.common import ModelConfig, gemm
 from repro_torch.layers.norms import rms_norm
@@ -150,7 +151,8 @@ def _qkv_gates(p, x: torch.Tensor, cfg: ModelConfig, pf: float, policy):
   q, k, v = (t.reshape(b, w, h, di // h).to(torch.float32)
              for t in qkv.split(di, dim=-1))
   gates = gemm(p["ifg"], xin, policy).to(torch.float32).reshape(b, w, 2, h)
-  return q, k, v, gates[:, :, 0], F.logsigmoid(gates[:, :, 1]), z
+  return (q, k, v, gates[:, :, 0],
+          shd.pointwise(F.logsigmoid, gates[:, :, 1]), z)
 
 
 def _mlstm_out(p, y: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
@@ -178,18 +180,25 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, pf: float = 2.0,
         f"mlstm_forward: {s} positions do not split into chunks of {Q} "
         f"(CHUNK = {CHUNK}; the reference reshapes s into s // CHUNK "
         "chunks): a sequence longer than CHUNK must be a multiple of it")
-  f32 = dict(dtype=torch.float32, device=x.device)
-  C = torch.zeros((b, h, hd, hd), **f32)
-  n = torch.zeros((b, h, hd), **f32)
-  m = torch.full((b, h), M_START, **f32)
+  y = shd.rows_local(_mlstm_chunks, q, k, v, logf, logi, chunk=Q, heads=h,
+                     hd=hd)
+  return _mlstm_out(p, y.reshape(b, s, di), z, x, cfg, policy)
+
+
+def _mlstm_chunks(q, k, v, logf, logi, *, chunk: int, heads: int, hd: int):
+  """The chunk scan from the zero state: y (b, s, h, hd) f32."""
+  b, s = q.shape[:2]
+  f32 = dict(dtype=torch.float32, device=q.device)
+  C = torch.zeros((b, heads, hd, hd), **f32)
+  n = torch.zeros((b, heads, hd), **f32)
+  m = torch.full((b, heads), M_START, **f32)
   ys = []
-  for c in range(s // Q):                 # the reference's chunk scan
-    sl = slice(c * Q, (c + 1) * Q)
+  for c in range(s // chunk):             # the reference's chunk scan
+    sl = slice(c * chunk, (c + 1) * chunk)
     y, C, n, m = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], logf[:, sl],
                               logi[:, sl], C, n, m)
     ys.append(y)
-  y = torch.cat(ys, dim=1).reshape(b, s, di)
-  return _mlstm_out(p, y, z, x, cfg, policy)
+  return torch.cat(ys, dim=1)
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, stack: tuple = (),
@@ -239,17 +248,22 @@ def mlstm_decode_window(p, x: torch.Tensor, state: dict, cfg: ModelConfig,
   b, w, _ = x.shape
   di = int(pf * cfg.d_model)
   q, k, v, logi, logf, z = _qkv_gates(p, x, cfg, pf, policy)
-  C, n, m = state["C"], state["n"], state["m"]
+  y, C, n, m = shd.rows_local(_mlstm_steps, q, k, v, logi, logf, state["C"],
+                              state["n"], state["m"], n_out=4)
+  for key, t in (("C", C), ("n", n), ("m", m)):
+    shd.assign(state[key], t)
+  return _mlstm_out(p, y.reshape(b, w, di), z, x, cfg, policy), state
+
+
+def _mlstm_steps(q, k, v, logi, logf, C, n, m):
+  """The matrix memory position by position over a window: y (b, W, h,
+  hd) and the last (C, n, m)."""
   ys = []
-  for t in range(w):
+  for t in range(q.shape[1]):
     y, C, n, m = _mlstm_cell(q[:, t], k[:, t], v[:, t], logi[:, t],
                              logf[:, t], C, n, m)
     ys.append(y)
-  state["C"].copy_(C)
-  state["n"].copy_(n)
-  state["m"].copy_(m)
-  y = torch.stack(ys, dim=1).reshape(b, w, di)
-  return _mlstm_out(p, y, z, x, cfg, policy), state
+  return torch.stack(ys, dim=1), C, n, m
 
 
 # ----------------------------------------------------------------------------
@@ -316,26 +330,37 @@ def _slstm_scan(p, x: torch.Tensor, hcnm: tuple, cfg: ModelConfig, policy
                 ) -> tuple[torch.Tensor, tuple]:
   """The input GEMM over all of x (b, W, d) (the paper's Wx batching),
   then the cell position by position from `hcnm`; returns the block's
-  output and the last carries."""
+  output and the last carries. On DTensors (a mesh) the cell runs on
+  each rank's rows with `rh` gathered whole once a call, so every head's
+  GEMM is one device's."""
   h_ = cfg.num_heads
   hd = cfg.d_model // h_
   xg = gemm(p["wx"], x, policy) + p["bias"].to(x.dtype)
-  heads = head_views(p["rh"], h_)
+  hs, *hcnm = shd.rows_local(_slstm_steps, xg, *hcnm, whole=(p["rh"],),
+                             heads=h_, hd=hd, policy=policy, n_out=5)
+  y = rms_norm(hs.to(x.dtype), p["norm"], cfg.norm_eps)
+  return gemm(p["out"], y, policy), tuple(hcnm)
+
+
+def _slstm_steps(xg, h, c, n, m, rh, *, heads: int, hd: int, policy):
+  """The sLSTM cell position by position over xg (b, W, 4d) from the
+  carries (h, c, n, m), each head's `rh` block a 2-D leaf
+  (`head_views`): the hidden states (b, W, d) f32 and the last (h, c, n,
+  m)."""
+  hcnm, heads = (h, c, n, m), head_views(rh, heads)
   hs = []
   with dispatch.scanned():                # the reference's time scan
-    for t in range(x.shape[1]):
-      hcnm = _slstm_cell(xg[:, t], hcnm, heads, h_, hd, policy)
+    for t in range(xg.shape[1]):
+      hcnm = _slstm_cell(xg[:, t], hcnm, heads, len(heads), hd, policy)
       hs.append(hcnm[0])
-  y = torch.stack(hs, dim=1).to(x.dtype)
-  y = rms_norm(y, p["norm"], cfg.norm_eps)
-  return gemm(p["out"], y, policy), hcnm
+  return (torch.stack(hs, dim=1),) + tuple(hcnm)
 
 
 def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig,
                   policy=None) -> torch.Tensor:
   """The block over a whole sequence x (b, s, d), from the zero state."""
   b, _, d = x.shape
-  zero = x.new_zeros((b, d), dtype=torch.float32)
+  zero = torch.zeros((b, d), dtype=torch.float32, device=x.device)
   y, _ = _slstm_scan(p, x, (zero, zero, zero, torch.full_like(zero, M_START)),
                      cfg, policy)
   return y
@@ -365,8 +390,9 @@ def slstm_decode_window(p, x: torch.Tensor, state: dict, cfg: ModelConfig,
   """A W-token decode window, x: (b, W, d): the input GEMM (and out,
   norm) over the whole window, the cell position by position from the
   decode carries, as `slstm_forward` splits it."""
+  from repro_torch.dist.sharding import assign
   y, new = _slstm_scan(p, x, tuple(state[k] for k in _SLSTM_KEYS), cfg,
                        policy)
   for key, t in zip(_SLSTM_KEYS, new):
-    state[key].copy_(t)
+    assign(state[key], t)
   return y, state

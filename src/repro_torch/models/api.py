@@ -24,6 +24,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.dist.sharding import assign, cut_prefix, slot_of, splice_cut
 from repro_torch.layers.common import ModelConfig
 from repro_torch.models import (deepspeech, transformer, whisper,
                                 xlstm_model, zamba)
@@ -93,24 +94,25 @@ class ModelApi:
     return self.decode_step is not None
 
   def decode_window(self, params, state, tokens, positions,
-                    cfg: ModelConfig, policy=None):
+                    cfg: ModelConfig, policy=None, **kw):
     """Decode a W-token window: tokens (b, W) ids, or (b, W, f) frames
     for deepspeech, fed at positions `positions + t`; returns (logits
     (b, W, v) f32, state after all W steps). Routes to the family's
     `decode_window_batched`, or to `decode_window_sequential` where the
     family has none. The caller owns undoing a rejected suffix (see
-    `decode_state_carry`)."""
+    `decode_state_carry`). `kw` (a mesh's `cs`) goes to the family's
+    step."""
     if not self.decodable:
       raise ValueError(f"{self.family} has no decode path")
     if self.decode_window_batched is None:
       return self.decode_window_sequential(params, state, tokens, positions,
-                                           cfg, policy)
+                                           cfg, policy, **kw)
     logits, state = self.decode_window_batched(params, state, tokens,
-                                               positions, cfg, policy)
+                                               positions, cfg, policy, **kw)
     return logits.float(), state
 
   def decode_window_sequential(self, params, state, tokens, positions,
-                               cfg: ModelConfig, policy=None):
+                               cfg: ModelConfig, policy=None, **kw):
     """The W-token window as W `decode_step`s, one position each: the
     oracle of `decode_window` and the fallback of a family without a
     batched window; same semantics."""
@@ -119,7 +121,7 @@ class ModelApi:
     logits = []
     for t in range(tokens.shape[1]):
       lg, state = self.decode_step(params, state, tokens[:, t:t + 1],
-                                   positions + t, cfg, policy)
+                                   positions + t, cfg, policy, **kw)
       logits.append(lg[:, 0].float())
     return torch.stack(logits, dim=1), state
 
@@ -143,8 +145,9 @@ class ModelApi:
     return state
 
   def extract_slot(self, cfg: ModelConfig, state: dict, slot: int) -> dict:
-    """A copy of slot `slot` of `state`, batch 1."""
-    return _map(lambda _, x, ax: x.narrow(ax, slot, 1).clone(), state,
+    """A copy of slot `slot` of `state`, batch 1 (of a DTensor leaf, a
+    DTensor with the batch axis whole: `dist.sharding.slot_of`)."""
+    return _map(lambda _, x, ax: slot_of(x, ax, slot).clone(), state,
                 self._slot_axes(cfg))
 
   def reset_slot(self, cfg: ModelConfig, state: dict, slot: int, *,
@@ -175,16 +178,17 @@ class ModelApi:
     """A snapshot (a copy) of a batch-1 decode state after exactly
     `length` tokens: KV leaves cut to rows [0, length), every other leaf
     whole. `slot_state` must be the state after `length` tokens: carries
-    are valid only there."""
-    return _map(lambda _, x, ax: (x if ax < 0 else x.narrow(ax, 0, length)
-                                  ).clone(),
+    are valid only there. Of a DTensor state, each rank keeps the rows of
+    its own block (`dist.sharding.cut_prefix`)."""
+    return _map(lambda _, x, ax: x.clone() if ax < 0 else
+                cut_prefix(x, ax, length),
                 slot_state, self.decode_state_length_axes(cfg))
 
   def slot_snapshot(self, cfg: ModelConfig, state: dict, slot: int,
                     length: int) -> dict:
     """`extract_slot` and `prefix_view`: the snapshot of one live slot's
     first `length` positions, copied once."""
-    view = _map(lambda _, x, ax: x.narrow(ax, slot, 1), state,
+    view = _map(lambda _, x, ax: slot_of(x, ax, slot), state,
                 self._slot_axes(cfg))
     return self.prefix_view(cfg, view, length)
 
@@ -193,9 +197,12 @@ class ModelApi:
     """The inverse of `prefix_view`, into a fresh batch-1 state in place:
     KV rows land at [0, m) and the zeros beyond stay, what a cold prefill
     of those m tokens leaves there; every other leaf is the snapshot's.
-    Returns `fresh`."""
+    Each rank writes its own block of a DTensor state. Returns `fresh`."""
     def put(_, f, s, ax):
-      (f if ax < 0 else f.narrow(ax, 0, s.shape[ax])).copy_(s)
+      if ax < 0:
+        assign(f, s)
+      else:
+        splice_cut(f, s, ax)
       return f
     _map(put, fresh, snapshot, self.decode_state_length_axes(cfg))
     return fresh

@@ -26,13 +26,9 @@ def ctc_loss(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
   recursion's in-place updates never meet a DTensor, and the mean is the
   one device's, bit for bit.
   """
-  from repro_torch.dist.sharding import is_dtensor, rows_local
-  if is_dtensor(log_probs):
-    nll, whole = rows_local(_ctc_nll, log_probs, logit_lengths, labels,
-                            label_lengths, blank=blank)
-    return whole(nll).mean()
-  return _ctc_nll(log_probs, logit_lengths, labels, label_lengths,
-                  blank).mean()
+  from repro_torch.dist.sharding import gather_whole, rows_local
+  return gather_whole(rows_local(_ctc_nll, log_probs, logit_lengths, labels,
+                                 label_lengths, blank=blank)).mean()
 
 
 def _ctc_nll(log_probs: torch.Tensor, logit_lengths: torch.Tensor,

@@ -101,11 +101,14 @@ def conv_relu(x: torch.Tensor, w_hwio: torch.Tensor, stride: tuple,
   """One frontend stage in the reference's layout: x (b, t, f, c_in),
   w (kt, kf, c_in, c_out) -> relu(conv) (b, t', f', c_out), computed in
   x.dtype with the ReLU in f32, as the reference does. On DTensors (a
-  mesh) each rank convolves its own rows (`dist.sharding.rows_apply`)."""
-  from repro_torch.dist.sharding import is_dtensor, rows_apply
-  if is_dtensor(x) or is_dtensor(w_hwio):
-    return rows_apply(conv_relu, x, w_hwio, stride=stride,
-                      time_pads=time_pads, freq_pads=freq_pads)
+  mesh) each rank convolves its own rows (`dist.sharding.rows_local`)."""
+  from repro_torch.dist.sharding import rows_local
+  return rows_local(_conv_relu, x, whole=(w_hwio,), stride=stride,
+                    time_pads=time_pads, freq_pads=freq_pads)
+
+
+def _conv_relu(x: torch.Tensor, w_hwio: torch.Tensor, *, stride: tuple,
+               time_pads: tuple, freq_pads: tuple) -> torch.Tensor:
   y = F.pad(x.permute(0, 3, 1, 2), freq_pads + time_pads)
   y = F.conv2d(y, w_hwio.permute(3, 2, 0, 1), stride=stride)
   return torch.relu(y.float()).to(x.dtype).permute(0, 2, 3, 1)

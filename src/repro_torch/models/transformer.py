@@ -266,7 +266,7 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
 def _attend(p, x: torch.Tensor, cfg: ModelConfig, policy,
             cs: Constraint = identity_constraint) -> torch.Tensor:
   if cfg.mla is not None:
-    return mla_lib.mla_forward(p, x, cfg, policy)
+    return mla_lib.mla_forward(p, x, cfg, policy, cs)
   return attn_lib.attention_forward(p, x, cfg, policy, cs)
 
 
@@ -283,11 +283,12 @@ def _layer_fwd(x: torch.Tensor, lp: dict, cfg: ModelConfig,
 def _moe_layer_fwd(x: torch.Tensor, lp: dict, cfg: ModelConfig,
                    policy=None, cs: Constraint = identity_constraint
                    ) -> tuple[torch.Tensor, torch.Tensor]:
+  lp = cs(lp, "layer_params")
   h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-  x = x + _attend(lp["attn"], h, cfg, policy)
+  x = cs(x + _attend(lp["attn"], h, cfg, policy, cs), "bsd")
   h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-  f, aux = moe_lib.moe_forward(lp["moe"], h, cfg, policy)
-  return x + f, aux
+  f, aux = moe_lib.moe_forward(lp["moe"], h, cfg, policy, cs)
+  return cs(x + f, "bsd"), aux
 
 
 #: the matmul ops whose outputs remat="dots" keeps (the reference's
@@ -339,7 +340,7 @@ def forward_with_aux(params: TransformerLM, tokens: torch.Tensor,
       for lp in params.dense_layers.layers():
         x = layer(x, lp)
     if params.moe_layers is not None:
-      layer = _remat_layer(cfg, policy, recorded, _moe_layer_fwd)
+      layer = _remat_layer(cfg, policy, recorded, _moe_layer_fwd, cs)
       for lp in params.moe_layers.layers():
         x, a = layer(x, lp)
         aux = aux + a
@@ -365,7 +366,8 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def _mtp_loss(params: TransformerLM, tokens: torch.Tensor,
-              targets: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+              targets: torch.Tensor, cfg: ModelConfig,
+              cs: Constraint = identity_constraint) -> torch.Tensor:
   """Multi-token prediction (deepseek-v3): predict t+2 from
   [h_t; emb_{t+1}] through the head's own dense layer (no policy, no
   remat). The full length is kept (the MLA blocks need s % block == 0);
@@ -374,7 +376,7 @@ def _mtp_loss(params: TransformerLM, tokens: torch.Tensor,
   x = embed(params.embedding, tokens)
   h = torch.cat([x, torch.roll(x, -1, dims=1)], dim=-1)
   h = gemm(head.proj, h)
-  h = _layer_fwd(h, head.layer.view(), cfg)
+  h = _layer_fwd(h, head.layer.view(), cfg, cs=cs)
   h = rms_norm(h, head.norm, cfg.norm_eps)
   logits = lm_logits(params.embedding, h)
   if targets.shape[1] > 2:
@@ -403,7 +405,7 @@ def loss_fn(params: TransformerLM, batch: dict, cfg: ModelConfig,
   if cfg.moe:
     total = total + cfg.moe.router_aux_weight * aux
   if cfg.mtp and params.mtp is not None:
-    mtp = _mtp_loss(params, tokens, targets, cfg)
+    mtp = _mtp_loss(params, tokens, targets, cfg, cs)
     metrics["mtp"] = mtp
     total = total + 0.3 * mtp
   return total, metrics
@@ -454,8 +456,7 @@ def _decode_stack(params: TransformerLM, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, policy,
                   attend, cs: Constraint) -> tuple[torch.Tensor, dict]:
   x = cs(embed(params.embedding, tokens), "bsd")
-  if cfg.mla is None:
-    attend = functools.partial(attend, cs=cs)
+  attend = functools.partial(attend, cs=cs)
   with dispatch.scanned():              # the reference's layer scans
     for key, stack in params.stacks():
       cache = state[key]
@@ -467,7 +468,7 @@ def _decode_stack(params: TransformerLM, state: dict, tokens: torch.Tensor,
         x = x + a
         f = rms_norm(x, lp["ln2"], cfg.norm_eps)
         if "moe" in lp:
-          f, _ = moe_lib.moe_forward(lp["moe"], f, cfg, policy)
+          f, _ = moe_lib.moe_forward(lp["moe"], f, cfg, policy, cs)
         else:
           f = swiglu_forward(lp["ffn"], f, policy, cs)
         x = x + f

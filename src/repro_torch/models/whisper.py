@@ -37,9 +37,11 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.factored import dense, normal
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import heads_local
 from repro_torch.kernels import dispatch
 from repro_torch.layers import attention as attn_lib
-from repro_torch.layers.common import ModelConfig, gemm
+from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
+                                      identity_constraint)
 from repro_torch.layers.embedding import (Embedding, embed, init_embedding,
                                           logits as lm_logits)
 from repro_torch.layers.ffn import GeluFFN, gelu_ffn_forward, init_gelu_ffn
@@ -139,30 +141,44 @@ def _ln(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
 def _xattn(p, x: torch.Tensor, mem: torch.Tensor, cfg: ModelConfig,
            policy=None) -> torch.Tensor:
   """Cross attention: queries from x (b, s, d), keys and values from the
-  memory (b, t, d), scores and softmax in f32."""
+  memory (b, t, d), scores and softmax in f32; on DTensors on each
+  rank's rows and heads."""
   b, s, _ = x.shape
   h, hd = cfg.num_heads, cfg.resolved_head_dim
   q = gemm(p["wq"], x, policy).reshape(b, s, h, hd)
   k = gemm(p["wk"], mem, policy).reshape(b, mem.shape[1], h, hd)
   v = gemm(p["wv"], mem, policy).reshape(b, mem.shape[1], h, hd)
-  sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (hd ** 0.5)
-  pr = torch.softmax(sc, dim=-1)
-  o = torch.einsum("bhqk,bkhd->bqhd", pr, v.float())
+  o = heads_local(_cross, q, k, v)
   return gemm(p["wo"], o.reshape(b, s, h * hd).to(x.dtype), policy)
 
 
+def _cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+  """softmax(q k^T / sqrt(hd)) v of plain (b, s, h, hd) q and (b, t, h,
+  hd) k, v, in f32."""
+  sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (
+      q.shape[-1] ** 0.5)
+  pr = torch.softmax(sc, dim=-1)
+  return torch.einsum("bhqk,bkhd->bqhd", pr, v.float())
+
+
 def _enc_block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
-               policy=None) -> torch.Tensor:
+               policy=None, cs: Constraint = identity_constraint
+               ) -> torch.Tensor:
+  lp = cs(lp, "layer_params")         # inside the checkpointed region
   x = x + attn_lib.bidir_attention_forward(lp["attn"], _ln(x, lp["ln1"], cfg),
                                            cfg, policy)
-  return x + gelu_ffn_forward(lp["ffn"], _ln(x, lp["ln2"], cfg), policy)
+  return x + gelu_ffn_forward(lp["ffn"], _ln(x, lp["ln2"], cfg), policy, cs)
 
 
 def _dec_block(x: torch.Tensor, lp: dict, mem: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
-  x = x + attn_lib.attention_forward(lp["attn"], _ln(x, lp["ln1"], cfg), cfg)
+               cfg: ModelConfig, cs: Constraint = identity_constraint
+               ) -> torch.Tensor:
+  lp = cs(lp, "layer_params")         # inside the checkpointed region
+  x = x + attn_lib.attention_forward(lp["attn"], _ln(x, lp["ln1"], cfg), cfg,
+                                     cs=cs)
   x = x + _xattn(lp["xattn"], _ln(x, lp["ln2"], cfg), mem, cfg)
-  return x + gelu_ffn_forward(lp["ffn"], _ln(x, lp["ln3"], cfg))
+  return x + gelu_ffn_forward(lp["ffn"], _ln(x, lp["ln3"], cfg), cs=cs)
 
 
 def _remat(body, cfg: ModelConfig, params: Whisper):
@@ -182,47 +198,51 @@ def _frames_in(frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def encode(params: Whisper, frames: torch.Tensor, cfg: ModelConfig,
-           policy=None) -> torch.Tensor:
+           policy=None, cs: Constraint = identity_constraint
+           ) -> torch.Tensor:
   """frames (b, t, d) -> memory (b, t, d) in cfg.dtype. t must be a
   multiple of min(cfg.attn_block_kv, t), as in the reference."""
-  x = _frames_in(frames, cfg)
-  block = _remat(functools.partial(_enc_block, cfg=cfg, policy=policy), cfg,
-                 params)
+  x = cs(_frames_in(frames, cfg), "bsd")
+  block = _remat(functools.partial(_enc_block, cfg=cfg, policy=policy,
+                                   cs=cs), cfg, params)
   with dispatch.scanned():              # the reference's layer scan
     for lp in params.enc_layers.layers():
-      x = block(x, lp)
+      x = cs(block(x, lp), "bsd")
   return layer_norm(x, params.enc_ln.scale, params.enc_ln.bias, cfg.norm_eps)
 
 
 def encode_unrolled(params: Whisper, frames: torch.Tensor, cfg: ModelConfig,
-                    policy=None) -> torch.Tensor:
+                    policy=None, cs: Constraint = identity_constraint
+                    ) -> torch.Tensor:
   """`encode` with each layer under `dispatch.calibration_layer(i)` and
   outside `dispatch.scanned()`: with a policy threaded, the observers see
   every encoder GEMM, keyed "name@L{i}". The forward of LiteASR's
   calibration; serve with `encode`."""
-  x = _frames_in(frames, cfg)
+  x = cs(_frames_in(frames, cfg), "bsd")
   for i, lp in enumerate(params.enc_layers.layers()):
     with dispatch.calibration_layer(i):
-      x = _enc_block(x, lp, cfg, policy)
+      x = cs(_enc_block(x, lp, cfg, policy, cs), "bsd")
   return layer_norm(x, params.enc_ln.scale, params.enc_ln.bias, cfg.norm_eps)
 
 
 def decode_train(params: Whisper, tokens: torch.Tensor, mem: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, cs: Constraint = identity_constraint
+                 ) -> torch.Tensor:
   """tokens (b, s), memory (b, t, d) -> logits (b, s, v), no kernel
   policy (the reference's training decoder takes none)."""
   s = tokens.shape[1]
   x = embed(params.embedding, tokens)
   x = x + params.pos_dec[:s][None].to(x.dtype)
-  block = _remat(functools.partial(_dec_block, cfg=cfg), cfg, params)
+  block = _remat(functools.partial(_dec_block, cfg=cfg, cs=cs), cfg, params)
   with dispatch.scanned():              # the reference's layer scan
     for lp in params.dec_layers.layers():
-      x = block(x, lp, mem)
+      x = cs(block(x, lp, mem), "bsd")
   x = layer_norm(x, params.dec_ln.scale, params.dec_ln.bias, cfg.norm_eps)
   return lm_logits(params.embedding, x)
 
 
-def loss_fn(params: Whisper, batch: dict, cfg: ModelConfig
+def loss_fn(params: Whisper, batch: dict, cfg: ModelConfig,
+            cs: Constraint = identity_constraint
             ) -> tuple[torch.Tensor, dict]:
   """Next-token cross-entropy of a batch {"frames" (b, t, d), "tokens",
   "targets" (b, s)}, tensors or numpy arrays, through `encode` and
@@ -231,8 +251,8 @@ def loss_fn(params: Whisper, batch: dict, cfg: ModelConfig
   frames = torch.as_tensor(batch["frames"], device=dev)
   tokens, targets = (torch.as_tensor(batch[k], device=dev).long()
                      for k in ("tokens", "targets"))
-  mem = encode(params, frames, cfg)
-  loss = _xent(decode_train(params, tokens, mem, cfg), targets)
+  mem = encode(params, frames, cfg, cs=cs)
+  loss = _xent(decode_train(params, tokens, mem, cfg, cs), targets)
   return loss, {"xent": loss}
 
 
@@ -267,7 +287,7 @@ def decode_state_carry(cfg: ModelConfig) -> dict:
 
 def _decode_stack(params: Whisper, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, policy,
-                  attend) -> tuple[torch.Tensor, dict]:
+                  attend, cs: Constraint) -> tuple[torch.Tensor, dict]:
   pos = positions[:, None] + torch.arange(tokens.shape[1],
                                           device=tokens.device)[None, :]
   x = embed(params.embedding, tokens)
@@ -275,28 +295,31 @@ def _decode_stack(params: Whisper, state: dict, tokens: torch.Tensor,
   mem, kv = state["mem"], state["kv"]
   with dispatch.scanned():              # the reference's layer scan
     for i, lp in enumerate(params.dec_layers.layers()):
+      lp = cs(lp, "layer_params")
       a, _ = attend(lp["attn"], _ln(x, lp["ln1"], cfg),
                     {"k": kv["k"][i], "v": kv["v"][i]}, positions, cfg,
-                    policy)
+                    policy, cs)
       x = x + a
       x = x + _xattn(lp["xattn"], _ln(x, lp["ln2"], cfg), mem, cfg, policy)
-      x = x + gelu_ffn_forward(lp["ffn"], _ln(x, lp["ln3"], cfg), policy)
+      x = x + gelu_ffn_forward(lp["ffn"], _ln(x, lp["ln3"], cfg), policy, cs)
   x = layer_norm(x, params.dec_ln.scale, params.dec_ln.bias, cfg.norm_eps)
   return lm_logits(params.embedding, x, policy), state
 
 
 def decode_step(params: Whisper, state: dict, token: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig,
-                policy=None) -> tuple[torch.Tensor, dict]:
+                policy=None, cs: Constraint = identity_constraint
+                ) -> tuple[torch.Tensor, dict]:
   """token (b, 1), positions (b,) -> (logits (b, 1, v), state), the KV
   rows at `positions` written into `state` in place."""
   return _decode_stack(params, state, token, positions, cfg, policy,
-                       attn_lib.attention_decode)
+                       attn_lib.attention_decode, cs)
 
 
 def decode_window(params: Whisper, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig,
-                  policy=None) -> tuple[torch.Tensor, dict]:
+                  policy=None, cs: Constraint = identity_constraint
+                  ) -> tuple[torch.Tensor, dict]:
   """Batched window decode: tokens (b, W) at positions `positions + t`
   -> (logits (b, W, v), state after the W tokens, written in place).
   The causal self-attention runs `attention_decode_window`; the
@@ -304,4 +327,4 @@ def decode_window(params: Whisper, state: dict, tokens: torch.Tensor,
   b*W rows together. Each row equals W sequential `decode_step`s' to f32
   summation order."""
   return _decode_stack(params, state, tokens, positions, cfg, policy,
-                       attn_lib.attention_decode_window)
+                       attn_lib.attention_decode_window, cs)

@@ -29,7 +29,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.layers import xlstm as xl
-from repro_torch.layers.common import ModelConfig
+from repro_torch.layers.common import (Constraint, ModelConfig,
+                                      identity_constraint)
 from repro_torch.layers.embedding import (Embedding, embed, init_embedding,
                                           logits as lm_logits)
 from repro_torch.layers.norms import init_rms, rms_norm
@@ -90,7 +91,9 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def _pair_block(h: torch.Tensor, lp: dict, cfg: ModelConfig,
-                policy=None) -> torch.Tensor:
+                policy=None, cs: Constraint = identity_constraint
+                ) -> torch.Tensor:
+  lp = cs(lp, "layer_params")         # inside the checkpointed region
   h = h + xl.mlstm_forward(lp["mlstm"], rms_norm(h, lp["m_norm"],
                                                  cfg.norm_eps),
                            cfg, policy=policy)
@@ -100,25 +103,27 @@ def _pair_block(h: torch.Tensor, lp: dict, cfg: ModelConfig,
 
 
 def forward(params: XlstmLM, tokens: torch.Tensor, cfg: ModelConfig, *,
-            last_only: bool = False, policy=None) -> torch.Tensor:
+            last_only: bool = False, policy=None,
+            cs: Constraint = identity_constraint) -> torch.Tensor:
   """tokens (b, s) -> logits (b, s, v); last_only=True (serving
   prefill) narrows to the final position before the vocab projection.
   s must be at most CHUNK or a multiple of it (`xlstm.mlstm_forward`)."""
-  x = embed(params.embedding, tokens)
-  block = functools.partial(_pair_block, cfg=cfg, policy=policy)
+  x = cs(embed(params.embedding, tokens), "bsd")
+  block = functools.partial(_pair_block, cfg=cfg, policy=policy, cs=cs)
   if cfg.remat == "full" and torch.is_grad_enabled() and any(
       p.requires_grad for p in params.parameters()):
     block = functools.partial(ckpt.checkpoint, block, use_reentrant=False)
   with dispatch.scanned():              # the reference's pair scan
     for lp in params.pairs.layers():
-      x = block(x, lp)
+      x = cs(block(x, lp), "bsd")
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   if last_only:
     x = x[:, -1:]
-  return lm_logits(params.embedding, x, policy)
+  return cs(lm_logits(params.embedding, x, policy), "bsv")
 
 
-def loss_fn(params: XlstmLM, batch: dict, cfg: ModelConfig
+def loss_fn(params: XlstmLM, batch: dict, cfg: ModelConfig,
+            cs: Constraint = identity_constraint
             ) -> tuple[torch.Tensor, dict]:
   """Mean next-token cross-entropy of a batch {"tokens", "targets"}
   (b, s), tensors or numpy arrays, with no kernel policy; returns (loss,
@@ -127,7 +132,7 @@ def loss_fn(params: XlstmLM, batch: dict, cfg: ModelConfig
   dev = params.final_norm.device
   tokens, targets = (torch.as_tensor(batch[k], device=dev).long()
                      for k in ("tokens", "targets"))
-  loss = _xent(forward(params, tokens, cfg), targets)
+  loss = _xent(forward(params, tokens, cfg, cs=cs), targets)
   return loss, {"xent": loss}
 
 
@@ -164,12 +169,13 @@ def decode_state_carry(cfg: ModelConfig) -> dict:
 
 
 def _decode(params: XlstmLM, state: dict, tokens: torch.Tensor,
-            cfg: ModelConfig, policy, mlstm, slstm
+            cfg: ModelConfig, policy, mlstm, slstm, cs: Constraint
             ) -> tuple[torch.Tensor, dict]:
-  x = embed(params.embedding, tokens)
+  x = cs(embed(params.embedding, tokens), "bsd")
   ms, ss = state["mlstm"], state["slstm"]
   with dispatch.scanned():              # the reference's pair scan
     for i, lp in enumerate(params.pairs.layers()):
+      lp = cs(lp, "layer_params")
       y, _ = mlstm(lp["mlstm"], rms_norm(x, lp["m_norm"], cfg.norm_eps),
                    {k: t[i] for k, t in ms.items()}, cfg, policy=policy)
       x = x + y
@@ -182,20 +188,22 @@ def _decode(params: XlstmLM, state: dict, tokens: torch.Tensor,
 
 def decode_step(params: XlstmLM, state: dict, token: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig,
-                policy=None) -> tuple[torch.Tensor, dict]:
+                policy=None, cs: Constraint = identity_constraint
+                ) -> tuple[torch.Tensor, dict]:
   """token (b, 1) -> (logits (b, 1, v), state), every carry written in
   place."""
   return _decode(params, state, token, cfg, policy, xl.mlstm_decode,
-                 xl.slstm_decode)
+                 xl.slstm_decode, cs)
 
 
 def decode_window(params: XlstmLM, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig,
-                  policy=None) -> tuple[torch.Tensor, dict]:
+                  policy=None, cs: Constraint = identity_constraint
+                  ) -> tuple[torch.Tensor, dict]:
   """Batched window decode: tokens (b, W) -> (logits (b, W, v), state
   after the W tokens, written in place). Every non-recurrent GEMM reads
   its weights once for the window; only the carries run position by
   position. Each row equals W sequential `decode_step`s' to f32
   summation order."""
   return _decode(params, state, tokens, cfg, policy, xl.mlstm_decode_window,
-                 xl.slstm_decode_window)
+                 xl.slstm_decode_window, cs)

@@ -33,7 +33,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mamba2 as m2
-from repro_torch.layers.common import ModelConfig
+from repro_torch.layers.common import (Constraint, ModelConfig,
+                                      identity_constraint)
 from repro_torch.layers.embedding import (Embedding, embed, init_embedding,
                                           logits as lm_logits)
 from repro_torch.layers.ffn import init_swiglu, swiglu_forward
@@ -105,53 +106,59 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def _shared_block(x: torch.Tensor, sp: dict, cfg: ModelConfig,
-                  policy=None) -> torch.Tensor:
+                  policy=None, cs: Constraint = identity_constraint
+                  ) -> torch.Tensor:
   h = rms_norm(x, sp["ln1"], cfg.norm_eps)
-  x = x + attn_lib.attention_forward(sp["attn"], h, cfg, policy)
+  x = x + attn_lib.attention_forward(sp["attn"], h, cfg, policy, cs)
   h = rms_norm(x, sp["ln2"], cfg.norm_eps)
-  return x + swiglu_forward(sp["ffn"], h, policy)
+  return x + swiglu_forward(sp["ffn"], h, policy, cs)
 
 
 def _mamba_block(h: torch.Tensor, lp: dict, cfg: ModelConfig,
-                 policy=None) -> torch.Tensor:
+                 policy=None, cs: Constraint = identity_constraint
+                 ) -> torch.Tensor:
+  lp = cs(lp, "layer_params")         # inside the checkpointed region
   return h + m2.mamba2_forward(lp, rms_norm(h, lp["norm_in"], cfg.norm_eps),
-                               cfg, policy=policy)
+                               cfg, policy=policy, cs=cs)
 
 
 def _mamba_scan(x: torch.Tensor, layers: list, cfg: ModelConfig, policy,
-                recorded: bool) -> torch.Tensor:
+                recorded: bool, cs: Constraint = identity_constraint
+                ) -> torch.Tensor:
   """The blocks of `layers` in order; a forward that autograd records
   checkpoints each block (the reference remats every one)."""
-  block = functools.partial(_mamba_block, cfg=cfg, policy=policy)
+  block = functools.partial(_mamba_block, cfg=cfg, policy=policy, cs=cs)
   if recorded:
     block = functools.partial(ckpt.checkpoint, block, use_reentrant=False)
   for lp in layers:
-    x = block(x, lp)
+    x = cs(block(x, lp), "bsd")
   return x
 
 
 def forward(params: ZambaLM, tokens: torch.Tensor, cfg: ModelConfig, *,
-            last_only: bool = False, policy=None) -> torch.Tensor:
+            last_only: bool = False, policy=None,
+            cs: Constraint = identity_constraint) -> torch.Tensor:
   """tokens (b, s) -> logits (b, s, v); last_only=True (serving
   prefill) narrows to the final position before the vocab projection.
   s must be at most CHUNK or a multiple of it (`mamba2.ssd_chunked`)."""
-  x = embed(params.embedding, tokens)
+  x = cs(embed(params.embedding, tokens), "bsd")
   recorded = torch.is_grad_enabled() and any(
       p.requires_grad for p in params.parameters())
   sp = params.shared_attn.view()
   with dispatch.scanned():              # the reference's group scans
     for group in params.main.layers():
-      x = _shared_block(x, sp, cfg, policy)
-      x = _mamba_scan(x, group, cfg, policy, recorded)
+      x = _shared_block(x, sp, cfg, policy, cs)
+      x = _mamba_scan(x, group, cfg, policy, recorded, cs)
     if params.tail is not None:
-      x = _mamba_scan(x, params.tail.layers(), cfg, policy, recorded)
+      x = _mamba_scan(x, params.tail.layers(), cfg, policy, recorded, cs)
   x = rms_norm(x, params.final_norm, cfg.norm_eps)
   if last_only:
     x = x[:, -1:]
-  return lm_logits(params.embedding, x, policy)
+  return cs(lm_logits(params.embedding, x, policy), "bsv")
 
 
-def loss_fn(params: ZambaLM, batch: dict, cfg: ModelConfig
+def loss_fn(params: ZambaLM, batch: dict, cfg: ModelConfig,
+            cs: Constraint = identity_constraint
             ) -> tuple[torch.Tensor, dict]:
   """Mean next-token cross-entropy of a batch {"tokens", "targets"}
   (b, s), tensors or numpy arrays, with no kernel policy; returns (loss,
@@ -160,7 +167,7 @@ def loss_fn(params: ZambaLM, batch: dict, cfg: ModelConfig
   dev = params.final_norm.device
   tokens, targets = (torch.as_tensor(batch[k], device=dev).long()
                      for k in ("tokens", "targets"))
-  loss = _xent(forward(params, tokens, cfg), targets)
+  loss = _xent(forward(params, tokens, cfg, cs=cs), targets)
   return loss, {"xent": loss}
 
 
@@ -211,16 +218,17 @@ def decode_state_carry(cfg: ModelConfig) -> dict:
 
 def _decode(params: ZambaLM, state: dict, tokens: torch.Tensor,
             positions: torch.Tensor, cfg: ModelConfig, policy, attend,
-            mamba) -> tuple[torch.Tensor, dict]:
-  x = embed(params.embedding, tokens)
+            mamba, cs: Constraint) -> tuple[torch.Tensor, dict]:
+  x = cs(embed(params.embedding, tokens), "bsd")
   sp = params.shared_attn.view()
   ms, kv = state["main_ssm"], state["shared_kv"]
 
   def blocks(x, layers, ssm, idx):
     for j, lp in enumerate(layers):
+      lp = cs(lp, "layer_params")
       ls = {key: s[idx + (j,)] for key, s in ssm.items()}
       y, _ = mamba(lp, rms_norm(x, lp["norm_in"], cfg.norm_eps), ls, cfg,
-                   policy=policy)
+                   policy=policy, cs=cs)
       x = x + y
     return x
 
@@ -228,10 +236,10 @@ def _decode(params: ZambaLM, state: dict, tokens: torch.Tensor,
     for g, group in enumerate(params.main.layers()):
       a = rms_norm(x, sp["ln1"], cfg.norm_eps)
       a, _ = attend(sp["attn"], a, {key: c[g] for key, c in kv.items()},
-                    positions, cfg, policy)
+                    positions, cfg, policy, cs)
       x = x + a
       f = rms_norm(x, sp["ln2"], cfg.norm_eps)
-      x = x + swiglu_forward(sp["ffn"], f, policy)
+      x = x + swiglu_forward(sp["ffn"], f, policy, cs)
       x = blocks(x, group, ms, (g,))
     if params.tail is not None:
       x = blocks(x, params.tail.layers(), state["tail_ssm"], ())
@@ -241,16 +249,18 @@ def _decode(params: ZambaLM, state: dict, tokens: torch.Tensor,
 
 def decode_step(params: ZambaLM, state: dict, token: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig,
-                policy=None) -> tuple[torch.Tensor, dict]:
+                policy=None, cs: Constraint = identity_constraint
+                ) -> tuple[torch.Tensor, dict]:
   """token (b, 1), positions (b,) -> (logits (b, 1, v), state), the KV
   rows at `positions` and every SSM carry written in place."""
   return _decode(params, state, token, positions, cfg, policy,
-                 attn_lib.attention_decode, m2.mamba2_decode)
+                 attn_lib.attention_decode, m2.mamba2_decode, cs)
 
 
 def decode_window(params: ZambaLM, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig,
-                  policy=None) -> tuple[torch.Tensor, dict]:
+                  policy=None, cs: Constraint = identity_constraint
+                  ) -> tuple[torch.Tensor, dict]:
   """Batched window decode: tokens (b, W) at positions `positions + t`
   -> (logits (b, W, v), state after the W tokens, written in place). One
   weight pass for the whole window: the shared block runs
@@ -258,4 +268,5 @@ def decode_window(params: ZambaLM, state: dict, tokens: torch.Tensor,
   each row equals W sequential `decode_step`s' to f32 summation
   order."""
   return _decode(params, state, tokens, positions, cfg, policy,
-                 attn_lib.attention_decode_window, m2.mamba2_decode_window)
+                 attn_lib.attention_decode_window, m2.mamba2_decode_window,
+                 cs)

@@ -5,8 +5,9 @@ Parameters and moments are dicts keyed by the reference's path strings
 case and the state checkpoints under the reference's keys
 ("opt/m/grus/gru0/rec/u"). Moments are f32 whatever the param dtype; the
 decoupled weight decay skips params with ndim < 2 (norms, biases).
-The update runs in place under `torch.no_grad()`. (`torch.optim.AdamW`
-keeps its moments in the param dtype and decays biases too.)
+The update runs in place under `torch.no_grad()`, on DTensor params (a
+mesh) block by block. (`torch.optim.AdamW` keeps its moments in the
+param dtype and decays biases too.)
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.factored import param_tree
+from repro_torch.dist.sharding import local_block
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -81,6 +83,9 @@ def apply(params: Params, grads: Mapping[str, torch.Tensor],
   for k, p in tree.items():
     g = grads[k].float()
     m, v = state.m[k], state.v[k]
+    # elementwise over operands laid out alike: on a mesh each rank its
+    # block
+    p, g, m, v = (local_block(t, p) for t in (p, g, m, v))
     m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
     v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
     delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)

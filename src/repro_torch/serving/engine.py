@@ -41,14 +41,19 @@ cold state at its length, so greedy serving with the cache emits the
 tokens serving without it emits. `compile_stats` has no counterpart
 (nothing is compiled).
 
-With `mesh=` (a `dist.make_mesh` DeviceMesh; the dense transformer) the
-engine lays the weights out by `dist.sharding.param_shardings` on a copy
-of `params` and the decode state by `state_shardings` (the batch axis on
+With `mesh=` (a `dist.make_mesh` DeviceMesh; every family) the engine
+lays the weights out by `dist.sharding.param_shardings` on a copy of
+`params` and the decode state by `state_shardings` (the batch axis on
 the data axes, the length axis on the model axis), threads
-`make_constraint`'s `cs` through every step, and gathers each step's
-logits whole, so sampling and the slot lifecycle run as without a mesh.
-Speculation and the prefix cache under a mesh, and every other family,
-wait for ROADMAP.md A6b and raise.
+`make_constraint`'s `cs` through every step, window and draft step, and
+gathers each step's logits whole, so sampling and the slot lifecycle run
+as without a mesh. Admission writes each rank's block of the state
+(`insert_slot`, `splice_prefix`) and gathers no state leaf; the draft
+of a speculative engine is laid out by the same rules
+(`make_draft_params` on the DTensor target), its carries are
+snapshotted, rewound and replayed as DTensors; a prefix-cache snapshot
+keeps each rank's rows (`dist.sharding.cut_prefix`) and is charged its
+global bytes, so hits, evictions and bytes are those of one device.
 
 `StreamingSpeechServer` keeps the reference's two surfaces (a
 continuous-batching fleet, and the lockstep chunk API) over one masked
@@ -167,12 +172,9 @@ class LMEngine:
                prefix_cache: Optional[PrefixCache] = None,
                publish_on_retire: bool = False, device=None, mesh=None):
     self.mesh = mesh
+    given = params
     if mesh is not None:
-      shd.check_mesh_family(model_cfg)
-      if speculate or prefix_cache is not None:
-        raise NotImplementedError(
-            "LMEngine(mesh=...) with speculation or a prefix cache is not "
-            "ported yet: ROADMAP.md A6b")
+      shd.check_mesh(mesh)
       device = shd.mesh_device(mesh)
       params = copy.deepcopy(params).to(device)
       params = shd.distribute_params(params,
@@ -217,6 +219,11 @@ class LMEngine:
     if self.speculate:
       if draft_params is None:
         draft_params = make_draft_params(self.params, rank=draft_rank)
+      elif mesh is not None:
+        # the draft's own tensors laid out; those it shares with the
+        # target stay shared
+        draft_params = shd.distribute_sharing(draft_params, given,
+                                              self.params, mesh)
       self.draft_params = draft_params.to(self.device)
       self.draft_state = self._init_state(batch_size)
     self.rank_controller = rank_controller
@@ -251,26 +258,32 @@ class LMEngine:
     return shd.distribute_tree(
         state, shd.state_shardings(state, self.mesh, shape))
 
+  def _run(self, fn, params, state: dict, tokens: torch.Tensor,
+           positions: torch.Tensor):
+    """fn (a decode step or window) of `params` on `state`; under a
+    mesh with `cs` threaded and the logits gathered whole."""
+    if self.mesh is None:
+      return fn(params, state, tokens, positions, self.cfg,
+                self.kernel_policy)
+    with shd.replicated_plain():
+      logits, state = fn(params, state, tokens, positions, self.cfg,
+                         self.kernel_policy, cs=self.cs)
+      return shd.gather_tree(logits), state
+
   def _step(self, state: dict, tokens: torch.Tensor,
             positions: torch.Tensor):
-    if self.mesh is None:
-      return self.api.decode_step(self.params, state, tokens, positions,
-                                  self.cfg, self.kernel_policy)
-    with shd.replicated_plain():
-      logits, state = self.api.decode_step(
-          self.params, state, tokens, positions, self.cfg,
-          self.kernel_policy, cs=self.cs)
-      return shd.gather_tree(logits), state
+    return self._run(self.api.decode_step, self.params, state, tokens,
+                     positions)
 
   def _draft_step(self, state: dict, tokens: torch.Tensor,
                   positions: torch.Tensor):
-    return self.api.decode_step(self.draft_params, state, tokens, positions,
-                                self.cfg, self.kernel_policy)
+    return self._run(self.api.decode_step, self.draft_params, state, tokens,
+                     positions)
 
   def _window(self, state: dict, tokens: torch.Tensor,
               positions: torch.Tensor):
-    return self.api.decode_window(self.params, state, tokens, positions,
-                                  self.cfg, self.kernel_policy)
+    return self._run(self.api.decode_window, self.params, state, tokens,
+                     positions)
 
   def reset(self) -> None:
     self.state = self._init_state(self.batch)
@@ -798,7 +811,8 @@ def _keep_rows(state: dict, old: dict, keep: torch.Tensor, carry,
   if carry:
     shape = [1] * state.ndim
     shape[axes] = keep.shape[0]
-    state.copy_(torch.where(keep.view(shape), state, old))
+    with shd.replicated_plain():
+      shd.assign(state, torch.where(keep.view(shape), state, old))
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:

@@ -44,6 +44,8 @@ from typing import Any, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import LocalCut
+
 __all__ = ["PrefixCache", "snapshot_bytes"]
 
 #: host bookkeeping charged per cached token (trie edges and key tuples)
@@ -62,7 +64,12 @@ def _as_key(tokens: Iterable) -> tuple:
 
 def snapshot_bytes(payload: Any) -> int:
   """Accounted size of a snapshot payload: the bytes of every tensor (or
-  numpy array) leaf of its nested dicts, lists and tuples."""
+  numpy array) leaf of its nested dicts, lists and tuples. A sharded
+  snapshot counts global bytes (a DTensor's global shape, a `LocalCut`'s
+  `nbytes`), so a cache under a mesh charges, hits and evicts as one
+  without."""
+  if isinstance(payload, LocalCut):
+    return payload.nbytes
   if isinstance(payload, torch.Tensor):
     return payload.numel() * payload.element_size()
   if isinstance(payload, np.ndarray):

@@ -55,6 +55,28 @@ def _share_structure(mod: nn.Module) -> nn.Module:
   return new
 
 
+def _truncate(leaf: FactoredLinear, spec: TruncationSpec) -> FactoredLinear:
+  """`svd.truncate_leaf` of `leaf`; a leaf of DTensors (a target on a
+  mesh, dense or factored) is gathered whole, w or u and v, truncated on
+  every rank alike, and its factors laid out by the same rules as the
+  target's (u split on m, v on n)."""
+  from repro_torch.dist import sharding as shd
+  fields = {f: getattr(leaf, f) for f in "wuv"
+            if getattr(leaf, f) is not None}
+  lead = next((t for t in fields.values() if shd.is_dtensor(t)), None)
+  if lead is None:
+    return svd.truncate_leaf(leaf, spec)
+  mesh = lead.device_mesh
+  whole = FactoredLinear(**{f: t.full_tensor() if shd.is_dtensor(t) else t
+                            for f, t in fields.items()},
+                         name=leaf.name, group=leaf.group)
+  out = svd.truncate_leaf(whole, spec)
+  return FactoredLinear(
+      **{f: shd.lay_out(getattr(out, f), shd.NamedSharding(mesh, shd._leaf_spec(
+          tuple(getattr(out, f).shape), mesh, name=leaf.name, field=f)))
+         for f in "uv"}, name=leaf.name, group=leaf.group)
+
+
 def make_draft_params(params: nn.Module, *, rank: Optional[int] = None,
                       variance: Optional[float] = None,
                       plan: Optional[FactorizationPlan] = None) -> nn.Module:
@@ -66,7 +88,9 @@ def make_draft_params(params: nn.Module, *, rank: Optional[int] = None,
   The draft's factors are made from the target's weights without copying
   them first; every leaf the plan does not match (embedding, norms,
   small GEMMs, a MoE's router, which is not a GEMM leaf) is the target's
-  own tensor, so the draft costs only its factors. A stacked leaf (a
+  own tensor, so the draft costs only its factors. On a DTensor target
+  (a mesh) each matched leaf, dense or factored, is gathered for its SVD
+  and the factors are laid out by the target's rules. A stacked leaf (a
   layer stack's (L, m, n), a MoE's (L, E, m, n) experts) is truncated at
   one rank for the whole stack. Raises if nothing matched: a "draft"
   that is the target itself would claim a perfect accept rate.
@@ -81,7 +105,7 @@ def make_draft_params(params: nn.Module, *, rank: Optional[int] = None,
   for parent in list(draft.modules()):
     for key, child in list(parent.named_children()):
       if isinstance(child, FactoredLinear) and plan.matches(child):
-        setattr(parent, key, svd.truncate_leaf(child, plan.truncation))
+        setattr(parent, key, _truncate(child, plan.truncation))
         matched += 1
   if not matched:
     raise ValueError(

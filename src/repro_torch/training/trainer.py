@@ -13,9 +13,8 @@ frames and int64 tokens. The transition replaces the factored leaves
 (full rank -> truncated), so it makes new parameters, turns their
 gradients on, and starts new optimizer moments.
 
-Under a mesh (`Trainer(mesh=, batch_size=)`, the dense transformer and
-deepspeech families) the parameters are DTensors laid out by
-`dist.sharding.param_shardings`, each batch by `batch_shardings`, the
+Under a mesh (`Trainer(mesh=, batch_size=)`, every family) the
+parameters are DTensors laid out by `dist.sharding.param_shardings`, each batch by `batch_shardings`, the
 step threads `make_constraint`'s `cs` through the model, and the
 optimizer sees each gradient in its parameter's placements (reduced
 over the data axes). The transition gathers the factors, truncates them
@@ -183,7 +182,7 @@ class Trainer:
                batch_size: int = 0,
                generator: Optional[torch.Generator] = None, device=None):
     if mesh is not None:
-      shd.check_mesh_family(model_cfg)
+      shd.check_mesh(mesh)
       device = shd.mesh_device(mesh)
     self.model_cfg = model_cfg
     self.train_cfg = train_cfg
@@ -267,16 +266,19 @@ class Trainer:
       return shard_batch(batch, self.device, mesh=self.mesh,
                          global_batch=self.batch_size)
     if self.api.family == "whisper":
-      return {"frames": torch.as_tensor(batch["frames"], dtype=torch.float32,
-                                        device=self.device),
-              **shard_batch({k: batch[k] for k in ("tokens", "targets")},
-                            self.device)}
+      tokens = shard_batch({k: batch[k] for k in ("tokens", "targets")},
+                           self.device)
+      batch = {"frames": torch.as_tensor(batch["frames"], dtype=torch.float32,
+                                         device=self.device), **tokens}
+    elif self.mesh is None:
+      return batch
+    else:
+      # deepspeech: every field on the device as its own dtype
+      batch = {k: torch.as_tensor(v, device=self.device)
+               for k, v in batch.items()}
     if self.mesh is None:
       return batch
-    # deepspeech: every field on the device as its own dtype, rows laid
-    # out over the data axes
-    batch = {k: torch.as_tensor(v, device=self.device)
-             for k, v in batch.items()}
+    # rows laid out over the data axes
     shape = ShapeConfig("train", "train", 0, self.batch_size)
     return shd.distribute_tree(batch, shd.batch_shardings(batch, self.mesh,
                                                           shape))

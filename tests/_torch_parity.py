@@ -71,3 +71,24 @@ def reference_tree(params, init):
       a = a.view(jnp.bfloat16)
     leaves.append(jnp.asarray(a))
   return jax.tree_util.tree_unflatten(tree, leaves)
+
+
+def run_world(args: list, env: dict, timeout: float):
+  """Run a multi-rank worker script (`args`) in a session of its own and
+  return its `subprocess.CompletedProcess`; on `timeout` kill the whole
+  session, the ranks it spawned included (a rank left waiting in a
+  collective would otherwise spin on after the test), and raise
+  `subprocess.TimeoutExpired` with what it printed."""
+  import os
+  import signal
+  import subprocess
+  proc = subprocess.Popen(args, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, env=env,
+                          start_new_session=True)
+  try:
+    out, err = proc.communicate(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    os.killpg(proc.pid, signal.SIGKILL)
+    out, err = proc.communicate()
+    raise subprocess.TimeoutExpired(args, timeout, output=out, stderr=err)
+  return subprocess.CompletedProcess(args, proc.returncode, out, err)

@@ -5,7 +5,7 @@ gloo world of CPU ranks.
 No process group is needed for the rule tables: `rule_coverage` on a
 `RuleMesh` is held entry for entry against the reference's on the same
 trees, `state_shardings` against the reference's on an `AbstractMesh`.
-The multi-rank checks run once for the module: one `subprocess.run`
+The multi-rank checks run once for the module: one subprocess (`run_world`)
 starts a world of 4 CPU ranks through a `FileStore` in a temp dir (no
 TCP port, so concurrent test workers cannot collide): each takes a
 shard of the compressed mean, then the (2, 2) meshes run and the
@@ -14,7 +14,6 @@ are compared with; the fixture reads what the ranks wrote.
 """
 import functools
 import os
-import subprocess
 import sys
 import textwrap
 
@@ -29,6 +28,7 @@ import torch
 from repro import configs as jconfigs
 from repro.dist import sharding as jshd
 from repro.layers.common import SHAPES as JSHAPES
+from _torch_parity import run_world
 from repro_torch import configs as tconfigs
 from repro_torch.dist import sharding as tshd
 
@@ -299,26 +299,6 @@ def test_q_adam_state_bytes_and_optimizer():
 
 
 # ---------------------------------------------------------------------------
-# (g) refusals, and the import contract.
-# ---------------------------------------------------------------------------
-
-def test_unported_families_refuse_a_mesh_by_name():
-  from repro_torch.serving.engine import LMEngine
-  from repro_torch.training import TrainConfig, Trainer
-  for arch in ("zamba2-7b", "xlstm-350m", "deepseek-v2-lite",
-               "whisper-small"):
-    with pytest.raises(NotImplementedError, match="A6b"):
-      Trainer(tconfigs.get_smoke(arch), TrainConfig(), mesh=object(),
-              device="cpu")
-  cfg = tconfigs.get_smoke("zamba2-7b")
-  with pytest.raises(NotImplementedError, match="A6b"):
-    LMEngine(cfg, None, batch_size=2, max_len=8, mesh=object())
-  cfg = tconfigs.get_smoke("llama3-8b")
-  with pytest.raises(NotImplementedError, match="A6b"):
-    LMEngine(cfg, None, batch_size=2, max_len=8, mesh=object(), speculate=2)
-
-
-# ---------------------------------------------------------------------------
 # (e), (f): one gloo world.
 # ---------------------------------------------------------------------------
 
@@ -532,8 +512,7 @@ def world(tmp_path_factory):
     f.write(WORKER)
   env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
              OMP_NUM_THREADS="1")
-  out = subprocess.run([sys.executable, script, tmp], capture_output=True,
-                       text=True, env=env, timeout=300)
+  out = run_world([sys.executable, script, tmp], env, timeout=300)
   assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
   with open(os.path.join(tmp, "import.json")) as f:
     res = {"import": json.load(f)}

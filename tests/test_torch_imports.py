@@ -101,8 +101,8 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
   """`Trainer` and `launch.train` run on the GPU unless asked for the
   CPU; with no GPU they raise. On the CPU the launcher trains the DS2
   smoke model through both stages and a transformer's; a family neither
-  package has, and a mesh on a family whose sharded execution is not
-  ported yet, are refused and say so."""
+  package has, and a mesh that is not a DeviceMesh, are refused and say
+  so."""
   from repro_torch import configs
   from repro_torch.launch import train
   from repro_torch.training import TrainConfig, Trainer
@@ -112,7 +112,7 @@ def test_training_entry_points_default_to_the_gpu(monkeypatch, capsys):
     Trainer(cfg, TrainConfig())
   with pytest.raises(RuntimeError, match="device='cpu'"):
     train.main(["--arch", "deepspeech2-wsj", "--steps", "1"])
-  with pytest.raises(NotImplementedError, match="A6b"):
+  with pytest.raises(TypeError, match="DeviceMesh"):
     Trainer(configs.get_smoke("zamba2-7b"), TrainConfig(), mesh=object(),
             device="cpu")
   with pytest.raises(ValueError, match="unknown model family"):

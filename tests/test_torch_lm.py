@@ -314,7 +314,7 @@ def test_engine_static_surface_and_limits(tparams):
   logits = eng.prefill(prompts)
   assert logits.shape == (2, 1, cfg.vocab_size)
   np.testing.assert_array_equal(eng.positions, [4, 4])
-  with pytest.raises(NotImplementedError, match="A6b"):
+  with pytest.raises(TypeError, match="DeviceMesh"):
     LMEngine(cfg.with_(family="zamba"), tparams, batch_size=2, max_len=10,
              device="cpu", mesh=object())
 
