@@ -107,9 +107,9 @@
    trained shapes (uneven ranks) and serves the trained weights and their
    PTQ'd form as phase 3 does (`launches_by_path` key `ds2_trained`).
 7. Speculative serving, after phase 5, on llama3-8b at full width cut to
-   `SPEC_LAYERS` (8) layers (seeded random weights as phase 4's): the
+   `SPEC_LAYERS` (4) layers (seeded random weights as phase 4's): the
    ported `make_draft_params` builds the rank-128 truncated-SVD draft on
-   the card (timed, 57 SVDs; every GEMM leaf factored, the embedding and
+   the card (timed, 29 SVDs; every GEMM leaf factored, the embedding and
    norms the target's own storage). `lowrank_gemm` is held against its plain
    version, and timed against two `torch.matmul` calls and its bound, at
    each distinct draft shape at batch 1 (a draft prefill) and 4 (a draft
@@ -119,7 +119,7 @@
    `LMEngine(speculate=3, kernel_policy="cuda")` serves phase 5's 8
    requests greedily: every draft GEMM must route to `lowrank_gemm` and
    every target GEMM (admission steps and verify windows) to
-   `decode_matvec`, with exactly 57 launches a counted call; each
+   `decode_matvec`, with exactly 29 launches a counted call; each
    request's tokens equal vanilla greedy's under the same policy up to
    its first flip, which must sit at a vanilla log-prob gap below
    `LM_SERVE_ATOL` (a near-tie). Draft build time, accept rate and tok/s
@@ -305,17 +305,30 @@
    prefill on the mesh and with none, bit for bit with equal launches.
    Two ranks sharing the card (gloo on CUDA tensors) are not run:
    DTensor's all-gather dies there (`chip_gloo_probe.py`).
-15. Prints each phase's seconds, the card line, `{"kernels": [...]}`
+15. The examples and the static auditor (ROADMAP A5b, A7a): (a)
+   `examples/quickstart_torch.py`, `compress_model_torch.py` and
+   `serve_lm_torch.py` on the card (serve_lm's full-width qwen3-4b runs
+   launch `decode_matvec` and `lowrank_gemm`); (b)
+   `repro_torch.analysis.run_audit` on the default grid at smoke scale
+   under both policies on the card, held to the port's baseline (the
+   CPU's findings): nothing new, nothing stale, and so no finding only
+   the card shows (`CARD_ONLY_KEYS`); (c) a warmed qwen3-4b decode step at full
+   width (`QWEN_LAYERS`) walked under `KernelPolicy(mode="decode")`: no
+   bypass, each kernel scope one launch of its kernel, no sync under
+   `set_sync_debug_mode("error")`, every state storage kept, and the
+   liveness estimate beside `max_memory_allocated`'s rise.
+16. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
    failure raises: the script exits non-zero and prints no result line.
 
 On an H100 the build takes about 30 s (nvcc, the five sources in
 parallel) and phases 2-6 about a minute and a half; phase 7's draft
-build runs 57 exact SVDs on the card (225 before its depth cut, ~257 s).
+build runs 29 exact SVDs on the card (225 before its depth cuts, ~257 s).
 Phases 8, 11 and 12 run their serving paths cut in depth (`QWEN_LAYERS`,
 `DS_LAYERS`, `ZAMBA_LAYERS`): at 36, 27 and 81 layers they took ~78,
 ~228 and ~250 s, and the script came within 100 s of its 1200 s limit.
+Phase 15's arrival cut phase 7 from 8 layers to 4 (29 SVDs).
 """
 from __future__ import annotations
 
@@ -455,9 +468,9 @@ STABLELM_LAYERS = 4
 #: lowrank_gemm)
 SPEC_K = 3
 DRAFT_RANK = 128
-#: phase 7's depth: llama3-8b at full width cut to 8 layers (8 x 7 + 1 =
-#: 57 draft SVDs; all 32 layers took 225, ~257 s of the script's time)
-SPEC_LAYERS = 8
+#: phase 7's depth: llama3-8b at full width cut to 4 layers (4 x 7 + 1 =
+#: 29 draft SVDs; all 32 layers took 225, ~257 s of the script's time)
+SPEC_LAYERS = 4
 LM_GEMMS = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
             "ffn_down")
 #: phase 10: whisper-small's streams, frames (the reference's 30 s
@@ -4256,6 +4269,184 @@ def ds2_step_ms_by_batch(rows: list[dict], kernel: str,
   return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the examples and the static auditor.
+# ---------------------------------------------------------------------------
+
+#: the full-width decode step the auditor walks: qwen3-4b at phase 8's
+#: depth, SERVE_BATCH slots, a cache of AUDIT_MAX_LEN positions
+AUDIT_MAX_LEN = 64
+#: the keys of findings only the card can show: a sync under
+#: set_sync_debug_mode("error"), a kernel scope's launches
+CARD_ONLY_KEYS = ("cuda-sync", "launches:")
+
+
+def run_example(name: str, argv: list):
+  """`main(argv)` of `examples/{name}.py`."""
+  import importlib.util
+  spec = importlib.util.spec_from_file_location(
+      name, ROOT / "examples" / f"{name}.py")
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod.main(argv)
+
+
+def check_examples() -> dict:
+  """(a) The three examples of A5b on the card: quickstart's two stages
+  (8 steps), compress_model's threshold table (4 pretraining steps),
+  serve_lm's four runs (the smoke model dense and factored, then
+  qwen3-4b at full width, 1 layer, dense through decode_matvec and at
+  rank 256 through lowrank_gemm). Returns serve_lm's launches (each of
+  its runs zeroes the counts before it serves and reads them after)."""
+  from repro_torch.kernels import ops
+  q = run_example("quickstart_torch", ["--steps", "8", "--transition", "4"])
+  if q["stage"] != 2 or not q["params_after"] < q["params_before"] or \
+      not all(math.isfinite(x) for x in q["losses"]):
+    fail(f"quickstart_torch: stage {q['stage']}, params "
+         f"{q['params_before']} -> {q['params_after']}, {q['losses']}")
+  rows = run_example("compress_model_torch", ["--pretrain-steps", "4"])
+  if not rows[-1][1] < rows[0][1] or \
+      not all(math.isfinite(r[3]) for r in rows):
+    fail(f"compress_model_torch: {rows}")
+  runs = run_example("serve_lm_torch", [])
+  if runs["wide_dense"]["launches"].get("decode_matvec", 0) < 1 or \
+      runs["wide_factored"]["launches"].get("lowrank_gemm", 0) < 1 or \
+      any(r["tokens"] < 1 for r in runs.values()):
+    fail(f"serve_lm_torch: {runs}")
+  launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+              for k in ops.LAUNCHES}
+  print(json.dumps({"phase15_examples": {
+      "quickstart": {"params": [q["params_before"], q["params_after"]],
+                     "last_loss": q["losses"][-1]},
+      "compress_model": [list(r) for r in rows],
+      "serve_lm": runs}}), flush=True)
+  return launches
+
+
+def check_audit_grid() -> dict:
+  """(b) `run_audit` on the default grid at smoke scale, both policies,
+  on the card, held against the port's committed baseline, which is the
+  CPU's findings (`tests/test_torch_analysis.py` holds the CPU's audit
+  to it): no new finding and none stale, so the card finds what the CPU
+  finds. A finding only the card can show (CARD_ONLY_KEYS: a sync, a
+  kernel scope's launches) is new, and fails."""
+  from repro_torch import analysis
+  t0 = time.perf_counter()
+  gpu = analysis.run_audit(device="cuda")
+  card_s = time.perf_counter() - t0
+  gi = {f.ident for f in gpu.findings}
+  card_only = sorted(i for i in gi
+                     if i.split("|")[5].startswith(CARD_ONLY_KEYS))
+  gpu.apply_baseline(analysis.load_baseline())
+  launches = {}
+  for t in gpu.targets:
+    for k, n in t.get("launches", {}).items():
+      launches[k] = launches.get(k, 0) + n
+  out = dict(card_s=card_s, targets=len(gpu.targets), findings=len(gi),
+             card_only=card_only, new=[f.ident for f in gpu.new],
+             stale=gpu.stale, scope_launches=launches)
+  print(json.dumps({"phase15_audit_grid": out}), flush=True)
+  if gpu.new or gpu.stale:
+    fail("audit: the card's findings differ from the baseline's:\n" +
+         gpu.summary())
+  if not launches:
+    fail("audit: no kernel scope launched on the card")
+  return out
+
+
+def check_audit_step(card) -> tuple[dict, dict]:
+  """(c) One warmed decode step of qwen3-4b at full width (QWEN_LAYERS
+  layers, bf16) under KernelPolicy(mode="decode"), walked: no bypass,
+  every kernel scope launched exactly its kernel (LAUNCHES deltas), no
+  sync under set_sync_debug_mode("error"), every state storage kept;
+  the liveness estimate beside torch.cuda.max_memory_allocated's rise
+  over the same warmed step. Returns (the walked step's launches, the
+  summary)."""
+  from repro_torch import configs
+  from repro_torch.analysis import checks, liveness, targets
+  from repro_torch.analysis.op_walk import OpWalk, param_seeds
+  from repro_torch.kernels import dispatch, ops
+  from repro_torch.models.api import get_model
+  cfg = configs.get_config("qwen3-4b").with_(num_layers=QWEN_LAYERS)
+  lm = build_lm(cfg)
+  api = get_model(cfg)
+  b, dev = SERVE_BATCH, torch.device("cuda")
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  tok = torch.randint(1, cfg.vocab_size, (b, 1), device=dev, generator=gen)
+  pos = torch.full((b,), 5, dtype=torch.int64, device=dev)
+  state = api.init_decode_state(cfg, b, AUDIT_MAX_LEN, device=dev)
+  policy = dispatch.decode_policy(b)
+
+  def step():
+    return api.decode_step(lm, state, tok, pos, cfg, policy)
+  with torch.no_grad():
+    for _ in range(3):
+      step()
+    sync = targets.sync_error(step, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+  before = targets.state_signature(state)
+  ops.reset_launches()
+  walk = OpWalk(param_seeds(lm), keep_trace=True)
+  with torch.no_grad(), walk:
+    logits, new = step()
+  torch.cuda.synchronize()
+  launches = dict(ops.LAUNCHES)
+  after = targets.state_signature(new)
+  target = targets.RunTarget(
+      "qwen3-4b", cfg.family, "pallas", "float", "decode", walk.result,
+      list(walk.log), {k: (before[k], after.get(k)) for k in before}, sync,
+      "cuda")
+  findings, info = checks.run_target_checks(target)
+  live = liveness.estimate(walk.result, walk, outputs=[logits])
+  scopes = {}
+  for sc in walk.result.scopes:
+    key = f"{sc.regime}:{sorted(sc.launches)}"
+    scopes[key] = scopes.get(key, 0) + 1
+  out = dict(layers=QWEN_LAYERS, batch=b, ops=walk.result.n_ops,
+             products=info["n_dots"], scoped=info["n_dots_scoped"],
+             scopes=scopes, launches={k: v for k, v in launches.items() if v},
+             findings=[f.ident for f in findings], sync=sync,
+             liveness_transient_bytes=live.transient_bytes,
+             liveness_input_bytes=live.input_bytes,
+             measured_rise_bytes=rise,
+             estimate_over_measured=live.transient_bytes / max(rise, 1),
+             card=card)
+  print(json.dumps({"phase15_audit_step": out}), flush=True)
+  if findings:
+    fail(f"audit of the qwen3-4b decode step: {[f.ident for f in findings]}")
+  bad = [sc for sc in walk.result.scopes
+         if sc.regime != "jnp" and dict(sc.launches) != {sc.regime: 1}]
+  if bad or launches["decode_matvec"] != 7 * QWEN_LAYERS + 1:
+    fail(f"audit of the qwen3-4b decode step: scopes {bad[:4]}, launches "
+         f"{launches}")
+  del lm, state
+  gc.collect()
+  torch.cuda.empty_cache()
+  return launches, out
+
+
+def check_analysis(card) -> dict:
+  """Phase 15: (a) the examples, (b) the audit grid, (c) the walked
+  full-width step. Returns launches by path."""
+  from repro_torch.kernels import ops
+  t0 = time.perf_counter()
+  by_path = {"examples": check_examples()}
+  t1 = time.perf_counter()
+  check_audit_grid()
+  t2 = time.perf_counter()
+  ops.reset_launches()
+  by_path["audit_qwen3_step"], _ = check_audit_step(card)
+  print(json.dumps({"phase15_seconds": {
+      "examples": t1 - t0, "audit_grid": t2 - t1,
+      "audit_step": time.perf_counter() - t2}}), flush=True)
+  return by_path
+
+
 def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
   """One entry per kernel, its largest error over every compared shape
   and its launches on the main paths. Times: the DS2 kernels' per frame
@@ -4296,10 +4487,10 @@ def summarize(rows: list[dict], launches: dict, by_path: dict) -> list[dict]:
         entry[f"{y}_ms_by_batch"] = ds2_step_ms_by_batch(rows, name,
                                                          f"{y}_ms")
     for path, key in (("lm_decode", "llama3_8b_decode_step"),
-                      ("lm_draft", "llama3_8b_8_layer_draft_step"),
+                      ("lm_draft", "llama3_8b_4_layer_draft_step"),
                       ("lm_draft_prefill",
-                       "llama3_8b_8_layer_draft_prefill_token"),
-                      ("lm_verify", "llama3_8b_8_layer_verify_window"),
+                       "llama3_8b_4_layer_draft_prefill_token"),
+                      ("lm_verify", "llama3_8b_4_layer_verify_window"),
                       ("qwen3_decode", "qwen3_4b_12_layer_decode_step"),
                       ("qwen3_trained", "qwen3_4b_trained_step"),
                       ("whisper_encode", "whisper_small_encode"),
@@ -4422,6 +4613,9 @@ def main() -> int:
   dist_paths, _ = check_distribution(card)
   by_path.update(dist_paths)
   phases["14_distribution"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  by_path.update(check_analysis(card))
+  phases["15_analysis"] = time.perf_counter() - t0
   launches = {k: sum(n.get(k, 0) for n in by_path.values())
               for k in KERNELS}
   if not all(n > 0 for n in launches.values()):

@@ -667,6 +667,47 @@ def _grad_placements(pl: list, work_pl: list) -> list:
           for p, w in zip(pl, work_pl)]
 
 
+class _DenseGrad(torch.autograd.Function):
+  """The identity, whose backward hands on a contiguous gradient.
+
+  `to_local`'s backward wraps the local gradient as a DTensor of the
+  forward's global strides (contiguous); a local gradient laid out
+  otherwise (an einsum's backward can give (b, hd, s) strides for a
+  (b, s, hd) block) then fails the next `view` DTensor decomposes a
+  reshape into, as zamba2-7b's smoke attention did on a (1, 4) mesh."""
+
+  @staticmethod
+  def forward(ctx, x):
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    return g.contiguous()
+
+
+def split_heads(y: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+  """A projection's output (..., heads * head_dim) as (..., heads,
+  head_dim). On a DTensor whose model axis splits the columns, each rank
+  must hold whole heads: where the model degree does not divide `heads`
+  (2 kv heads on 4 ranks) the columns are first gathered on the model
+  axis, as the reference's `_gate` leaves such an activation unsharded
+  ("bshd_kv" replicates a kv axis the degree does not divide) and its
+  weight's split is resharded by XLA. Where the degree divides `heads`,
+  an even split of the columns already gives each rank whole heads."""
+  if is_dtensor(y):
+    names = axis_names(y.device_mesh)
+    if MODEL_AXIS in names:
+      md = names.index(MODEL_AXIS)
+      p = y.placements[md]
+      if p.is_shard() and p.dim % y.ndim == y.ndim - 1 and \
+          heads % y.device_mesh.size(md):
+        from torch.distributed.tensor import Replicate
+        pl = list(y.placements)
+        pl[md] = Replicate()
+        y = y.redistribute(y.device_mesh, pl)
+  return y.reshape(*y.shape[:-1], heads, head_dim)
+
+
 def local_call(fn, mesh, inputs: Sequence, outputs, **kwargs):
   """`fn` on this rank's blocks, by placements; with no DTensor among
   the inputs, `fn` on them as they are.
@@ -691,7 +732,8 @@ def local_call(fn, mesh, inputs: Sequence, outputs, **kwargs):
                    distribute_tensor_local(t, mesh, pl).to_local())
       continue
     t = t if list(t.placements) == list(pl) else t.redistribute(mesh, pl)
-    local.append(t.to_local(grad_placements=_grad_placements(pl, work)))
+    t = t.to_local(grad_placements=_grad_placements(pl, work))
+    local.append(_DenseGrad.apply(t) if t.requires_grad else t)
   out = fn(*local, **kwargs)
   single = not isinstance(out, tuple)
   wrapped = tuple(o if pl is None else DTensor.from_local(o, mesh, pl)

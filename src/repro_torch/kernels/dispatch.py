@@ -30,7 +30,11 @@ Classification keeps the reference's 128-lane gate (no dimension below
 gate is part of the routing contract the two packages share.
 
 PyTorch runs eagerly, so a decision is made — and recorded by
-`record_dispatch()` — at every call, not once per trace.
+`record_dispatch()` — at every call, not once per trace. Under
+`listen_scopes()` (the analysis op walk) each routed call also runs
+inside its `dispatch:{regime}:c{id}` scope, the counterpart
+of the reference's `jax.named_scope`; with no recorder or listener a
+call pays one check of an empty list.
 
 The calibration observers (`observe_gemm_inputs`, `observe_gemm_moments`,
 `calibration_layer`) see every GEMM routed through `gemm()`, under any
@@ -75,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import fnmatch
+import itertools
 import math
 from typing import Optional
 
@@ -162,13 +167,43 @@ def resolve_policy(policy, batch_size: Optional[int] = None, *,
 # Instrumentation.
 # ---------------------------------------------------------------------------
 
+class DispatchRecord(tuple):
+  """A recorded dispatch decision: equals (and unpacks as) the pair
+  `(logical_name, regime)`, with one attribute more, `call_id`, the
+  serial of the `dispatch:{regime}:c{call_id}` scope that `gemm()`,
+  `maybe_gru_cell` and `maybe_flash_attention` open around the routed
+  computation while a scope listener (`listen_scopes`, the analysis op
+  walk) is active; the auditor joins each op's open scope back to its
+  record through that id."""
+
+  def __new__(cls, name: str, regime: str, call_id: int):
+    self = tuple.__new__(cls, (name, regime))
+    self.call_id = call_id
+    return self
+
+  @property
+  def name(self) -> str:
+    return self[0]
+
+  @property
+  def regime(self) -> str:
+    return self[1]
+
+
+#: the recorders' logs and the scope listeners' (one list, so that with
+#: nothing listening a routed call pays one check of it)
 _RECORDERS: list = []
+#: the scope listeners (each also has a log in _RECORDERS): objects with
+#: `scope_opened(name)` and `scope_closed(name)`
+_LISTENERS: list = []
+_CALL_IDS = itertools.count()
 
 
 @contextlib.contextmanager
 def record_dispatch():
-  """Capture `(logical_name, regime)` for every dispatch decision made
-  inside the context. Reentrant: contexts nest and unwind correctly."""
+  """Capture a DispatchRecord — `(logical_name, regime)` plus its
+  `.call_id` — for every dispatch decision made inside the context.
+  Reentrant: contexts nest and unwind correctly."""
   log: list = []
   _RECORDERS.append(log)
   try:
@@ -177,9 +212,47 @@ def record_dispatch():
     _remove(_RECORDERS, log)
 
 
-def _record(name: Optional[str], regime: str) -> None:
+@contextlib.contextmanager
+def listen_scopes(listener):
+  """Record dispatch decisions (as `record_dispatch`) and run every
+  routed call inside its dispatch scope ("dispatch:{regime}:c{id}")
+  while the context is open: `listener` (the analysis op walk) gets
+  `scope_opened(name)` and `scope_closed(name)` around each. Costs
+  nothing once closed."""
+  _LISTENERS.append(listener)
+  try:
+    with record_dispatch() as log:
+      yield log
+  finally:
+    _remove(_LISTENERS, listener)
+
+
+def _record(name: Optional[str], regime: str) -> int:
+  cid = next(_CALL_IDS)
   for log in _RECORDERS:
-    log.append((name or "<unnamed>", regime))
+    log.append(DispatchRecord(name or "<unnamed>", regime, cid))
+  return cid
+
+
+@contextlib.contextmanager
+def _scope(regime: str, cid: int):
+  name = f"dispatch:{regime}:c{cid}"
+  for listener in _LISTENERS:
+    listener.scope_opened(name)
+  try:
+    yield
+  finally:
+    for listener in _LISTENERS:
+      listener.scope_closed(name)
+
+
+def _in_scope(regime: str, cid: int, fn, *args, **kwargs):
+  """`fn(*args, **kwargs)`, inside its dispatch scope while a listener
+  is active."""
+  if not _LISTENERS:
+    return fn(*args, **kwargs)
+  with _scope(regime, cid):
+    return fn(*args, **kwargs)
 
 
 def _remove(stack: list, item) -> None:
@@ -351,8 +424,27 @@ def gemm(leaf, x: torch.Tensor, policy: Optional[KernelPolicy],
          name: Optional[str] = None) -> torch.Tensor:
   """y[..., n] = x[..., m] @ W(m, n), routed by `policy`."""
   regime = classify(leaf, x, policy, name)
-  _record(name or getattr(leaf, "name", None), regime)
-  _observe(name or getattr(leaf, "name", None), x)
+  if _RECORDERS:
+    return _recorded_gemm(regime, leaf, x, policy, name)
+  if _OBSERVERS or _MOMENT_OBSERVERS:
+    _observe(name or getattr(leaf, "name", None), x)
+  return _route(regime, leaf, x, policy)
+
+
+def _recorded_gemm(regime: str, leaf, x: torch.Tensor,
+                   policy: Optional[KernelPolicy],
+                   name: Optional[str]) -> torch.Tensor:
+  """`gemm` with a recorder or a scope listener active: the decision is
+  recorded and, for a listener, the routed computation runs inside its
+  dispatch scope."""
+  name = name or getattr(leaf, "name", None)
+  cid = _record(name, regime)
+  _observe(name, x)
+  return _in_scope(regime, cid, _route, regime, leaf, x, policy)
+
+
+def _route(regime: str, leaf, x: torch.Tensor,
+           policy: Optional[KernelPolicy]) -> torch.Tensor:
   if regime == "jnp":
     return _plain_gemm(leaf, x)
   w = _weight_of(leaf)
@@ -521,7 +613,12 @@ def maybe_gru_cell(xw: torch.Tensor, h: torch.Tensor, rec,
   if not unfactored or h.shape[-1] < LANE:
     # no record here: the fallback's gemm() records the real decision
     return None
-  _record(name, "gru_cell")
+  cid = _record(name, "gru_cell")
+  return _in_scope("gru_cell", cid, _gru_cell, xw, h, rec, bias)
+
+
+def _gru_cell(xw: torch.Tensor, h: torch.Tensor, rec,
+              bias: torch.Tensor) -> torch.Tensor:
   if any(is_dtensor(t) for t in (xw, h, rec.w)):
     from torch.distributed.tensor import DTensor, Replicate
     mesh = next(t.device_mesh for t in (h, xw, rec.w) if is_dtensor(t))
@@ -561,5 +658,6 @@ def maybe_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return None
   if not flash_supported(q, k, v):
     return None
-  _record(name, "flash_attention")
-  return ops.flash_attention(q, k, v, causal=causal)
+  cid = _record(name, "flash_attention")
+  return _in_scope("flash_attention", cid, ops.flash_attention, q, k, v,
+                   causal=causal)

@@ -88,9 +88,9 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
                  cs: Constraint = identity_constraint):
   b, s, _ = x.shape
   h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-  q = gemm(p["wq"], x, policy).reshape(b, s, h, hd)
-  k = gemm(p["wk"], x, policy).reshape(b, s, kv, hd)
-  v = gemm(p["wv"], x, policy).reshape(b, s, kv, hd)
+  q = shd.split_heads(gemm(p["wq"], x, policy), h, hd)
+  k = shd.split_heads(gemm(p["wk"], x, policy), kv, hd)
+  v = shd.split_heads(gemm(p["wv"], x, policy), kv, hd)
   if cfg.qk_norm:             # per head, before RoPE, as the reference
     q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -225,7 +225,7 @@ def bidir_attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
   b, s, _ = x.shape
   bkv = _bidir_block(s, cfg.attn_block_kv)
   h, hd = cfg.num_heads, cfg.resolved_head_dim
-  q, k, v = (gemm(p[w], x, policy).reshape(b, s, h, hd)
+  q, k, v = (shd.split_heads(gemm(p[w], x, policy), h, hd)
              for w in ("wq", "wk", "wv"))
   out = shd.heads_local(_bidir, q, k, v, policy=policy, bkv=bkv)
   return gemm(p["wo"], out.reshape(b, s, h * hd), policy)

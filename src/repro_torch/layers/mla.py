@@ -98,13 +98,12 @@ def _queries(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
              policy=None) -> tuple[torch.Tensor, torch.Tensor]:
   """(q_nope (b, s, h, nope), q_rope (b, s, h, rope)), RoPE applied."""
   m, h = cfg.mla, cfg.num_heads
-  b, s, _ = x.shape
   if m.q_lora_rank:
     qa = rms_norm(gemm(p["wq_a"], x, policy), p["q_a_norm"], cfg.norm_eps)
     q = gemm(p["wq_b"], qa, policy)
   else:
     q = gemm(p["wq"], x, policy)
-  q = q.reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+  q = shd.split_heads(q, h, m.qk_nope_dim + m.qk_rope_dim)
   q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
   return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -148,8 +147,8 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, policy=None,
   q_nope, q_rope = _queries(p, x, cfg, positions, policy)
   c, k_rope = _latents(p, x, cfg, positions, policy)
   # k and v up-projected from the latent (the non-absorbed form)
-  k_nope = gemm(p["w_uk"], c, policy).reshape(b, s, h, m.qk_nope_dim)
-  v = gemm(p["w_uv"], c, policy).reshape(b, s, h, m.v_head_dim)
+  k_nope = shd.split_heads(gemm(p["w_uk"], c, policy), h, m.qk_nope_dim)
+  v = shd.split_heads(gemm(p["w_uv"], c, policy), h, m.v_head_dim)
   q_nope = cs(q_nope, "bshd_q")
   k_nope = cs(k_nope, "bshd_q")
   v = cs(v, "bshd_q")

@@ -37,7 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.factored import dense, normal
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import heads_local
+from repro_torch.dist.sharding import heads_local, split_heads
 from repro_torch.kernels import dispatch
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
@@ -145,9 +145,9 @@ def _xattn(p, x: torch.Tensor, mem: torch.Tensor, cfg: ModelConfig,
   rank's rows and heads."""
   b, s, _ = x.shape
   h, hd = cfg.num_heads, cfg.resolved_head_dim
-  q = gemm(p["wq"], x, policy).reshape(b, s, h, hd)
-  k = gemm(p["wk"], mem, policy).reshape(b, mem.shape[1], h, hd)
-  v = gemm(p["wv"], mem, policy).reshape(b, mem.shape[1], h, hd)
+  q = split_heads(gemm(p["wq"], x, policy), h, hd)
+  k = split_heads(gemm(p["wk"], mem, policy), h, hd)
+  v = split_heads(gemm(p["wv"], mem, policy), h, hd)
   o = heads_local(_cross, q, k, v)
   return gemm(p["wo"], o.reshape(b, s, h * hd).to(x.dtype), policy)
 

@@ -19,6 +19,7 @@ reference's (each SVD picks its own signs, so u and v are compared only
 as their product).
 """
 import numpy as np
+from threadpoolctl import threadpool_limits
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -53,10 +54,12 @@ from repro_torch.models import whisper as tw  # noqa: E402
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
-  """Torch on one thread: the suite runs files in parallel workers."""
+  """Torch and the BLAS pools on one thread: the suite runs files in
+  parallel workers, where spinning pool threads slow every worker."""
   n = torch.get_num_threads()
   torch.set_num_threads(1)
-  yield
+  with threadpool_limits(limits=1):   # the BLAS pools of host SVDs
+    yield
   torch.set_num_threads(n)
 
 

@@ -241,7 +241,11 @@ def test_q_adam_diverges_on_ds2_as_the_reference_does():
   pa = trainable(init(cfg, generator=torch.Generator().manual_seed(0),
                       device="cpu"))
   sq, sa = tq.init(pq), adamw.init(pa)
-  jp = {k: jnp.asarray(v.detach().numpy()) for k, v in param_tree(pq).items()}
+  # copies here and for the gradients: on the CPU `jnp.asarray` may alias
+  # the numpy buffer, which the port's in-place update would then change
+  # under the reference's asynchronously dispatched step
+  jp = {k: jnp.asarray(v.detach().numpy().copy())
+        for k, v in param_tree(pq).items()}
   js = jq.init(jp)
   japply = jax.jit(lambda p, g, s: jq.apply(p, g, s, lr,
                                             JCfg(max_grad_norm=1.0)))
@@ -265,7 +269,7 @@ def test_q_adam_diverges_on_ds2_as_the_reference_does():
       before = copy(params)
       if tag == "q":
         ref_before = {k: np.asarray(v) for k, v in jp.items()}
-        jp, js, _ = japply(jp, {k: jnp.asarray(g.numpy())
+        jp, js, _ = japply(jp, {k: jnp.asarray(g.numpy().copy())
                                 for k, g in grads.items()}, js)
         pq, sq, _ = tq.apply(pq, grads, sq, lr, TCfg(max_grad_norm=1.0))
         ref_after = {k: np.asarray(v) for k, v in jp.items()}

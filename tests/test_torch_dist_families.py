@@ -12,8 +12,9 @@ port's in one CPU call. The names must come in the same order.
 
 The multi-rank checks run once for the module: one subprocess (`run_world`)
 starts a world of 4 CPU ranks through a `FileStore` in a temp dir, every
-rank runs each job on a (2, 2) ("data", "model") mesh, the ranks share
-out the same jobs on one device, and the fixture merges what they wrote.
+rank runs each job on a (2, 2) ("data", "model") mesh (and two training
+jobs on the same ranks as a (1, 4) mesh), the ranks share out the same
+jobs on one device, and the fixture merges what they wrote.
 Torch and the BLAS pools run one thread a rank.
 """
 import os
@@ -174,6 +175,7 @@ WORKER = textwrap.dedent('''
     import torch.multiprocessing as mp
 
     B, S, MAX_LEN = 4, 16, 24
+    CUT_HEADS = ("llama3-8b", "zamba2-7b")
 
     def cfg_of(arch):
       from repro_torch import configs
@@ -422,6 +424,12 @@ WORKER = textwrap.dedent('''
       out = {}
       for fn, arch in jobs:            # every rank, on the mesh
         fn(arch, mesh, out, f"{fn.__name__}/{arch}/mesh")
+      # the same ranks as a (1, 4) mesh, whose model degree cuts
+      # llama3-8b's 2 kv heads
+      mesh14 = M.make_mesh((1, 4), ("data", "model"), device_type="cpu")
+      for arch in CUT_HEADS:
+        train(arch, mesh14, out, f"train/{arch}/mesh14")
+      jobs += [(train, a) for a in CUT_HEADS if a not in archs]
       for i, (fn, arch) in enumerate(jobs):   # one device, spread
         if i % 4 == rank:
           fn(arch, None, out, f"{fn.__name__}/{arch}/one")
@@ -504,6 +512,22 @@ def test_zamba_gradients_move_that_much_on_one_device(world):
                for k in _leaves(world, pre, "grad"))
   assert worst("one/pgrad") > 1e-5
   assert worst("mesh/grad") < 2 * worst("one/pgrad")
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-7b"])
+def test_model_degree_four_matches_one_device(world, arch):
+  """Trainer(mesh=) on (1, 4): llama3-8b, whose 2 kv heads the model
+  degree cuts (`dist.sharding.split_heads`), and zamba2-7b, whose
+  attention backward hands a permuted local gradient to DTensor
+  (`sharding._DenseGrad`), give the one-device loss and gradients at
+  the (2, 2) mesh's tolerances."""
+  pre = f"train/{arch}"
+  np.testing.assert_allclose(world[f"{pre}/mesh14/loss"],
+                             world[f"{pre}/one/loss"], rtol=RTOL)
+  assert world[f"{pre}/mesh14/placed"].all()
+  for k in _leaves(world, pre, "grad"):
+    _close_to_leaf(world[f"{pre}/mesh14/grad/{k}"],
+                   world[f"{pre}/one/grad/{k}"], arch, err_msg=k)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -48,11 +48,32 @@ def test_port_imports_neither_jax_nor_reference():
           "layers/xlstm.py", "models/xlstm_model.py",
           "serving/prefix_cache.py", "dist/__init__.py", "dist/mesh.py",
           "dist/sharding.py", "launch/mesh.py", "optim/q_adam.py",
-          "optim/compress.py", "configs/specs.py"} <= names
-  bad = [(f.relative_to(PORT), mod) for f in files
-         for mod in _imported_modules(f)
+          "optim/compress.py", "configs/specs.py", "analysis/__init__.py",
+          "analysis/__main__.py", "analysis/report.py",
+          "analysis/op_walk.py", "analysis/targets.py",
+          "analysis/checks.py", "analysis/liveness.py",
+          "analysis/compression.py", "analysis/lifecycle.py"} <= names
+  root = PORT.parents[1]
+  files += [root / "chip_smoke.py"] + sorted(
+      (root / "examples").glob("*_torch.py"))
+  assert len(files) - len(names) == 5
+  bad = [(f.name, mod) for f in files for mod in _imported_modules(f)
          if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
   assert bad == []
+
+
+def test_audit_defaults_to_the_gpu(monkeypatch):
+  """`run_audit` and the audit CLI run on the GPU unless asked for the
+  CPU: with no GPU they raise."""
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  from repro_torch import analysis
+  from repro_torch.analysis.__main__ import main
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    analysis.run_audit(["deepspeech2-wsj"], run_lifecycle=False,
+                       run_sharding=False)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    main(["audit", "--configs", "deepspeech2_wsj", "--no-lifecycle",
+          "--no-sharding"])
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):

@@ -15,6 +15,7 @@ own serial and fleet paths agree (a near-tie argmax may flip between
 them at random init); PTQ'd labels must be identical. The routing log of the kernel
 policy must equal the reference's."""
 import numpy as np
+from threadpoolctl import threadpool_limits
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -39,10 +40,12 @@ CHUNK = 7
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
-  """Torch on one thread: the suite runs files in parallel workers."""
+  """Torch and the BLAS pools on one thread: the suite runs files in
+  parallel workers, where spinning pool threads slow every worker."""
   n = torch.get_num_threads()
   torch.set_num_threads(1)
-  yield
+  with threadpool_limits(limits=1):   # the BLAS pools of host SVDs
+    yield
   torch.set_num_threads(n)
 
 

@@ -14,6 +14,7 @@ for bit as on the reference. Speculative greedy tokens must equal
 vanilla greedy's and the reference's speculative engine's.
 """
 import numpy as np
+from threadpoolctl import threadpool_limits
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -67,7 +68,8 @@ def one_torch_thread():
   into a wait for the others (the module ran ~15x slower that way)."""
   threads = torch.get_num_threads()
   torch.set_num_threads(1)
-  yield
+  with threadpool_limits(limits=1):   # the BLAS pools of host SVDs
+    yield
   torch.set_num_threads(threads)
 
 

@@ -10,6 +10,7 @@ counts exactly. The stage-2 ranks are picked from f32 singular values;
 `test_to_stage2_matches_reference` also checks that no rank sits within
 1e-5 of the 0.9 threshold on its seed, so equal ranks are a fair ask."""
 import numpy as np
+from threadpoolctl import threadpool_limits
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -32,10 +33,12 @@ from repro_torch.core.factored import (FactoredLinear, count_params,  # noqa: E4
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
-  """Torch on one thread: the suite runs files in parallel workers."""
+  """Torch and the BLAS pools on one thread: the suite runs files in
+  parallel workers, where spinning pool threads slow every worker."""
   n = torch.get_num_threads()
   torch.set_num_threads(1)
-  yield
+  with threadpool_limits(limits=1):   # the BLAS pools of host SVDs
+    yield
   torch.set_num_threads(n)
 
 

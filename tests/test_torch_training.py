@@ -14,6 +14,7 @@ a little each step); ranks and checkpoints exactly. The A5 example
 import os
 
 import numpy as np
+from threadpoolctl import threadpool_limits
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -50,10 +51,12 @@ LAMBDA = 1e-4
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
-  """Torch on one thread: the suite runs files in parallel workers."""
+  """Torch and the BLAS pools on one thread: the suite runs files in
+  parallel workers, where spinning pool threads slow every worker."""
   n = torch.get_num_threads()
   torch.set_num_threads(1)
-  yield
+  with threadpool_limits(limits=1):   # the BLAS pools of host SVDs
+    yield
   torch.set_num_threads(n)
 
 
@@ -413,17 +416,22 @@ def test_quantized_model_checkpoint_roundtrips_bit_identical(tmp_path):
     assert a.dtype == b.dtype and torch.equal(a, b), k
 
 
+def _example(name: str):
+  """The module of `examples/{name}.py`."""
+  import importlib.util
+  path = os.path.join(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), "examples", f"{name}.py")
+  spec = importlib.util.spec_from_file_location(name, path)
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
 def test_speech_e2e_example_runs_both_stages(tmp_path):
   """`examples/train_speech_e2e_torch.py` at smoke size on the CPU: 4
   supervised steps with the transition at 2, checkpoints, CER before and
   after, and a smaller stage-2 model."""
-  import importlib.util
-  path = os.path.join(os.path.dirname(os.path.dirname(
-      os.path.abspath(__file__))), "examples", "train_speech_e2e_torch.py")
-  spec = importlib.util.spec_from_file_location("train_speech_e2e_torch",
-                                                path)
-  mod = importlib.util.module_from_spec(spec)
-  spec.loader.exec_module(mod)
+  mod = _example("train_speech_e2e_torch")
   out = mod.main(["--device", "cpu", "--steps", "4", "--transition", "2",
                   "--checkpoint-dir", str(tmp_path)])
   assert out["stage"] == 2 and len(out["losses"]) == 4
@@ -431,3 +439,39 @@ def test_speech_e2e_example_runs_both_stages(tmp_path):
   assert out["params_after"] < out["params_before"]
   assert 0.0 <= out["cer_before"] and 0.0 <= out["cer_after"]
   assert out["checkpoints"] == [2, 4]
+
+
+def test_quickstart_example_runs_both_stages():
+  """`examples/quickstart_torch.py` on the CPU: 4 steps of the two-stage
+  recipe, the transition at 2, a smaller stage-2 model and its
+  diagnostics."""
+  out = _example("quickstart_torch").main(
+      ["--device", "cpu", "--steps", "4", "--transition", "2"])
+  assert out["stage"] == 2 and len(out["losses"]) == 4
+  assert all(np.isfinite(out["losses"]))
+  assert out["params_after"] < out["params_before"]
+  assert out["report"] and all(0 < r["nu"] for r in out["report"].values())
+
+
+def test_compress_model_example_tables_every_threshold():
+  """`examples/compress_model_torch.py` on the CPU: 2 pretraining steps,
+  then the dense row and one row a threshold, fewer parameters at the
+  lowest threshold than dense, finite losses."""
+  mod = _example("compress_model_torch")
+  rows = mod.main(["--device", "cpu", "--pretrain-steps", "2"])
+  assert [r[0] for r in rows] == ["dense"] + list(mod.THRESHOLDS)
+  assert rows[-1][1] < rows[0][1]
+  assert all(np.isfinite(r[3]) for r in rows)
+
+
+def test_serve_lm_example_serves_dense_and_factored():
+  """`examples/serve_lm_torch.py` on the CPU: 3 requests through 4 slots,
+  dense and stage-2 factored under the kernel policy (plain versions on
+  the CPU: no launch counted), the factored model smaller."""
+  out = _example("serve_lm_torch").main(
+      ["--device", "cpu", "--requests", "3", "--wide-layers", "0"])
+  assert set(out) == {"dense", "factored"}
+  for run in out.values():
+    assert run["requests"] == 3 and run["tokens"] > 0
+    assert run["launches"] == {}
+  assert out["factored"]["params"] < out["dense"]["params"]

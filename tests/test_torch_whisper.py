@@ -21,6 +21,7 @@ import functools
 import json
 
 import numpy as np
+from threadpoolctl import threadpool_limits
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -59,10 +60,12 @@ STEPS, TRANSITION, LAMBDA = 4, 2, 1e-4
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
-  """Torch on one thread: the suite runs files in parallel workers."""
+  """Torch and the BLAS pools on one thread: the suite runs files in
+  parallel workers, where spinning pool threads slow every worker."""
   n = torch.get_num_threads()
   torch.set_num_threads(1)
-  yield
+  with threadpool_limits(limits=1):   # the BLAS pools of host SVDs
+    yield
   torch.set_num_threads(n)
 
 
