@@ -310,13 +310,17 @@
    `serve_lm_torch.py` on the card (serve_lm's full-width qwen3-4b runs
    launch `decode_matvec` and `lowrank_gemm`); (b)
    `repro_torch.analysis.run_audit` on the default grid at smoke scale
-   under both policies on the card, held to the port's baseline (the
-   CPU's findings): nothing new, nothing stale, and so no finding only
-   the card shows (`CARD_ONLY_KEYS`); (c) a warmed qwen3-4b decode step at full
-   width (`QWEN_LAYERS`) walked under `KernelPolicy(mode="decode")`: no
-   bypass, each kernel scope one launch of its kernel, no sync under
-   `set_sync_debug_mode("error")`, every state storage kept, and the
-   liveness estimate beside `max_memory_allocated`'s rise.
+   under both policies on the card, with its budgets, held to the port's
+   baseline (the CPU's findings) and to its `budgets.json` (the CPU's
+   ledgers): nothing new, nothing stale, no ratchet-stale ledger, and so
+   no finding only the card shows (`CARD_ONLY_KEYS`) and no cost, memory
+   or compression budget finding; (c) a warmed qwen3-4b decode step at
+   full width (`QWEN_LAYERS`) walked under `KernelPolicy(mode="decode")`:
+   no bypass, each kernel scope one launch of its kernel, no sync under
+   `set_sync_debug_mode("error")`, every state storage kept, the
+   liveness estimate beside `max_memory_allocated`'s rise, and the step's
+   cost ledger (FLOPs, HBM bytes, the roofline terms at the H100's
+   peaks, `dist.hlo_cost`) beside its measured time.
 16. Prints each phase's seconds, the card line, `{"kernels": [...]}`
    with each kernel's numbers, all measured in this run but the computed
    bounds, then, as the last line, `{"ok": true, "device": {...}}`. Any
@@ -4276,6 +4280,8 @@ def ds2_step_ms_by_batch(rows: list[dict], kernel: str,
 #: the full-width decode step the auditor walks: qwen3-4b at phase 8's
 #: depth, SERVE_BATCH slots, a cache of AUDIT_MAX_LEN positions
 AUDIT_MAX_LEN = 64
+#: warmed steps timed (wall) beside the walked step's cost ledger
+AUDIT_TIMED_STEPS = 5
 #: the keys of findings only the card can show: a sync under
 #: set_sync_debug_mode("error"), a kernel scope's launches
 CARD_ONLY_KEYS = ("cuda-sync", "launches:")
@@ -4329,14 +4335,31 @@ def check_audit_grid() -> dict:
   CPU's findings (`tests/test_torch_analysis.py` holds the CPU's audit
   to it): no new finding and none stale, so the card finds what the CPU
   finds. A finding only the card can show (CARD_ONLY_KEYS: a sync, a
-  kernel scope's launches) is new, and fails."""
+  kernel scope's launches) is new, and fails. The budgets run too, held
+  to the CPU's committed budgets.json: a cost, memory or compression
+  budget finding is new and fails, and so does a ledger cheaper than
+  its band (ratchet stale); the largest deviation of each gated metric
+  is printed."""
   from repro_torch import analysis
+  from repro_torch.analysis import budgets
   t0 = time.perf_counter()
-  gpu = analysis.run_audit(device="cuda")
+  gpu = analysis.run_audit(device="cuda", run_budgets=True)
   card_s = time.perf_counter() - t0
   gi = {f.ident for f in gpu.findings}
   card_only = sorted(i for i in gi
                      if i.split("|")[5].startswith(CARD_ONLY_KEYS))
+  budget_found = sorted(f.ident for f in gpu.findings if f.check in (
+      "cost_budget", "memory_budget", "compression_ledger"))
+  ratchet = gpu.meta.get("budget_ratchet_stale", [])
+  committed = budgets.load_budgets()["programs"]
+  worst = {}
+  for key, led in gpu.meta["budgets"]["programs"].items():
+    for m in budgets.TOLERANCES:
+      old = committed.get(key, {}).get(m)
+      if old:
+        rel = (led[m] - old) / old
+        if abs(rel) >= abs(worst.get(m, 0.0)):
+          worst[m] = rel
   gpu.apply_baseline(analysis.load_baseline())
   launches = {}
   for t in gpu.targets:
@@ -4344,11 +4367,17 @@ def check_audit_grid() -> dict:
       launches[k] = launches.get(k, 0) + n
   out = dict(card_s=card_s, targets=len(gpu.targets), findings=len(gi),
              card_only=card_only, new=[f.ident for f in gpu.new],
-             stale=gpu.stale, scope_launches=launches)
+             stale=gpu.stale, scope_launches=launches,
+             budget_programs=len(gpu.meta["budgets"]["programs"]),
+             budget_findings=budget_found, ratchet_stale=ratchet,
+             budget_worst_rel=worst)
   print(json.dumps({"phase15_audit_grid": out}), flush=True)
   if gpu.new or gpu.stale:
     fail("audit: the card's findings differ from the baseline's:\n" +
          gpu.summary())
+  if budget_found or ratchet:
+    fail(f"audit: the card's ledgers leave the CPU's committed bands: "
+         f"{budget_found} {ratchet}")
   if not launches:
     fail("audit: no kernel scope launched on the card")
   return out
@@ -4358,13 +4387,15 @@ def check_audit_step(card) -> tuple[dict, dict]:
   """(c) One warmed decode step of qwen3-4b at full width (QWEN_LAYERS
   layers, bf16) under KernelPolicy(mode="decode"), walked: no bypass,
   every kernel scope launched exactly its kernel (LAUNCHES deltas), no
-  sync under set_sync_debug_mode("error"), every state storage kept;
+  sync under set_sync_debug_mode("error"), every state storage kept,
+  nothing the cost ledger cannot account (`hlo-unknown`);
   the liveness estimate beside torch.cuda.max_memory_allocated's rise
   over the same warmed step. Returns (the walked step's launches, the
   summary)."""
   from repro_torch import configs
   from repro_torch.analysis import checks, liveness, targets
   from repro_torch.analysis.op_walk import OpWalk, param_seeds
+  from repro_torch.dist import hlo_cost
   from repro_torch.kernels import dispatch, ops
   from repro_torch.models.api import get_model
   cfg = configs.get_config("qwen3-4b").with_(num_layers=QWEN_LAYERS)
@@ -4389,6 +4420,11 @@ def check_audit_step(card) -> tuple[dict, dict]:
     step()
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    for _ in range(AUDIT_TIMED_STEPS):
+      step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / AUDIT_TIMED_STEPS
   before = targets.state_signature(state)
   ops.reset_launches()
   walk = OpWalk(param_seeds(lm), keep_trace=True)
@@ -4397,12 +4433,15 @@ def check_audit_step(card) -> tuple[dict, dict]:
   torch.cuda.synchronize()
   launches = dict(ops.LAUNCHES)
   after = targets.state_signature(new)
+  cost = hlo_cost.analyze_walk(walk.result.trace)
   target = targets.RunTarget(
       "qwen3-4b", cfg.family, "pallas", "float", "decode", walk.result,
       list(walk.log), {k: (before[k], after.get(k)) for k in before}, sync,
-      "cuda")
+      "cuda", cost=cost)
   findings, info = checks.run_target_checks(target)
-  live = liveness.estimate(walk.result, walk, outputs=[logits])
+  live = liveness.estimate(walk.result, walk, outputs=[logits],
+                          inputs=(lm, state, tok, pos), donated=state)
+  roof = hlo_cost.roofline_from_report(cost)
   scopes = {}
   for sc in walk.result.scopes:
     key = f"{sc.regime}:{sorted(sc.launches)}"
@@ -4415,6 +4454,18 @@ def check_audit_step(card) -> tuple[dict, dict]:
              liveness_input_bytes=live.input_bytes,
              measured_rise_bytes=rise,
              estimate_over_measured=live.transient_bytes / max(rise, 1),
+             ledger=dict(flops=cost.flops, dot_flops=cost.dot_flops,
+                         hbm_bytes=cost.hbm_bytes,
+                         unknown_ops=cost.unknown_ops,
+                         compute_ms=roof.compute_s * 1e3,
+                         memory_ms=roof.memory_s * 1e3,
+                         collective_ms=roof.collective_s * 1e3,
+                         dominant=roof.dominant,
+                         peak_live_bytes=live.peak_bytes,
+                         credited_bytes=live.credited_bytes),
+             step_ms=step_ms,
+             step_over_roofline=step_ms / max(
+                 1e3 * max(roof.compute_s, roof.memory_s), 1e-9),
              card=card)
   print(json.dumps({"phase15_audit_step": out}), flush=True)
   if findings:

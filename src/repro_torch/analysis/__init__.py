@@ -1,11 +1,9 @@
 """repro_torch.analysis: the static auditor of the serving hot path.
 
-Counterpart of `repro.analysis` (its audit half; the cost half —
-`budgets`, `dist/hlo_cost.py`, `launch/dryrun.py` — is ROADMAP A7b and
-not ported yet). `run_audit` runs the serving programs of every
-requested (config x policy x quant x program) coordinate once, at smoke
-scale, under the op walk (`op_walk.OpWalk`), and checks the invariant
-registry (`report.CHECKS`):
+Counterpart of `repro.analysis`. `run_audit` runs the serving programs
+of every requested (config x policy x quant x program) coordinate once,
+at smoke scale, under the op walk (`op_walk.OpWalk`), and checks the
+invariant registry (`report.CHECKS`):
 
   dispatch_coverage   every weight product routed through kernels.dispatch
                       (and, on the card, every kernel scope launched its
@@ -20,13 +18,15 @@ registry (`report.CHECKS`):
   transfer_lint       no host round trip in a step; the decode state
                       written in place; no sync on the card
   sharding_coverage   every production param leaf has a sharding rule
-  cost_budget, memory_budget, compression_ledger  A7b's budgets.json:
-                      refused with `run_budgets=True`; the compression
-                      ledger's strictness assertions run now
+  cost_budget, memory_budget, compression_ledger  each program's cost
+                      ledger (`dist.hlo_cost`) and memory ledger
+                      (`liveness`), and each config's compression ledger,
+                      against the port's committed `budgets.json`
+                      (`budgets`)
 
 Findings diff against the port's committed allowlist (`baseline.json`,
 each entry with a reason); any ident not in it is a regression.
-CLI: `python -m repro_torch.analysis audit [--device cpu]`.
+CLI: `python -m repro_torch.analysis {audit,budgets} [--device cpu]`.
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ from typing import Iterable
 import torch
 
 from repro_torch import configs
-from repro_torch.analysis import checks, compression, lifecycle
+from repro_torch.analysis import budgets as budgets_mod
+from repro_torch.analysis import checks, lifecycle
 from repro_torch.analysis.report import (AuditReport, CHECKS, Finding,
                                          default_baseline_path,
                                          load_baseline, stable_key,
@@ -50,14 +51,7 @@ __all__ = [
     "AuditReport", "CHECKS", "Finding", "run_audit", "iter_targets",
     "load_baseline", "write_baseline", "default_baseline_path",
     "stable_key", "DEFAULT_CONFIGS", "POLICIES", "QUANTS", "PROGRAMS",
-    "A7B_REFUSAL",
 ]
-
-A7B_REFUSAL = (
-    "the cost and memory budgets (analysis/budgets.py, dist/hlo_cost.py, "
-    "budgets.json) are ROADMAP A7b, not ported yet: the audit command "
-    "never runs them, and run_audit refuses run_budgets=True until A7b "
-    "lands")
 
 
 def _sharding_findings(config_names, report: AuditReport) -> None:
@@ -80,38 +74,33 @@ def _sharding_findings(config_names, report: AuditReport) -> None:
           len(list(params.buffers()))))
 
 
-def _compression_findings(config_names, report: AuditReport) -> None:
-  """The compression ledger's strictness assertions (each compressed
-  variant strictly smaller); its committed numbers wait for A7b."""
-  ledgers = {}
-  for name in config_names:
-    ledger = ledgers[name] = compression.compression_ledger(name)
-    for key, detail in compression.strictness_violations(ledger):
-      report.extend([Finding(check="compression_ledger", config=name,
-                             program="params", key=key, detail=detail)])
-  report.meta["compression"] = ledgers
-
-
 def run_audit(config_names: Iterable[str] = DEFAULT_CONFIGS,
               policies: Iterable[str] = POLICIES,
               quants: Iterable[str] = QUANTS,
               programs: Iterable[str] = PROGRAMS,
               *, device=None, run_lifecycle: bool = True,
               run_sharding: bool = True,
-              run_budgets: bool = False) -> AuditReport:
+              run_budgets: bool = True,
+              budgets_path=None) -> AuditReport:
   """Run + check the requested grid on `device` (default: the GPU);
   baseline NOT applied (the caller's job, so tests can assert on raw
-  findings). `run_budgets=True` raises: the budgets are A7b's."""
-  if run_budgets:
-    raise NotImplementedError(A7B_REFUSAL)
+  findings). `run_budgets` diffs every program's ledgers and every
+  config's compression ledger against `budgets_path` (default: the
+  committed `budgets.json`)."""
   config_names = [normalize_config(n) for n in config_names]
   report = AuditReport(meta=dict(
       configs=list(config_names), policies=list(policies),
       quants=list(quants), programs=list(programs),
       torch_version=torch.__version__, checks=list(CHECKS)))
+  budget_audit = None
+  if run_budgets:
+    budget_audit = budgets_mod.BudgetAudit(
+        budgets_mod.load_budgets(budgets_path))
   for target in iter_targets(config_names, policies, quants, programs,
-                             device=device):
+                             device=device, ledgers=run_budgets):
     findings, info = checks.run_target_checks(target)
+    if budget_audit is not None:
+      info["budget"] = budget_audit.add_target(target)
     report.extend(findings)
     report.targets.append(info)
   report.meta["device"] = report.targets[0]["device"] if report.targets \
@@ -126,5 +115,10 @@ def run_audit(config_names: Iterable[str] = DEFAULT_CONFIGS,
       report.targets.extend(infos)
   if run_sharding:
     _sharding_findings(config_names, report)
-  _compression_findings(config_names, report)
+  if budget_audit is not None:
+    for name in config_names:
+      budget_audit.add_compression(name)
+    report.extend(budget_audit.findings)
+    report.meta["budgets"] = budget_audit.fresh()
+    report.meta["budget_ratchet_stale"] = budget_audit.warnings
   return report

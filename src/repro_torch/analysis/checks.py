@@ -26,16 +26,20 @@ quant_integrity — in a PTQ'd program no value derived from an int8
   (`ConvertSite.oracle`) is its accumulation, not a dequantize. A
   float64 conversion anywhere else is one.
 
-transfer_lint — three checks in place of the reference's HLO ones:
+transfer_lint — four checks in place of the reference's HLO ones:
   (a) no `HostSite` in a program: a scalar read (`.item()`, `float(t)`,
       `bool(t)`) or a copy across devices inside a step;
   (b) the torch form of donation: every decode-state tensor keeps its
       shape, dtype and storage across a step, so the KV cache and the
       carries are written in place, not rebuilt;
   (c) on the card, a warmed step raises nothing under
-      `torch.cuda.set_sync_debug_mode("error")`.
-  The reference's `_hlo_findings` (optimized HLO host ops, `hlo_cost`'s
-  unknown ops) have no counterpart: there is no HLO.
+      `torch.cuda.set_sync_debug_mode("error")`;
+  (d) the reference's `hlo-unknown:{token}`, one finding for each entry
+      of the cost ledger's `unknown_ops` (`dist.hlo_cost`): a dtype,
+      an op or a kernel launched outside its scope that the ledger
+      could not account, so no count is dropped silently.
+  The reference's optimized-HLO host ops have no counterpart: there is
+  no HLO.
 
 sharding_coverage — every param leaf must resolve to an explicit
   PARAM_RULES kind (or the embedding-table path rule) that actually
@@ -48,6 +52,7 @@ from typing import List
 
 from repro_torch.analysis.report import Finding, stable_key
 from repro_torch.analysis.targets import RunTarget
+from repro_torch.dist.hlo_cost import KERNEL_REGIMES
 from repro_torch.dist.sharding import rule_coverage
 
 #: replicated param leaves at or above this many elements are findings
@@ -56,9 +61,6 @@ BIG_PARAM_ELEMS = 1 << 16
 #: conversions of int8 weights that are dequantizes everywhere
 DEQUANT_DTYPES = ("float32", "bfloat16", "float16")
 
-#: the kernel regimes, each launching its own kernel on the card
-KERNEL_REGIMES = ("decode_matvec", "lowrank_gemm", "int8_gemm", "gru_cell",
-                  "flash_attention")
 
 
 def _f(target: RunTarget, check: str, key: str, detail: str) -> Finding:
@@ -144,6 +146,12 @@ def check_transfer_lint(target: RunTarget) -> List[Finding]:
         target, "transfer_lint", "cuda-sync",
         f"a warmed step synchronized under set_sync_debug_mode('error'): "
         f"{target.sync_error}"))
+  if target.cost is not None:
+    for token, count in sorted(target.cost.unknown_ops.items()):
+      out.append(_f(
+          target, "transfer_lint", f"hlo-unknown:{token}",
+          f"hlo_cost could not fully account {count} op(s) ({token}): "
+          f"cost figures for this program under-count"))
   return out
 
 

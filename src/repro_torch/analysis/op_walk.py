@@ -38,6 +38,20 @@ activation x cache products stay clean. A float conversion of an int8
 value ends its int8 provenance (it was dequantized), as in the
 reference.
 
+With `keep_trace=True` the walk also keeps an `OpRecord` per op, for
+`liveness` and `dist.hlo_cost`: the storages it read, returned,
+allocated and wrote in place, its operands' and results' shapes, dtypes
+and bytes, and a collective's group size. A kernel-regime scope is one
+record (its operands and result, `scope_io`), and the ops run inside it
+are not recorded: the CPU runs the plain version there, the card
+nothing the walk can see. A DTensor op is handed back to DTensor
+(`NotImplemented`, as `CommDebugMode` does), so the walk records what
+it desugars into: each rank's local ops on its local blocks and the
+collectives it issues; the ops DTensor's sharding propagation runs on
+global shapes to infer its outputs are not recorded. Storages are told
+apart by their `StorageImpl` (`_cdata`), which a fake tensor has too
+(its `data_ptr()` is 0).
+
 The CUDA kernels are bound through `ctypes` (`kernels/_build.py`), so no
 aten op stands for a launch: inside a kernel-regime scope the walk sees
 only the wrapper's reshapes and allocations (the counterpart of the
@@ -60,6 +74,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.dist import hlo_cost
 from repro_torch.kernels import dispatch, ops, ref
 
 #: aten ops provenance flows through (first operand only): the
@@ -124,6 +139,26 @@ class ScopeSite:
     return self.name.split(":")[1]
 
 
+@dataclasses.dataclass(frozen=True)
+class OpRecord:
+  """One op of a walk kept with `keep_trace=True`."""
+  op: str                        # aten name, or the scope's / kernel's
+  ns: str                        # "aten", "prim", "_c10d_functional",
+                                 # "c10d", "scope" (a kernel scope),
+                                 # "launch" (a kernel outside its scope)
+  read: tuple                    # storage ids of the tensor operands
+  wrote: tuple                   # storage ids of the results
+  alloc: dict                    # {storage id: bytes} first returned here
+  mutated: tuple = ()            # storage ids written in place
+  ins: tuple = ()                # ((shape, dtype name), ...) operands
+  outs: tuple = ()               # ((shape, dtype name), ...) results
+  in_bytes: int = 0
+  out_bytes: int = 0
+  group: Optional[int] = None    # a collective's group size
+  fields: tuple = ()             # a kernel scope's ((operand, shape), ...)
+  free: bool = False             # returns no tensor: a metadata read
+
+
 @dataclasses.dataclass
 class WalkResult:
   dots: list = dataclasses.field(default_factory=list)
@@ -131,9 +166,8 @@ class WalkResult:
   host_ops: list = dataclasses.field(default_factory=list)
   scopes: list = dataclasses.field(default_factory=list)
   n_ops: int = 0
-  #: per op, for `liveness`, when the walk is asked to keep it: (op
-  #: name, storage ids it read, storage ids it returned, {storage id:
-  #: bytes} of the storages it allocated)
+  #: an `OpRecord` per op, for `liveness` and `dist.hlo_cost`, when the
+  #: walk is asked to keep it
   trace: list = dataclasses.field(default_factory=list)
   #: {storage id: bytes} of the storages first seen as an op's input
   #: (parameters, state, inputs: resident before the program ran)
@@ -202,8 +236,8 @@ class OpWalk(TorchDispatchMode):
   """Record every aten op run inside the context (see the module
   docstring). `seeds`: the tensors provenance starts from (a model's
   parameters and buffers, a quantized tree's fields); int8 ones are
-  int8-derived. `keep_trace` keeps, for `liveness.estimate`, which
-  storages each op read, returned and allocated."""
+  int8-derived. `keep_trace` keeps an `OpRecord` per op, for
+  `liveness.estimate` and `dist.hlo_cost.analyze_walk`."""
 
   def __init__(self, seeds: Iterable[torch.Tensor] = (), *,
                keep_trace: bool = False):
@@ -215,14 +249,21 @@ class OpWalk(TorchDispatchMode):
     self.keep_trace = keep_trace
     self.in_product = 0
     self._open: list = []          # (scope name, launches at entry)
-    self._storages: dict = {}      # data_ptr -> (storage id, weakref)
+    self._kernel_depth = 0         # open kernel-regime scopes
+    self._storages: dict = {}      # _cdata -> (storage id, weakref)
     self._next_sid = 0
     self._products = _Products(self)
     self._listen = None
+    self._dtensor = None
+    self._saw_dtensor = False
+    self._launches0: dict = {}
+    self._group_sizes: dict = {}   # collective group name -> size
 
   # -- the scope listener -------------------------------------------------
   def scope_opened(self, name: str) -> None:
     self._open.append((name, dict(ops.LAUNCHES)))
+    if name.split(":")[1] in hlo_cost.KERNEL_REGIMES:
+      self._kernel_depth += 1
 
   def scope_stack(self) -> str:
     return "/".join(name for name, _ in self._open)
@@ -233,9 +274,25 @@ class OpWalk(TorchDispatchMode):
     delta = tuple((k, v - before.get(k, 0)) for k, v in ops.LAUNCHES.items()
                   if v != before.get(k, 0))
     self.result.scopes.append(ScopeSite(name, delta))
+    if name.split(":")[1] in hlo_cost.KERNEL_REGIMES:
+      self._kernel_depth -= 1
+
+  def scope_io(self, name: str, args: tuple, out) -> None:
+    """A routed call's operands and result (`dispatch._in_scope`): a
+    kernel-regime scope becomes one `OpRecord` of the trace."""
+    regime = name.split(":")[1]
+    if not self.keep_trace or regime not in hlo_cost.KERNEL_REGIMES:
+      return
+    fields = _scope_fields(regime, args)
+    outs = [out] if isinstance(out, torch.Tensor) else _tensors(out)
+    self._trace(name, "scope", [t for _, t in fields], outs,
+                fields=tuple((f, tuple(t.shape)) for f, t in fields))
 
   # -- the context --------------------------------------------------------
   def __enter__(self):
+    from torch.distributed.tensor import DTensor
+    self._dtensor = DTensor
+    self._launches0 = dict(ops.LAUNCHES)
     self._listen = dispatch.listen_scopes(self)
     self.log = self._listen.__enter__()
     self._products.__enter__()
@@ -247,6 +304,21 @@ class OpWalk(TorchDispatchMode):
     finally:
       self._products.__exit__(*exc)
       self._listen.__exit__(*exc)
+      if self.keep_trace:
+        self._unscoped_launches()
+
+  def _unscoped_launches(self) -> None:
+    """Kernel launches made outside every kernel scope: no op stands for
+    them, so the trace names them."""
+    scoped: dict = {}
+    for sc in self.result.scopes:
+      if sc.regime in hlo_cost.KERNEL_REGIMES:
+        for k, n in sc.launches:
+          scoped[k] = scoped.get(k, 0) + n
+    for k, v in ops.LAUNCHES.items():
+      extra = v - self._launches0.get(k, 0) - scoped.get(k, 0)
+      for _ in range(max(extra, 0)):
+        self.result.trace.append(OpRecord(k, "launch", (), (), {}))
 
   # -- provenance ---------------------------------------------------------
   def flag(self, t) -> tuple:
@@ -256,7 +328,14 @@ class OpWalk(TorchDispatchMode):
 
   def __torch_dispatch__(self, func, types, args=(), kwargs=None):
     kwargs = kwargs or {}
+    if any(issubclass(t, self._dtensor) for t in types):
+      # let DTensor desugar the op: its local ops and collectives come
+      # back through this mode
+      self._saw_dtensor = True
+      return NotImplemented
     out = func(*args, **kwargs)
+    if not isinstance(func, torch._ops.OpOverload):
+      return out      # a higher-order op: its body's ops came through here
     res = self.result
     res.n_ops += 1
     name = func.overloadpacket.__name__
@@ -294,28 +373,39 @@ class OpWalk(TorchDispatchMode):
       fl = self.flag(first)
       if fl != _NOFLAG:
         self.prov[outs[0]] = fl
-    if self.keep_trace:
-      self._trace(name, _tensors(args), outs)
+    if self.keep_trace and not self._kernel_depth and \
+        not (self._saw_dtensor and _in_propagation()):
+      self._trace(name, func.namespace,
+                  _tensors(args) + _tensors(kwargs.values()), outs,
+                  mutated=_mutated(func, args, kwargs),
+                  group=_group_size(args, self._group_sizes)
+                  if func.namespace in ("_c10d_functional", "c10d")
+                  else None,
+                  free=not outs and name not in _READS)
     return out
 
   def storage_id(self, t: torch.Tensor) -> tuple:
-    """(id, bytes, first seen) of `t`'s storage, through a weak
-    reference: an address the allocator handed out again after the old
-    storage died is a new storage. (None, 0, False) for no storage."""
+    """(id, bytes, first seen) of `t`'s storage (a DTensor's local
+    block's), through a weak reference: a `StorageImpl` address handed
+    out again after the old storage died is a new storage. (None, 0,
+    False) for a tensor without storage (`meta`)."""
     from torch.multiprocessing.reductions import StorageWeakRef
-    st = t.untyped_storage()
-    ptr = st.data_ptr()
-    if ptr == 0 or t.device.type == "meta":
+    t = getattr(t, "_local_tensor", t)
+    if t.device.type == "meta":
       return None, 0, False
-    ent = self._storages.get(ptr)
+    st = t.untyped_storage()
+    key = st._cdata
+    ent = self._storages.get(key)
     if ent is not None and not ent[1].expired():
       return ent[0], st.nbytes(), False
     sid = self._next_sid
     self._next_sid += 1
-    self._storages[ptr] = (sid, StorageWeakRef(st))
+    self._storages[key] = (sid, StorageWeakRef(st))
     return sid, st.nbytes(), True
 
-  def _trace(self, name: str, ins: list, outs: list) -> None:
+  def _trace(self, name: str, ns: str, ins: list, outs: list, *,
+             mutated: tuple = (), group=None, fields: tuple = (),
+             free: bool = False) -> None:
     res = self.result
     read = []
     for t in ins:
@@ -331,7 +421,98 @@ class OpWalk(TorchDispatchMode):
         wrote.append(sid)
         if new:
           alloc[sid] = nbytes
-    res.trace.append((name, tuple(read), tuple(wrote), alloc))
+    res.trace.append(OpRecord(
+        name, ns, tuple(read), tuple(wrote), alloc,
+        mutated=tuple(s for s in (self.storage_id(t)[0] for t in mutated)
+                      if s is not None),
+        ins=_metas(ins), outs=_metas(outs), in_bytes=_nbytes(ins),
+        out_bytes=_nbytes(outs), group=group, fields=fields, free=free))
+
+
+#: ops that return no tensor but read one
+_READS = frozenset({"_local_scalar_dense", "equal", "is_nonzero",
+                    "allclose"})
+
+
+def _metas(ts: list) -> tuple:
+  return tuple((tuple(t.shape), hlo_cost.dtype_name(t.dtype)) for t in ts)
+
+
+def _nbytes(ts: list) -> int:
+  return sum(hlo_cost.array_bytes(tuple(t.shape), t.dtype) or 0
+             for t in ts)
+
+
+def _mutated(func, args, kwargs) -> tuple:
+  """The tensor arguments `func` writes in place (its schema's `(a!)`)."""
+  schema = func._schema
+  if not schema.is_mutable:
+    return ()
+  out = []
+  for i, arg in enumerate(schema.arguments):
+    info = arg.alias_info
+    if info is None or not info.is_write:
+      continue
+    a = args[i] if i < len(args) else kwargs.get(arg.name)
+    out.extend(_tensors([a]))
+  return tuple(out)
+
+
+def _group_size(args, sizes: dict) -> Optional[int]:
+  """A collective's group size: `_c10d_functional` names its group (its
+  size kept in `sizes`, the walk's), a `c10d` op passes the
+  ProcessGroup."""
+  import torch.distributed as dist
+  for a in args:
+    if isinstance(a, str):
+      if a not in sizes:
+        try:
+          sizes[a] = dist.distributed_c10d._resolve_process_group(a).size()
+        except (KeyError, RuntimeError, ValueError):
+          continue
+      return sizes[a]
+    size = getattr(a, "size", None)
+    if size is not None and not isinstance(a, torch.Tensor) and \
+        callable(size):
+      try:
+        return int(size())
+      except (TypeError, RuntimeError):
+        continue
+  return None
+
+
+def _propagation_code():
+  from torch.distributed.tensor._sharding_prop import ShardingPropagator
+  return ShardingPropagator._propagate_tensor_meta_non_cached.__code__
+
+
+def _in_propagation() -> bool:
+  """Whether DTensor's sharding propagation is on the Python stack (the
+  op runs on global shapes to infer an output's metadata)."""
+  code = _propagation_code()
+  f = sys._getframe(1)
+  while f is not None:
+    if f.f_code is code:
+      return True
+    f = f.f_back
+  return False
+
+
+def _scope_fields(regime: str, args: tuple) -> list:
+  """(operand name, tensor) of a kernel scope's routed call: the gemm
+  route's `(regime, leaf, x, policy)`, `_gru_cell`'s `(xw, h, rec,
+  bias)`, flash's `(q, k, v)`."""
+  if regime == "flash_attention":
+    return list(zip("qkv", args[:3]))
+  if regime == "gru_cell":
+    xw, h, rec, bias = args[:4]
+    return [("xw", xw), ("h", h), ("w", rec.w), ("bias", bias)]
+  leaf, x = args[1], args[2]
+  from repro_torch.dist.sharding import _leaf_fields
+  fields = _leaf_fields(leaf)
+  if not fields:
+    return [("x", x), ("w", leaf)]
+  return [("x", x)] + [(f, getattr(leaf, f)) for f in fields]
 
 
 def param_seeds(*trees) -> list:

@@ -49,12 +49,10 @@ CHECKS = (
                            # written in place (the torch form of
                            # donation); no sync on the card
     "sharding_coverage",   # every param leaf resolves to a sharding rule
-    "cost_budget",         # the cost ledger within its committed band
-                           # (A7b: dist/hlo_cost.py, not ported yet)
+    "cost_budget",         # the cost ledger (dist/hlo_cost.py over the
+                           # op walk) within its committed band
     "memory_budget",       # the liveness peak within its committed band
-                           # (A7b: analysis/budgets.py)
     "compression_ledger",  # static param count/bytes exactly as committed
-                           # (A7b); the strictness assertions run now
 )
 
 _CALL_ID_RE = re.compile(r":c\d+")

@@ -19,6 +19,12 @@ names: "jnp" is `KernelPolicy(mode="jnp_only")`, "pallas"
 `dispatch.decode_policy(BATCH)`, the kernels (a window's B x W rows are
 past that bound and route as the reference's do).
 
+With `ledgers=True` each program is walked with its trace kept, and
+its target carries the cost ledger (`dist.hlo_cost.analyze_walk`) and
+the memory ledger (`liveness.estimate` over the program's arguments:
+parameters, decode state, inputs; the state as donated), which
+`budgets.program_ledger` reads.
+
 Besides its walk, each decode and window target keeps what
 `checks.check_transfer_lint` reads: every decode-state tensor's shape,
 dtype and storage before and after the step (the torch form of the
@@ -34,8 +40,10 @@ from typing import Iterable, Iterator, Optional
 import torch
 
 from repro_torch import configs
+from repro_torch.analysis import liveness
 from repro_torch.analysis.op_walk import OpWalk, WalkResult, param_seeds
 from repro_torch.device import resolve_device
+from repro_torch.dist import hlo_cost
 from repro_torch.kernels import dispatch
 from repro_torch.layers.common import ShapeConfig
 from repro_torch.models.api import get_model
@@ -87,6 +95,8 @@ class RunTarget:
   state: dict
   sync_error: Optional[str]      # first sync error on the card, or None
   device: str
+  cost: Optional[object] = None  # hlo_cost.CostReport (ledgers=True)
+  live: Optional[object] = None  # liveness.LivenessReport (ledgers=True)
 
   @property
   def coord(self) -> dict:
@@ -137,6 +147,13 @@ def run_program(fn, seeds, *, keep_trace: bool = False):
   return out, walk, list(walk.log)
 
 
+def _ledgers(walk: OpWalk, out, inputs, donated=None) -> dict:
+  """The cost and memory ledgers of a walked program (kept trace)."""
+  return dict(cost=hlo_cost.analyze_walk(walk.result.trace),
+              live=liveness.estimate(walk.result, walk, outputs=out,
+                                     inputs=inputs, donated=donated))
+
+
 def _train_batch(cfg, gen: torch.Generator, device) -> dict:
   from repro_torch.configs import specs
   spec = specs.input_specs(cfg, ShapeConfig("audit_train", "train",
@@ -158,9 +175,11 @@ def iter_targets(config_names: Iterable[str] = DEFAULT_CONFIGS,
                  policies: Iterable[str] = POLICIES,
                  quants: Iterable[str] = QUANTS,
                  programs: Iterable[str] = PROGRAMS,
-                 *, device=None) -> Iterator[RunTarget]:
+                 *, device=None, ledgers: bool = False
+                 ) -> Iterator[RunTarget]:
   """Yield every RunTarget of the requested grid, each program run once
-  on `device` (default: the GPU)."""
+  on `device` (default: the GPU); with `ledgers`, each with its cost and
+  memory ledgers."""
   device = resolve_device(device)
   for name in config_names:
     name = normalize_config(name)
@@ -216,14 +235,17 @@ def iter_targets(config_names: Iterable[str] = DEFAULT_CONFIGS,
           sync = sync_error(lambda: step(fresh(), inputs), device)
           state = fresh()
           before = state_signature(state)
-          (_, new_state), walk, log = run_program(
-              lambda: step(state, inputs), seeds)
-          after = state_signature(new_state)
+          out, walk, log = run_program(lambda: step(state, inputs), seeds,
+                                       keep_trace=ledgers)
+          after = state_signature(out[1])
           yield RunTarget(name, cfg.family, policy, quant, program,
                           walk.result, log,
                           {k: (before.get(k), after.get(k))
                            for k in set(before) | set(after)},
-                          sync, device.type)
+                          sync, device.type,
+                          **(_ledgers(walk, out, (params, state, inputs,
+                                                  pos), state)
+                             if ledgers else {}))
 
         if "prefill" in programs and cfg.family != "deepspeech":
           # token-driven only: DS2 prefills frame-synchronously through
@@ -239,16 +261,22 @@ def iter_targets(config_names: Iterable[str] = DEFAULT_CONFIGS,
           prefill(fresh())
           sync = sync_error(lambda: prefill(fresh()), device)
           state = fresh()
-          _, walk, log = run_program(lambda: prefill(state), seeds)
+          out, walk, log = run_program(lambda: prefill(state), seeds,
+                                       keep_trace=ledgers)
           yield RunTarget(name, cfg.family, policy, quant, "prefill",
-                          walk.result, log, {}, sync, device.type)
+                          walk.result, log, {}, sync, device.type,
+                          **(_ledgers(walk, out, (params, state, prompts,
+                                                  pos))
+                             if ledgers else {}))
 
     if "train" in programs:
       # loss_fn threads no KernelPolicy (training is the plain surface),
       # so the train program has one coordinate: float x "-"
       batch = _train_batch(cfg, gen, device)
-      _, walk, log = run_program(
+      out, walk, log = run_program(
           lambda: api.loss_fn(float_params, batch, cfg),
-          param_seeds(float_params))
+          param_seeds(float_params), keep_trace=ledgers)
       yield RunTarget(name, cfg.family, "-", "float", "train",
-                      walk.result, log, {}, None, device.type)
+                      walk.result, log, {}, None, device.type,
+                      **(_ledgers(walk, out, (float_params, batch))
+                         if ledgers else {}))

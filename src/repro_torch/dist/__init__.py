@@ -1,5 +1,5 @@
 """`repro_torch.dist` — distributed execution on `torch.distributed`,
-counterpart of `repro.dist` (its `hlo_cost` waits for ROADMAP.md A7).
+counterpart of `repro.dist`.
 
   dist.mesh      — mesh construction: a `DeviceMesh` over the default
                    group's ranks (importing this package initialises no
@@ -9,8 +9,11 @@ counterpart of `repro.dist` (its `hlo_cost` waits for ROADMAP.md A7).
                    the one entry point that produces the `cs` callable
                    the models thread through their forward and decode
                    functions.
+  dist.hlo_cost  — the cost ledger of a walked program (FLOPs, HBM
+                   bytes, collective bytes, roofline terms at the
+                   H100's peaks), from `analysis.op_walk`'s op records.
 """
-from repro_torch.dist import mesh, sharding
+from repro_torch.dist import hlo_cost, mesh, sharding
 from repro_torch.dist.mesh import (dp_axes, dp_size, make_host_mesh,
                                    make_mesh, make_production_mesh,
                                    model_size)
@@ -19,7 +22,7 @@ from repro_torch.dist.sharding import (batch_shardings, identity_constraint,
                                        replicated, state_shardings)
 
 __all__ = [
-    "mesh", "sharding",
+    "hlo_cost", "mesh", "sharding",
     "dp_axes", "dp_size", "make_host_mesh", "make_mesh",
     "make_production_mesh", "model_size",
     "batch_shardings", "identity_constraint", "make_constraint",

@@ -424,8 +424,10 @@ def distribute_tensor_local(x: torch.Tensor, mesh, pl) -> torch.Tensor:
   GEMMs one device runs)."""
   from torch.distributed.tensor import DTensor, distribute_tensor
   if all(p.is_replicate() for p in pl):
-    return DTensor.from_local(x.detach().to(mesh.device_type), mesh, pl,
-                              run_check=False)
+    x = x.detach()
+    if x.device.type != mesh.device_type:
+      x = x.to(mesh.device_type)
+    return DTensor.from_local(x, mesh, pl, run_check=False)
   return distribute_tensor(x.detach(), mesh, pl, src_data_rank=None)
 
 
@@ -594,17 +596,23 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
   """cache[i, pos[i, t]] = new[i, t] in place on a DTensor cache (b, S,
   ...) whose rows are on the data axes and positions on the model axis
   (`state_shardings`): each rank writes the rows and positions its local
-  block holds; a position at or past S is dropped."""
+  block holds; a position at or past S is dropped. No mask selects the
+  writes (no data-dependent shape, no host sync): each of the W steps
+  writes one row of every batch row, a dropped one its own value back."""
   off = local_offsets(cache)
   local = cache.to_local()
   lb, ls = local.shape[:2]
   # the new rows split as the cache's block, whole along the length
-  new = _local_like(new, cache, _whole_on(cache, 1))
+  new = _local_like(new, cache, _whole_on(cache, 1)).to(local.dtype)
   pos = (pos.full_tensor() if is_dtensor(pos) else pos)[off[0]:off[0] + lb]
   rows = pos - off[1]
   keep = (pos < cache.shape[1]) & (rows >= 0) & (rows < ls)
-  bidx = torch.arange(lb, device=local.device)[:, None].expand_as(pos)
-  local[bidx[keep], rows[keep]] = new[keep].to(local.dtype)
+  rows = rows.clamp(0, ls - 1)
+  bidx = torch.arange(lb, device=local.device)
+  for t in range(pos.shape[1]):
+    r = rows[:, t]
+    k = keep[:, t].reshape((lb,) + (1,) * (new.ndim - 2))
+    local[bidx, r] = torch.where(k, new[:, t], local[bidx, r])
 
 
 def gather_params(params: nn.Module) -> nn.Module:
@@ -706,6 +714,42 @@ def split_heads(y: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
         pl[md] = Replicate()
         y = y.redistribute(y.device_mesh, pl)
   return y.reshape(*y.shape[:-1], heads, head_dim)
+
+
+class _ColumnsWholeGrad(torch.autograd.Function):
+  """The identity, whose backward gathers the gradient's last dim on the
+  model axis (see `merge_heads`)."""
+
+  @staticmethod
+  def forward(ctx, x):
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    from torch.distributed.tensor import Replicate
+    md = axis_names(g.device_mesh).index(MODEL_AXIS)
+    p = g.placements[md]
+    if p.is_shard() and p.dim % g.ndim == g.ndim - 1:
+      pl = list(g.placements)
+      pl[md] = Replicate()
+      g = g.redistribute(g.device_mesh, pl)
+    return g
+
+
+def merge_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
+  """(..., heads, head_dim) as (..., heads * head_dim), the inverse of
+  `split_heads`. On a DTensor whose model degree does not divide
+  `heads` (whisper-small's 12 heads on 16 ranks), the gradient coming
+  back through a row-split projection is split on the merged columns,
+  which cannot be viewed as heads; it is gathered on the model axis
+  first, as `split_heads` gathers the forward's columns."""
+  out = y.reshape(*y.shape[:-2], heads * y.shape[-1])
+  if is_dtensor(out) and out.requires_grad:
+    names = axis_names(out.device_mesh)
+    if MODEL_AXIS in names and \
+        heads % out.device_mesh.size(names.index(MODEL_AXIS)):
+      out = _ColumnsWholeGrad.apply(out)
+  return out
 
 
 def local_call(fn, mesh, inputs: Sequence, outputs, **kwargs):

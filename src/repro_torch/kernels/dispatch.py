@@ -248,11 +248,17 @@ def _scope(regime: str, cid: int):
 
 def _in_scope(regime: str, cid: int, fn, *args, **kwargs):
   """`fn(*args, **kwargs)`, inside its dispatch scope while a listener
-  is active."""
+  is active; a listener with a `scope_io(name, args, out)` also gets the
+  call's operands and result before the scope closes."""
   if not _LISTENERS:
     return fn(*args, **kwargs)
   with _scope(regime, cid):
-    return fn(*args, **kwargs)
+    out = fn(*args, **kwargs)
+    for listener in _LISTENERS:
+      io = getattr(listener, "scope_io", None)
+      if io is not None:
+        io(f"dispatch:{regime}:c{cid}", args, out)
+    return out
 
 
 def _remove(stack: list, item) -> None:

@@ -172,8 +172,7 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
   positions = torch.arange(s, device=x.device)[None].expand(b, s)
   q, k, v = _project_qkv(p, x, cfg, positions, policy, cs)
   out = flash_attention(q, k, v, cfg, policy)
-  h, hd = cfg.num_heads, cfg.resolved_head_dim
-  return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
+  return gemm(p["wo"], shd.merge_heads(out, cfg.num_heads), policy)
 
 
 def _bidir_block(s: int, block_kv: int) -> int:
@@ -228,7 +227,7 @@ def bidir_attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
   q, k, v = (shd.split_heads(gemm(p[w], x, policy), h, hd)
              for w in ("wq", "wk", "wv"))
   out = shd.heads_local(_bidir, q, k, v, policy=policy, bkv=bkv)
-  return gemm(p["wo"], out.reshape(b, s, h * hd), policy)
+  return gemm(p["wo"], shd.merge_heads(out, h), policy)
 
 
 def _bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, policy,

@@ -92,12 +92,14 @@ def init_mlstm(cfg: ModelConfig, *, layer_prefix: str, stack: tuple = (),
   }
 
 
-def _mlstm_chunk(q, k, v, logf, logi, C0, n0, m0):
+def _mlstm_chunk(q, k, v, logf, logi, C0, n0, m0, *, state: bool = True):
   """One chunk of the stabilized chunkwise mLSTM.
 
   q, k, v: (b, Q, h, p) f32; logf, logi: (b, Q, h); state C0 (b, h, p,
   p), n0 (b, h, p), m0 (b, h). Returns y (b, Q, h, p) and the state at
-  the chunk's end."""
+  the chunk's end, or Nones for it where `state` is False (a chunk
+  whose end state nobody reads: the reference's compiler drops its
+  update)."""
   b, Q, h, p = q.shape
   scale = p ** 0.5
   Fc = torch.cumsum(logf, dim=1)                         # (b, Q, h)
@@ -125,6 +127,8 @@ def _mlstm_chunk(q, k, v, logf, logi, C0, n0, m0):
 
   norm = torch.maximum(torch.abs(l_intra + l_inter), torch.exp(-m_new))
   y = (y_intra + y_inter) / torch.clamp(norm[..., None], min=1e-30)
+  if not state:
+    return y, None, None, None
 
   # the state at the chunk's end
   Ftot = Fc[:, -1]                                       # (b, h)
@@ -193,10 +197,12 @@ def _mlstm_chunks(q, k, v, logf, logi, *, chunk: int, heads: int, hd: int):
   n = torch.zeros((b, heads, hd), **f32)
   m = torch.full((b, heads), M_START, **f32)
   ys = []
-  for c in range(s // chunk):             # the reference's chunk scan
+  n_chunks = s // chunk
+  for c in range(n_chunks):               # the reference's chunk scan
     sl = slice(c * chunk, (c + 1) * chunk)
     y, C, n, m = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], logf[:, sl],
-                              logi[:, sl], C, n, m)
+                              logi[:, sl], C, n, m,
+                              state=c < n_chunks - 1)
     ys.append(y)
   return torch.cat(ys, dim=1)
 

@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.core.factored import dense
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import assign
 from repro_torch.kernels import dispatch
 from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
                                       identity_constraint)
@@ -182,18 +183,32 @@ def init_decode_state(cfg: ModelConfig, batch: int,
           for i, h in enumerate(cfg.gru_dims)}
 
 
+def _write_state(dst: torch.Tensor, h: torch.Tensor,
+                 active: torch.Tensor = None) -> None:
+  """Write a layer's new hidden state `h` into the state's own tensor
+  `dst` (the torch form of the reference's donated state); where
+  `active` (b,) is False, the row keeps its old value."""
+  if active is not None:
+    h = torch.where(active[:, None], h, dst)
+  assign(dst, h)
+
+
 def decode_step(params: DeepSpeech2, state: dict, x_t: torch.Tensor,
-                cfg: ModelConfig, policy=None
+                cfg: ModelConfig, policy=None, active=None
                 ) -> tuple[torch.Tensor, dict]:
-  """One post-frontend frame x_t (b, gru_in) -> (log_probs (b, v), new
+  """One post-frontend frame x_t (b, gru_in) -> (log_probs (b, v),
   state). The paper's low-batch regime: a decode policy routes the GRU
-  steps and the FC through the kernels."""
-  new_state = {}
+  steps and the FC through the kernels. Each layer's new hidden state is
+  written into `state`'s own tensor, in place, and `state` is returned;
+  with `active` (b,) bool, rows where it is False keep their old hidden
+  state (every layer still feeds the next its new one, as the fleet's
+  masked step did)."""
   h = x_t
   for i in range(len(cfg.gru_dims)):
-    h = gru_decode(params.grus[f"gru{i}"], h, state[f"gru{i}"], policy)
-    new_state[f"gru{i}"] = h
-  return _head(params, h, policy), new_state
+    key = f"gru{i}"
+    h = gru_decode(params.grus[key], h, state[key], policy)
+    _write_state(state[key], h, active)
+  return _head(params, h, policy), state
 
 
 def decode_state_batch_axes(cfg: ModelConfig) -> dict:
@@ -228,11 +243,10 @@ def api_decode_window(params: DeepSpeech2, state: dict, feat: torch.Tensor,
   W_{z,r,h} GEMM takes the whole window as b*W rows in one weight pass
   (paper §4's Wx batching); only the recurrence (`gru_cell`) steps over
   the window, seeded from the streaming carry, and the FC and output
-  GEMMs take the window's rows together. `state` is not written; the
-  returned dict holds new tensors. `positions` is ignored, as in the
-  frame step."""
+  GEMMs take the window's rows together. Each layer's carry after the
+  window is written into `state`'s own tensor, in place, and `state` is
+  returned. `positions` is ignored, as in the frame step."""
   del positions
-  new_state = {}
   h = feat
   for i, hidden in enumerate(cfg.gru_dims):
     p = params.grus[f"gru{i}"]
@@ -242,6 +256,6 @@ def api_decode_window(params: DeepSpeech2, state: dict, feat: torch.Tensor,
       for t in range(feat.shape[1]):
         hc = gru_cell(xw[:, t], hc, p.rec, p.bias, hidden, policy)
         hs.append(hc)
-    new_state[f"gru{i}"] = hc
     h = torch.stack(hs, dim=1)
-  return _head(params, h, policy), new_state
+    _write_state(state[f"gru{i}"], hc)
+  return _head(params, h, policy), state

@@ -37,7 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.factored import dense, normal
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import heads_local, split_heads
+from repro_torch.dist.sharding import heads_local, merge_heads, split_heads
 from repro_torch.kernels import dispatch
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.common import (Constraint, ModelConfig, gemm,
@@ -143,13 +143,12 @@ def _xattn(p, x: torch.Tensor, mem: torch.Tensor, cfg: ModelConfig,
   """Cross attention: queries from x (b, s, d), keys and values from the
   memory (b, t, d), scores and softmax in f32; on DTensors on each
   rank's rows and heads."""
-  b, s, _ = x.shape
   h, hd = cfg.num_heads, cfg.resolved_head_dim
   q = split_heads(gemm(p["wq"], x, policy), h, hd)
   k = split_heads(gemm(p["wk"], mem, policy), h, hd)
   v = split_heads(gemm(p["wv"], mem, policy), h, hd)
   o = heads_local(_cross, q, k, v)
-  return gemm(p["wo"], o.reshape(b, s, h * hd).to(x.dtype), policy)
+  return gemm(p["wo"], merge_heads(o, h).to(x.dtype), policy)
 
 
 def _cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.factored import param_tree
-from repro_torch.dist.sharding import local_block
+from repro_torch.dist.sharding import assign, is_dtensor, local_block
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -80,17 +80,31 @@ def apply(params: Params, grads: Mapping[str, torch.Tensor],
   step = state.step + 1
   b1c = 1.0 - cfg.b1 ** step
   b2c = 1.0 - cfg.b2 ** step
-  for k, p in tree.items():
+  for k, param in tree.items():
     g = grads[k].float()
     m, v = state.m[k], state.v[k]
-    # elementwise over operands laid out alike: on a mesh each rank its
-    # block
-    p, g, m, v = (local_block(t, p) for t in (p, g, m, v))
+    # elementwise in the moments' layout: on a mesh each rank its block;
+    # a parameter laid out otherwise (TP-resident under "zero1") takes
+    # its new value back by its own placements
+    work = m if is_dtensor(m) else param
+    p, g, m, v = (local_block(t, work) for t in (param, g, m, v))
     m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
     v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
     delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
     p32 = p.float()
     if cfg.weight_decay and p.ndim >= 2:
       delta = delta + cfg.weight_decay * p32
-    p.copy_(p32 - lr * delta)
+    new = p32 - lr * delta
+    if _same_layout(param, work):
+      p.copy_(new)
+    else:
+      from torch.distributed.tensor import DTensor
+      assign(param, DTensor.from_local(new, work.device_mesh,
+                                       work.placements, shape=work.shape,
+                                       stride=work.stride()))
   return params, AdamState(step=step, m=state.m, v=state.v), metrics
+
+
+def _same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
+  return a is b or not is_dtensor(a) or \
+      list(a.placements) == list(b.placements)

@@ -1005,13 +1005,12 @@ class StreamingSpeechServer:
 
   def _frame_step(self, x: torch.Tensor, active: torch.Tensor
                   ) -> torch.Tensor:
-    """One masked decode step over all slots: rows where `active` is
-    False keep their GRU state. Returns log-probs (batch, vocab)."""
-    log_probs, new = deepspeech.decode_step(self.params, self.state, x,
-                                            self.cfg, self.kernel_policy)
-    mask = active[:, None]
-    self.state = {k: torch.where(mask, new[k], old)
-                  for k, old in self.state.items()}
+    """One masked decode step over all slots, written into the state's
+    own tensors: rows where `active` is False keep their GRU state.
+    Returns log-probs (batch, vocab)."""
+    log_probs, _ = deepspeech.decode_step(self.params, self.state, x,
+                                          self.cfg, self.kernel_policy,
+                                          active=active)
     return log_probs
 
   def _decode_pending(self) -> list:

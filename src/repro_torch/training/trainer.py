@@ -73,7 +73,8 @@ def _slice(batch: dict, i: int, k: int) -> dict:
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     api: Optional[ModelApi] = None,
                     cs: Constraint = identity_constraint,
-                    reg: Optional[RegularizerConfig] = None):
+                    reg: Optional[RegularizerConfig] = None,
+                    grad_shardings: Optional[dict] = None):
   """Build (opt_init, step_fn): step_fn(params, opt_state, batch, step)
   -> (params, opt_state, metrics), updating params and opt_state in
   place. `step_fn.grads_of(params, batch)` -> (loss, metrics, grads) is
@@ -85,16 +86,32 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
   model's loss; with one, the params are DTensors, the step runs with
   plain tensors taken as replicated (`implicit_replication`), and every
   gradient is redistributed to its parameter's placements before the
-  optimizer sees it."""
+  optimizer sees it; `grad_shardings` ({state_dict key: NamedSharding})
+  lays the gradients and the moments out otherwise (the dry run's 2-D
+  layout, `launch.dryrun.build_train`)."""
   api = api or get_model(model_cfg)
   if api.loss_fn is None:
     raise NotImplementedError(
         f"no loss_fn for the {api.family} family yet: ROADMAP, \"Modules "
         "to port\"")
   reg = train_cfg.regularizer if reg is None else reg
-  opt_init, opt_apply = make_optimizer(train_cfg.optimizer)
+  base_init, opt_apply = make_optimizer(train_cfg.optimizer)
+
+  def opt_init(params):
+    """The optimizer's initial state, its moments laid out as the
+    gradients."""
+    if grad_shardings is None:
+      return base_init(params)
+    return base_init({k: shd.lay_out(p.detach(),
+                                     grad_shardings[k.replace("/", ".")])
+                      for k, p in param_tree(params).items()})
 
   sharded = cs is not identity_constraint
+
+  def _grad_placements(key: str, p: torch.Tensor) -> list:
+    if grad_shardings is None:
+      return p.placements
+    return grad_shardings[key.replace("/", ".")].placements
 
   def loss_fn(params, batch):
     if sharded:
@@ -112,8 +129,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     loss, metrics = loss_fn(params, batch)
     grads = torch.autograd.grad(loss, list(tree.values()))
     if sharded:
-      grads = [g.redistribute(p.device_mesh, p.placements)
-               for g, p in zip(grads, tree.values())]
+      grads = [g.redistribute(p.device_mesh, _grad_placements(k, p))
+               for g, (k, p) in zip(grads, tree.items())]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             dict(zip(tree, grads)))
 

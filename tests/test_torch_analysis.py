@@ -181,6 +181,22 @@ def test_a_host_read_in_a_step_is_flagged():
   assert keys == ["host-op:_local_scalar_dense:"]
 
 
+def test_an_op_the_cost_ledger_cannot_account_is_flagged():
+  """The reference's `hlo-unknown:{token}`: every entry of the cost
+  ledger's `unknown_ops` is a finding; a costed program gives none."""
+  from repro_torch.dist import hlo_cost
+
+  def costed(fn):
+    _, walk, log = targets.run_program(fn, [], keep_trace=True)
+    return targets.RunTarget(
+        "seeded", "test", "jnp", "float", "decode", walk.result, log, {},
+        None, "cpu", cost=hlo_cost.analyze_walk(walk.result.trace))
+  x = torch.randn(16, 16)
+  assert _idents(costed(lambda: torch.linalg.svdvals(x)),
+                 "transfer_lint") == ["hlo-unknown:op:aten._linalg_svd"]
+  assert _idents(costed(lambda: x @ x.T), "transfer_lint") == []
+
+
 def test_a_state_rebuilt_per_step_is_flagged():
   def run(step):
     state = {"h": torch.zeros(2, 8)}
@@ -333,19 +349,18 @@ def test_cli_exit_codes(tmp_path, capsys):
   saved = json.loads(open(rep_path).read())
   assert saved["ok"] and saved["targets"] and not saved[
       "stale_baseline_entries"]
-  # DS2's rebuilt GRU state is a known debt: against an EMPTY baseline
-  # it turns the exit code red
+  # the budgets ran by default, every DS2 coordinate ledgered
+  assert "deepspeech2-wsj|jnp|float|decode" in saved["meta"]["budgets"][
+      "programs"]
+  # DS2's unruled conv kernel is a known debt: against an EMPTY
+  # baseline it turns the exit code red
   empty = str(tmp_path / "empty.json")
-  lean = common + ["--no-lifecycle", "--no-sharding", "--programs",
-                   "decode", "--quants", "float", "--policies", "jnp"]
+  lean = common + ["--no-lifecycle", "--programs", "decode", "--quants",
+                   "float", "--policies", "jnp"]
   assert main(lean + ["--baseline", empty]) == 1
   assert "NEW" in capsys.readouterr().out
   assert main(lean + ["--baseline", empty, "--write-baseline"]) == 0
   assert main(lean + ["--baseline", empty]) == 0
-  # the budgets are A7b's: refused, not skipped
-  assert main(["budgets"]) == 2
-  with pytest.raises(NotImplementedError, match="A7b"):
-    analysis.run_audit(["deepspeech2-wsj"], run_budgets=True)
 
 
 def test_grid_audits_clean_on_the_baseline():

@@ -564,7 +564,9 @@ def test_ds2_decode_window_through_kernels_matches_plain_steps(cuda):
     _, state = api.decode_step(params, state, x, pos, cfg)
   frames = torch.from_numpy(rnd(5, (b, w, f))).to(cuda)
   ops.reset_launches()
-  got, new = api.decode_window(params, state, frames, pos, cfg,
+  # the window writes its state in place: each run gets its own
+  got, new = api.decode_window(params, {k: v.clone() for k, v in
+                                        state.items()}, frames, pos, cfg,
                                dispatch.resolve_policy("cuda", b, window=w))
   launches = dict(ops.LAUNCHES)
   want, want_state = api.decode_window_sequential(

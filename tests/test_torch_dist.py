@@ -440,6 +440,9 @@ WORKER = textwrap.dedent('''
       out[f"{tag}/log"] = np.array([f"{n}:{r}" for n, r in log])
 
     def worker(rank, tmp):
+      # a hung rank prints its stack before the test's timeout kills it
+      import faulthandler
+      faulthandler.dump_traceback_later(280, exit=True)
       torch.set_num_threads(1)
       import torch.distributed as dist
       from repro_torch.dist import mesh as M

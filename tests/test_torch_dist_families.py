@@ -411,6 +411,9 @@ WORKER = textwrap.dedent('''
           "hits", "misses", "evictions", "inserts", "entries", "bytes")])
 
     def worker(rank, tmp):
+      # a hung rank prints its stack before the test's timeout kills it
+      import faulthandler
+      faulthandler.dump_traceback_later(280, exit=True)
       torch.set_num_threads(1)
       import torch.distributed as dist
       from repro_torch.dist import mesh as M

@@ -52,7 +52,9 @@ def test_port_imports_neither_jax_nor_reference():
           "analysis/__main__.py", "analysis/report.py",
           "analysis/op_walk.py", "analysis/targets.py",
           "analysis/checks.py", "analysis/liveness.py",
-          "analysis/compression.py", "analysis/lifecycle.py"} <= names
+          "analysis/compression.py", "analysis/lifecycle.py",
+          "analysis/budgets.py", "dist/hlo_cost.py",
+          "launch/dryrun.py"} <= names
   root = PORT.parents[1]
   files += [root / "chip_smoke.py"] + sorted(
       (root / "examples").glob("*_torch.py"))
@@ -74,6 +76,8 @@ def test_audit_defaults_to_the_gpu(monkeypatch):
   with pytest.raises(RuntimeError, match="no CUDA device"):
     main(["audit", "--configs", "deepspeech2_wsj", "--no-lifecycle",
           "--no-sharding"])
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    main(["budgets", "--configs", "deepspeech2_wsj"])
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):

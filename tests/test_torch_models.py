@@ -196,8 +196,11 @@ def test_model_api_decode_step_and_slot_surgery(forms):
   state = api.init_decode_state(cfg, 2, device="cpu")
   x = torch.from_numpy(np.random.RandomState(0).randn(
       2, 1, params.grus["gru0"].nonrec.in_dim).astype(np.float32))
-  lp, new = api.decode_step(params, state, x, torch.zeros(2), cfg)
-  want, want_state = tds.decode_step(params, state, x[:, 0], cfg)
+  # the steps write their state in place: each gets its own
+  lp, new = api.decode_step(params, {k: v.clone() for k, v in state.items()},
+                            x, torch.zeros(2), cfg)
+  want, want_state = tds.decode_step(
+      params, {k: v.clone() for k, v in state.items()}, x[:, 0], cfg)
   assert lp.shape == (2, 1, cfg.vocab_size)
   assert torch.equal(lp[:, 0], want)
   one = {k: v[1:] for k, v in want_state.items()}

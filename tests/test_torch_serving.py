@@ -158,3 +158,42 @@ def test_lockstep_matches_fleet(forms, utts):
   assert got == [by_uid[0], by_uid[1]]
   with pytest.raises(ValueError):
     fleet.submit(np.zeros((4, 81), np.float32))
+
+
+@pytest.mark.parametrize("policy", ["plain", "cuda"])
+def test_frame_steps_keep_every_state_storage(forms, utts, policy):
+  """DS2's frame step, its window and the fleet's masked step write each
+  GRU hidden state into the state's own tensor (the reference donates
+  it): every storage survives the step, and the fleet's labels are the
+  serial path's."""
+  from repro_torch.models.api import get_model
+  cfg, params = torch_cfg(), bridged(forms["dense"])
+  api = get_model(cfg)
+  pol = dispatch.resolve_policy(policy, 2, window=3)
+  state = api.init_decode_state(cfg, 2, device="cpu")
+  ptrs = {k: v.untyped_storage().data_ptr() for k, v in state.items()}
+  f = params.grus["gru0"].nonrec.in_dim
+  x = torch.from_numpy(np.random.RandomState(5).randn(2, 3, f).astype(
+      np.float32))
+  pos = torch.zeros(2, dtype=torch.int64)
+  with torch.no_grad():
+    _, s1 = api.decode_step(params, state, x[:, :1], pos, cfg, pol)
+    _, s2 = api.decode_window(params, s1, x, pos, cfg, pol)
+  assert s1 is state and s2 is state
+  assert {k: v.untyped_storage().data_ptr() for k, v in s2.items()} == ptrs
+  assert all(v.abs().sum() > 0 for v in s2.values())
+  # the fleet: storages kept across its run; labels = serial
+  srv = StreamingSpeechServer(cfg, params, batch_size=SLOTS,
+                              kernel_policy=pol, device="cpu")
+  ptrs = {k: v.untyped_storage().data_ptr() for k, v in srv.state.items()}
+  for u in utts:
+    srv.submit(u)
+  fleet = {r.uid: r.labels for r in srv.run(chunk_frames=CHUNK)}
+  assert {k: v.untyped_storage().data_ptr()
+          for k, v in srv.state.items()} == ptrs
+  for uid, u in enumerate(utts):
+    one = StreamingSpeechServer(cfg, params, batch_size=1,
+                                kernel_policy=pol, device="cpu")
+    one.submit(u)
+    (res,) = one.run(chunk_frames=CHUNK)
+    assert res.labels == fleet[uid], uid

@@ -329,8 +329,10 @@ def test_ds2_window_matches_reference_and_steps(ds2, policy):
                                   jnp.zeros(b, jnp.int32), jax_cfg())
   pol = dispatch.resolve_policy(policy, b, window=w)
   with dispatch.record_dispatch() as log:
-    got, new = api.decode_window(params, state, torch.from_numpy(x), pos,
-                                 cfg, pol)
+    # the window writes its state in place: each run gets its own
+    got, new = api.decode_window(params, {k: v.clone() for k, v in
+                                          state.items()},
+                                 torch.from_numpy(x), pos, cfg, pol)
   seq, seq_state = api.decode_window_sequential(
       params, state, torch.from_numpy(x), pos, cfg)
   np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
